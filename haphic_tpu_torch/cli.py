@@ -1,0 +1,450 @@
+"""Command-line interface of the port: ``python -m haphic_tpu_torch``.
+
+Port of haphic_tpu/cli.py for the subcommands pipeline, cluster,
+reassign, sort, build and check, with the same flags. The stages that
+use the card (pipeline, cluster, sort) also take ``--device cuda|cpu``
+(default cuda); asking for CUDA on a host without a card raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+from haphic_tpu_torch._version import __version__, __update_time__
+
+
+def _add_cluster_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group('clustering')
+    g.add_argument('--RE', default='GATC',
+                   help='restriction enzyme site(s), comma separated')
+    g.add_argument('--bin_size', type=int, default=-1,
+                   help='bin size (kbp); -1 auto, 0 disables binning')
+    g.add_argument('--flank', type=int, default=500, help='flank size (kbp)')
+    g.add_argument('--Nx', type=int, default=80)
+    g.add_argument('--RE_site_cutoff', type=int, default=25)
+    g.add_argument('--density_lower', default='0.2X')
+    g.add_argument('--density_upper', default='1.9X')
+    g.add_argument('--topN', type=int, default=10)
+    g.add_argument('--rank_sum_upper', default='1.5X')
+    g.add_argument('--rank_sum_hard_cutoff', type=int, default=0)
+    g.add_argument('--read_depth_upper', default='1.5X')
+    g.add_argument('--remove_allelic_links', type=int, default=0,
+                   help='ploidy; 0 disables allelic link removal')
+    g.add_argument('--remove_concentrated_links', action='store_true')
+    g.add_argument('--concentration_ratio', type=float, default=10.0,
+                   help='bins holding >= this multiple of the median '
+                        'link count are deemed concentrated (the '
+                        'reference hardcodes 10)')
+    g.add_argument('--concordance_ratio_cutoff', type=float, default=0.2)
+    g.add_argument('--nwindows', type=int, default=50)
+    g.add_argument('--max_read_pairs', type=int, default=200)
+    g.add_argument('--min_read_pairs', type=int, default=20)
+    g.add_argument('--phasing_weight', type=float, default=1.0)
+    g.add_argument('--normalize_by_nlinks', action='store_true')
+    g.add_argument('--min_inflation', type=float, default=1.1)
+    g.add_argument('--max_inflation', type=float, default=3.0)
+    g.add_argument('--inflation_step', type=float, default=0.1)
+    g.add_argument('--max_iter', type=int, default=200)
+    g.add_argument('--pruning', type=float, default=1e-4)
+    g.add_argument('--mcl_backend', default='auto',
+                   choices=['auto', 'dense', 'sparse'],
+                   help='MCL engine: dense batched, sparse top-K, or '
+                        'auto by fragment count')
+    g.add_argument('--sparse_K', type=int, default=0,
+                   help='sparse MCL top-K per column (0 = default 128)')
+    g.add_argument('--use_mesh', default='auto',
+                   choices=['auto', 'on', 'off'],
+                   help='shard the MCL sweep + sort GA over a device '
+                        'mesh (not ported yet: "on" raises)')
+    g.add_argument('--ga_backend', default='auto',
+                   choices=['auto', 'device', 'native'],
+                   help='sort-stage GA engine (auto picks by work size)')
+    g.add_argument('--whitelist', default=None)
+    g.add_argument('--gfa', default=None)
+    g.add_argument('--quick_view', action='store_true')
+    g.add_argument('--correct_nrounds', type=int, default=0)
+    g.add_argument('--correct_resolution', type=int, default=500)
+    g.add_argument('--median_cov_ratio', type=float, default=0.2)
+    g.add_argument('--region_len_ratio', type=float, default=0.1)
+    g.add_argument('--min_region_cutoff', type=int, default=5000)
+    g.add_argument('--ul', default=None,
+                   help='ultra-long read alignments (BAM)')
+    g.add_argument('--min_ul_mapq', type=int, default=30)
+    g.add_argument('--min_ul_alignment_length', type=int, default=10000)
+    g.add_argument('--max_distance_to_end', type=int, default=100)
+    g.add_argument('--max_overlap_ratio', type=float, default=0.5)
+    g.add_argument('--max_gap_len', type=int, default=10000)
+    g.add_argument('--min_ul_support', type=int, default=2)
+
+
+def _add_reassign_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group('reassignment')
+    g.add_argument('--min_group_len', type=float, default=5)
+    g.add_argument('--max_ctg_len', type=float, default=10000)
+    g.add_argument('--min_RE_sites', type=int, default=25)
+    g.add_argument('--min_links', type=int, default=25)
+    g.add_argument('--min_link_density', type=float, default=0.0001)
+    g.add_argument('--min_density_ratio', type=float, default=4)
+    g.add_argument('--ambiguous_cutoff', type=float, default=0.6)
+    g.add_argument('--reassign_nrounds', type=int, default=5)
+    g.add_argument('--nclusters', type=int, default=0)
+    g.add_argument('--no_additional_rescue', action='store_true')
+
+
+def _add_sort_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group('ordering and orientation')
+    g.add_argument('--skip_fast_sort', action='store_true')
+    g.add_argument('--skip_allhic', action='store_true',
+                   help='skip GA tour optimization')
+    g.add_argument('--skipGA', action='store_true')
+    g.add_argument('--mutprob', type=float, default=0.2)
+    g.add_argument('--ngen', type=int, default=5000)
+    g.add_argument('--npop', type=int, default=100)
+    g.add_argument('--seed', type=int, default=42)
+    g.add_argument('--flanking_region', type=int, default=0)
+    g.add_argument('--density_cal_method', default='multiplication',
+                   choices=['multiplication', 'sum', 'geometric_mean'])
+    g.add_argument('--confidence_cutoff', type=float, default=1.0)
+
+
+def _add_build_args(p: argparse.ArgumentParser) -> None:
+    g = p.add_argument_group('scaffold building')
+    g.add_argument('--Ns', type=int, default=100)
+    g.add_argument('--max_width', type=int, default=60)
+    g.add_argument('--sort_by_input', action='store_true')
+    g.add_argument('--prefix', default='scaffolds')
+
+
+def _add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
+                   help='torch device of the MCL sweep and the GA '
+                        '(default: cuda; raises when CUDA is absent)')
+
+
+def _config_from_args(args) -> 'PipelineConfig':
+    from haphic_tpu_torch.assign.reassign import ReassignParams
+    from haphic_tpu_torch.pipeline import PipelineConfig
+    cfg = PipelineConfig()
+    for name in vars(cfg):
+        if hasattr(args, name) and getattr(args, name) is not None \
+                and name != 'reassign':
+            setattr(cfg, name, getattr(args, name))
+    rp = ReassignParams()
+    for name in vars(rp):
+        if hasattr(args, name):
+            setattr(rp, name, getattr(args, name))
+    cfg.reassign = rp
+    return cfg
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog='haphic-tpu-torch',
+        description='Hi-C scaffolding on NVIDIA GPUs (HapHiC-compatible), '
+                    'version {} (update: {})'.format(__version__,
+                                                     __update_time__))
+    parser.add_argument('--version', action='version', version=__version__)
+    parser.add_argument('--verbose', action='store_true')
+    sub = parser.add_subparsers(dest='command', required=True)
+
+    pp = sub.add_parser('pipeline', help='run the whole scaffolding pipeline')
+    pp.add_argument('fasta')
+    pp.add_argument('alignments', help='.pairs[.gz] or .bam Hi-C alignments')
+    pp.add_argument('nchrs', type=int)
+    pp.add_argument('--outdir', default='.')
+    pp.add_argument('--steps', default='1234')
+    _add_device_arg(pp)
+    _add_cluster_args(pp)
+    _add_reassign_args(pp)
+    _add_sort_args(pp)
+    _add_build_args(pp)
+
+    pc = sub.add_parser('cluster', help='run only the clustering stage')
+    pc.add_argument('fasta')
+    pc.add_argument('alignments')
+    pc.add_argument('nchrs', type=int)
+    pc.add_argument('--outdir', default='.')
+    _add_device_arg(pc)
+    _add_cluster_args(pc)
+
+    pr2 = sub.add_parser('reassign',
+                         help='rescue/reassign contigs from clusters')
+    pr2.add_argument('fasta')
+    pr2.add_argument('links', help='full_links.pkl or .pairs[.gz]/.bam')
+    pr2.add_argument('clusters', help='*.clusters.txt or Juicebox .assembly')
+    pr2.add_argument('clm', help='paired_links.clm')
+    pr2.add_argument('--outdir', default='.')
+    pr2.add_argument('--RE', default='GATC')
+    _add_reassign_args(pr2)
+
+    ps = sub.add_parser('sort', help='order and orient contigs per group')
+    ps.add_argument('fasta')
+    ps.add_argument('HT_links', help='HT_links.pkl')
+    ps.add_argument('clm_dir', help='directory with split per-group .clm')
+    ps.add_argument('groups', nargs='+', help='group*.txt files')
+    ps.add_argument('--outdir', default='.')
+    _add_device_arg(ps)
+    _add_sort_args(ps)
+
+    pb = sub.add_parser('build', help='build scaffolds from tour files')
+    pb.add_argument('fasta')
+    pb.add_argument('raw_fasta')
+    pb.add_argument('alignments')
+    pb.add_argument('tours', nargs='+')
+    pb.add_argument('--corrected_ctgs', default=None)
+    pb.add_argument('--outdir', default='.')
+    _add_build_args(pb)
+
+    sub.add_parser('check', help='check the torch/CUDA runtime and '
+                   'build the CUDA kernels')
+    return parser
+
+
+def cmd_pipeline(args) -> int:
+    from haphic_tpu_torch.pipeline import run_pipeline
+    cfg = _config_from_args(args)
+    cfg.steps = args.steps
+    run_pipeline(args.fasta, args.alignments, args.nchrs, cfg=cfg,
+                 outdir=args.outdir)
+    return 0
+
+
+def cmd_cluster(args) -> int:
+    from haphic_tpu_torch.pipeline import cluster_stage
+    cfg = _config_from_args(args)
+    cres = cluster_stage(args.fasta, args.alignments, args.nchrs, cfg,
+                         args.outdir)
+    if cres.stat_wait is not None:   # standalone: join the PDF workers
+        cres.stat_wait()
+    return 0
+
+
+def cmd_reassign(args) -> int:
+    import os
+
+    from haphic_tpu_torch.assign.reassign import (ReassignParams, reassign,
+                                            split_clm_file,
+                                            write_group_files)
+    from haphic_tpu_torch.io.artifacts import (load_link_pickle,
+                                         parse_assembly_file,
+                                         parse_clusters_file)
+    from haphic_tpu_torch.io.fasta import read_fasta
+
+    if not args.links.endswith(('.pkl', '.pairs', '.pairs.gz', '.bam')):
+        raise RuntimeError('The "links" argument should end with .bam, '
+                           '.pkl, .pairs, or .pairs.gz')
+    asm = read_fasta(args.fasta, RE=args.RE, keep_seqs=False)
+    if args.links.endswith('.pkl'):
+        full = load_link_pickle(args.links, asm.name2id)
+    else:
+        from haphic_tpu_torch.core.contacts import aggregate
+        from haphic_tpu_torch.core.fragments import build_fragments
+        from haphic_tpu_torch.io.pairs import PairsReader
+        frags = build_fragments(asm, RE=args.RE, bin_size_kbp=0)
+        if args.links.endswith('.bam'):
+            from haphic_tpu_torch.io.bam import BamReader
+            reader = BamReader(args.links, asm.names)
+        else:
+            reader = PairsReader(args.links, asm.names)
+        full = aggregate(reader, frags, keep_clm=False).full
+    if args.clusters.endswith('.clusters.txt'):
+        clusters = parse_clusters_file(args.clusters)
+    elif args.clusters.endswith('.assembly'):
+        clusters = parse_assembly_file(args.clusters)
+    else:
+        raise RuntimeError('The "clusters" argument should end with '
+                           '.clusters.txt or .assembly')
+    initial = [[asm.name2id[c] for c in ctgs if c in asm.name2id]
+               for _, ctgs in clusters]
+    p = ReassignParams(
+        min_group_len=args.min_group_len, max_ctg_len=args.max_ctg_len,
+        min_RE_sites=args.min_RE_sites, min_links=args.min_links,
+        min_link_density=args.min_link_density,
+        min_density_ratio=args.min_density_ratio,
+        ambiguous_cutoff=args.ambiguous_cutoff,
+        reassign_nrounds=args.reassign_nrounds,
+        nclusters=args.nclusters,
+        no_additional_rescue=args.no_additional_rescue)
+    res = reassign(asm, full, initial, params=p)
+    sub = 'hc_groups' if res.hc_applied else 'reassigned_groups'
+    prefix = 'hc' if res.hc_applied else 'reassigned'
+    write_group_files(res.groups, asm, os.path.join(args.outdir, sub),
+                      prefix=prefix)
+    final_dir = os.path.join(args.outdir, 'final_groups')
+    os.makedirs(final_dir, exist_ok=True)
+    for gname in res.groups.names:
+        dst = os.path.join(final_dir, '{}.txt'.format(gname))
+        if not os.path.exists(dst):
+            os.symlink(os.path.join('..', sub,
+                                    '{}_{}.txt'.format(prefix, gname)), dst)
+    cdst = os.path.join(final_dir, 'final_clusters.txt')
+    if not os.path.exists(cdst):
+        os.symlink(os.path.join('..', sub,
+                                '{}_clusters.txt'.format(prefix)), cdst)
+    split_clm_file(args.clm, res.groups, asm,
+                   os.path.join(args.outdir, 'split_clms'))
+    return 0
+
+
+def cmd_sort(args) -> int:
+    import os
+
+    import numpy as np
+
+    from haphic_tpu_torch.io.artifacts import (load_ht_pickle, parse_clm_file,
+                                         parse_group_file)
+    from haphic_tpu_torch.io.fasta import read_fasta
+    from haphic_tpu_torch.order import optimize as opt
+    from haphic_tpu_torch.order.arbiter import choose_fast_sort
+    from haphic_tpu_torch.order.fast_sort import (fast_sort, make_group_data,
+                                                  paths_to_tour, write_tour)
+    from haphic_tpu_torch.runtime import resolve_device
+
+    resolve_device(args.device)
+    asm = read_fasta(args.fasta, keep_seqs=False)
+    ht = load_ht_pickle(args.HT_links, asm.name2id)
+    final_dir = os.path.join(args.outdir, 'final_tours')
+    os.makedirs(final_dir, exist_ok=True)
+    lengths = {c: int(l) for c, l in zip(asm.names, asm.lengths)}
+
+    for group_file in args.groups:
+        prefix = os.path.splitext(os.path.basename(group_file))[0]
+        ctgs = parse_group_file(group_file)
+        for c, _, length in ctgs:
+            if c not in asm.name2id:
+                raise RuntimeError(
+                    'CANNOT find contig {} in the FASTA file'.format(c))
+            if lengths[c] != length:
+                raise RuntimeError(
+                    'Length of contig {} in the group file does NOT '
+                    'match the FASTA file'.format(c))
+        members = [asm.name2id[c] for c, _, __ in ctgs]
+        gd = make_group_data(members, asm.lengths, ht)
+        fast_tour = None
+        hot = None
+        if not args.skip_fast_sort and members:
+            paths = fast_sort(
+                gd, confidence_cutoff=args.confidence_cutoff,
+                density_cal_method=args.density_cal_method,
+                flanking_region_kbp=args.flanking_region,
+                log_prefix=prefix)
+            fast_tour = paths_to_tour(paths, gd.ctg_ids, asm.names)
+            write_tour(os.path.join(args.outdir,
+                                    '{}.tour.sav'.format(prefix)),
+                       fast_tour)
+            local_of = {int(c): i for i, c in enumerate(gd.ctg_ids)}
+            hot = (np.asarray([local_of[asm.name2id[c]]
+                               for c, _ in fast_tour], np.int32),
+                   np.asarray([1 if o == '-' else 0
+                               for _, o in fast_tour], np.int32))
+        final = fast_tour
+        if not args.skip_allhic and len(members) > 1:
+            clm_path = os.path.join(args.clm_dir,
+                                    '{}.clm'.format(prefix))
+            clm = parse_clm_file(clm_path, asm.name2id)
+            problem = opt.build_problem(gd.ctg_ids, asm.lengths,
+                                        clm.pair_i, clm.pair_j, clm.d)
+            res = opt.optimize_tour(problem, npop=args.npop,
+                                    ngen=args.ngen,
+                                    mutprob=args.mutprob,
+                                    seed=args.seed, hot_start=hot,
+                                    skip_ga=args.skipGA,
+                                    device=args.device)
+            ga_tour = opt.result_to_tour(res, gd.ctg_ids, asm.names)
+            opt.write_ga_tour(os.path.join(args.outdir,
+                                           '{}.tour'.format(prefix)),
+                              res, ga_tour, init_tour=fast_tour)
+            if fast_tour is not None and choose_fast_sort(
+                    fast_tour, ga_tour, lengths):
+                final = fast_tour
+            else:
+                final = ga_tour
+        elif fast_tour is not None:
+            write_tour(os.path.join(args.outdir,
+                                    '{}.tour'.format(prefix)), fast_tour)
+        if final is None:
+            final = [(asm.names[c], '+') for c in members]
+        write_tour(os.path.join(final_dir, '{}.tour'.format(prefix)),
+                   final)
+    return 0
+
+
+def cmd_build(args) -> int:
+    from haphic_tpu_torch.build.scaffolds import (build_final_scaffolds,
+                                            generate_juicebox_script,
+                                            parse_corrected_ctgs,
+                                            parse_tours)
+    from haphic_tpu_torch.io.fasta import read_fasta
+    asm = read_fasta(args.fasta)
+    tours = parse_tours(args.tours, set(asm.names))
+    corrected = parse_corrected_ctgs(args.corrected_ctgs)
+    build_final_scaffolds(tours, asm, corrected, prefix=args.prefix,
+                          Ns=args.Ns, max_width=args.max_width,
+                          sort_by_input=args.sort_by_input,
+                          outdir=args.outdir)
+    generate_juicebox_script(args.raw_fasta, args.alignments,
+                             prefix=args.prefix, outdir=args.outdir)
+    return 0
+
+
+def cmd_check(args) -> int:
+    """Report torch, CUDA, nvcc and the card, and build the CUDA
+    kernels; exit 1 when any of them is missing or fails."""
+    import importlib
+    import torch
+    from haphic_tpu_torch.kernels import build as kbuild
+    ok = True
+    for mod in ('numpy', 'scipy', 'torch'):
+        try:
+            m = importlib.import_module(mod)
+            print('{:<12} {}'.format(mod, getattr(m, '__version__', '?')))
+        except ImportError as e:
+            ok = False
+            print('{:<12} MISSING ({})'.format(mod, e))
+    print('{:<12} {}'.format('cuda', torch.version.cuda))
+    if torch.cuda.is_available():
+        print('{:<12} {} x {}'.format('card', torch.cuda.device_count(),
+                                      torch.cuda.get_device_name(0)))
+    else:
+        ok = False
+        print('{:<12} none (torch.cuda.is_available() is False)'.format(
+            'card'))
+    nvcc = kbuild.nvcc_path()
+    print('{:<12} {}'.format('nvcc', nvcc or 'MISSING'))
+    if nvcc is None:
+        ok = False
+    else:
+        # a failed build raises with nvcc's output
+        for name, path in kbuild.build().items():
+            print('{:<12} built {}'.format(name, path))
+    from haphic_tpu_torch.io.bam import native_lib as bam_native
+    from haphic_tpu_torch.order.optimize import native_lib as ga_native
+    print('{:<12} {}'.format('bam_reader',
+                             'native' if bam_native() else
+                             'python fallback'))
+    print('{:<12} {}'.format('tour_ga',
+                             'native' if ga_native() else
+                             'device-only (run make -C native)'))
+    return 0 if ok else 1
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format='%(asctime)s <%(module)s> [%(funcName)s] %(message)s',
+        datefmt='%Y-%m-%d %H:%M:%S')
+    return {
+        'pipeline': cmd_pipeline,
+        'cluster': cmd_cluster,
+        'reassign': cmd_reassign,
+        'sort': cmd_sort,
+        'build': cmd_build,
+        'check': cmd_check,
+    }[args.command](args)
+
+
+if __name__ == '__main__':
+    sys.exit(main())

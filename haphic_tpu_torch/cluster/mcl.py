@@ -1,0 +1,329 @@
+"""Markov clustering on the card (torch).
+
+Port of haphic_tpu/cluster/mcl.py. The whole inflation sweep is batched
+on the leading axis, as there:
+
+    expand  — batched f32 torch.matmul (TF32 off, see runtime.py)
+    inflate — element-wise power on positive entries, then a column
+              L1-normalise
+    prune   — keep entries >= pruning plus the FIRST argmax row of each
+              column, then renormalise
+    converge— numpy.allclose semantics (|a-b| <= atol + rtol*|b|),
+              checked from the third iteration, per-inflation freeze
+
+Semantics parity notes (vs the reference `mcl`,
+scripts/HapHiC_cluster.py:1987-2062):
+  * iteration 0 skips expansion (the sweep pre-expands once);
+  * prune restores the per-column argmax entry of the post-inflation
+    matrix before re-normalising;
+  * convergence is only checked from the third iteration (n > 1).
+
+Matrices are not padded: PyTorch has no compile cache to reuse, so the
+JAX package's power-of-two bucketing (_bucket_pad) and COO padding have
+no counterpart here, and the nonzero pattern goes to the host as a
+plain bool array (no packed bitmask). A converged inflation freezes: it
+leaves the batch, so later iterations compute only the active ones.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from haphic_tpu_torch.runtime import resolve_device
+
+logger = logging.getLogger(__name__)
+
+
+def _colnorm(m: torch.Tensor) -> torch.Tensor:
+    s = m.sum(dim=-2, keepdim=True)
+    return m * torch.where(s > 0, 1.0 / s, torch.zeros_like(s))
+
+
+def _matpower(m: torch.Tensor, e: int) -> torch.Tensor:
+    out = m
+    for _ in range(e - 1):
+        out = torch.matmul(out, m)
+    return out
+
+
+def _prune(m: torch.Tensor, pruning: float) -> torch.Tensor:
+    # keep entries >= pruning, and always the per-column (first) argmax
+    keep = m >= pruning
+    keep.scatter_(-2, torch.argmax(m, dim=-2, keepdim=True), True)
+    return _colnorm(torch.where(keep, m, torch.zeros_like(m)))
+
+
+def _inflate(m: torch.Tensor, infl: torch.Tensor) -> torch.Tensor:
+    # 0**p = 0; power on strictly positive entries only
+    pos = m > 0
+    p = torch.where(pos, torch.exp(infl * torch.log(
+        torch.where(pos, m, torch.ones_like(m)))), torch.zeros_like(m))
+    return _colnorm(p)
+
+
+def _converged(new: torch.Tensor, old: torch.Tensor,
+               rtol: float = 1e-5, atol: float = 1e-8) -> torch.Tensor:
+    d = (new - old).abs() - rtol * old.abs()
+    return d.amax(dim=(-2, -1)) <= atol
+
+
+def _mcl_batched(pre_expanded: torch.Tensor, inflations: torch.Tensor,
+                 expansion: int, max_iter: int, pruning: float):
+    """Run MCL for a batch of inflations from the pre-expanded matrix.
+
+    pre_expanded: (n, n) column-normalised and expanded once
+    inflations:   (B,) f32 on the same device
+    Returns (final (B,n,n), n_iters (B,) int32, converged (B,) bool),
+    on the device.
+    """
+    B = inflations.shape[0]
+    n = pre_expanded.shape[-1]
+    infl = inflations[:, None, None]
+    # iteration 0: inflate + prune only
+    m = _prune(_inflate(pre_expanded[None].expand(B, n, n), infl),
+               pruning)
+    conv_at = torch.full((B,), max_iter, dtype=torch.int32,
+                         device=m.device)
+    converged = torch.zeros((B,), dtype=torch.bool, device=m.device)
+    active = torch.arange(B, device=m.device)
+    it = 1
+    while it < max_iter and active.numel():
+        whole = active.numel() == B
+        cur = m if whole else m[active]
+        new = _prune(_inflate(_matpower(cur, expansion), infl[active]),
+                     pruning)
+        if whole:
+            m = new
+        else:
+            m[active] = new
+        if it >= 2:
+            conv = _converged(new, cur)
+            conv_at[active[conv]] = it + 1
+            converged[active[conv]] = True
+            active = active[~conv]
+        it += 1
+    return m, conv_at, converged
+
+
+@dataclass
+class MCLResult:
+    matrices: np.ndarray      # (B, m, m) final matrices
+    n_iters: np.ndarray       # (B,)
+    converged: np.ndarray     # (B,)
+
+
+# Below this n the sweep runs in numpy on the host. The value and its
+# environment variable follow the JAX package so that the port routes
+# work the same way; it changes only on H100 measurements (PERF.md).
+DEVICE_MIN_N = int(os.environ.get('HAPHIC_DEVICE_MIN_N', 1024))
+
+
+def _run_mcl_numpy(a: np.ndarray, inflations: np.ndarray, expansion: int,
+                   max_iter: int, pruning: float) -> MCLResult:
+    """Small-problem host path: identical semantics to `_mcl_batched`,
+    in numpy (fp32), serial over inflations."""
+    m = a.shape[0]
+
+    def colnorm(x):
+        s = x.sum(axis=0, keepdims=True)
+        with np.errstate(divide='ignore'):
+            inv = np.where(s > 0, 1.0 / s, 0.0)
+        return x * inv
+
+    def prune(x):
+        argmax_rows = np.argmax(x, axis=0)
+        keep = x >= pruning
+        keep[argmax_rows, np.arange(x.shape[1])] = True
+        return colnorm(np.where(keep, x, 0.0))
+
+    def inflate(x, infl):
+        with np.errstate(divide='ignore'):
+            p = np.where(x > 0, np.exp(
+                infl * np.log(np.where(x > 0, x, 1.0))), 0.0)
+        return colnorm(p)
+
+    pre = colnorm(a.astype(np.float32))
+    pre = np.linalg.matrix_power(pre, expansion)
+
+    B = len(inflations)
+    mats = np.empty((B, m, m), dtype=np.float32)
+    iters = np.empty((B,), dtype=np.int32)
+    conv = np.empty((B,), dtype=bool)
+    for b, infl in enumerate(inflations):
+        mat = prune(inflate(pre, float(infl)))
+        it, done = max_iter, False
+        for i in range(1, max_iter):
+            new = prune(inflate(
+                np.linalg.matrix_power(mat, expansion), float(infl)))
+            if i >= 2:
+                d = np.abs(new - mat) - 1e-5 * np.abs(mat)
+                if d.max() <= 1e-8:
+                    mat, it, done = new, i + 1, True
+                    break
+            mat = new
+        mats[b], iters[b], conv[b] = mat, it, done
+    return MCLResult(matrices=mats, n_iters=iters, converged=conv)
+
+
+def densify_coo(ci, cj, cw, m: int, device) -> torch.Tensor:
+    """Symmetric dense (m, m) f32 adjacency with self loops, built on
+    the device from the upper-triangle COO (counterpart of the JAX
+    package's _densify_coo; twin of sweep.build_adjacency)."""
+    dev = torch.device(device)
+    i = torch.as_tensor(np.asarray(ci, np.int64), device=dev)
+    j = torch.as_tensor(np.asarray(cj, np.int64), device=dev)
+    w = torch.as_tensor(np.asarray(cw, np.float32), device=dev)
+    a = torch.zeros((m, m), dtype=torch.float32, device=dev)
+    a.index_put_((i, j), w, accumulate=True)
+    a.index_put_((j, i), w, accumulate=True)
+    diag = torch.arange(m, device=dev)
+    a[diag, diag] += 1.0
+    return a
+
+
+def _coo_to_dense_np(ci, cj, cw, m):
+    """Host twin of densify_coo (for the numpy small-n path)."""
+    a = np.zeros((m, m), np.float32)
+    np.add.at(a, (ci, cj), cw.astype(np.float32))
+    np.add.at(a, (cj, ci), cw.astype(np.float32))
+    np.fill_diagonal(a, a.diagonal() + 1.0)
+    return a
+
+
+def _batch_size(B: int, n: int, budget: int = 6 << 30) -> int:
+    # ~4 live (B, n, n) f32 buffers in the loop
+    return max(1, min(B, int(budget // max(4 * n * n * 4, 1))))
+
+
+def _sweep(a: torch.Tensor, inflations, expansion, max_iter, pruning):
+    """Yield (start, end, final matrices, n_iters, converged) per
+    inflation batch, all on the device."""
+    p = _matpower(_colnorm(a), expansion)
+    infl = torch.as_tensor(np.asarray(inflations, np.float32),
+                           device=a.device)
+    B = infl.shape[0]
+    chunk = _batch_size(B, a.shape[0])
+    for s in range(0, B, chunk):
+        e = min(B, s + chunk)
+        mm, ii, cc = _mcl_batched(p, infl[s:e], expansion, max_iter,
+                                  float(pruning))
+        yield s, e, mm, ii, cc
+
+
+def run_mcl(adjacency: np.ndarray, inflations: Sequence[float],
+            expansion: int = 2, max_iter: int = 200, pruning: float = 1e-4,
+            device_min_n: Optional[int] = None,
+            device=None) -> MCLResult:
+    """Run the full inflation sweep and return the final matrices.
+
+    ``adjacency`` is the dense symmetric link matrix *with self loops*
+    (reference dict_to_matrix(add_self_loops=True)). Problems smaller
+    than ``device_min_n`` (default DEVICE_MIN_N) run in numpy on the
+    host.
+    """
+    dev = resolve_device(device)
+    m = adjacency.shape[0]
+    min_n = DEVICE_MIN_N if device_min_n is None else device_min_n
+    if m < min_n:
+        return _run_mcl_numpy(adjacency, np.asarray(inflations, np.float32),
+                              expansion, max_iter, pruning)
+    a = torch.as_tensor(adjacency.astype(np.float32), device=dev)
+    B = len(inflations)
+    mats = np.empty((B, m, m), dtype=np.float32)
+    iters = np.empty((B,), dtype=np.int32)
+    conv = np.empty((B,), dtype=bool)
+    for s, e, mm, ii, cc in _sweep(a, inflations, expansion, max_iter,
+                                   pruning):
+        mats[s:e] = mm.cpu().numpy()
+        iters[s:e] = ii.cpu().numpy()
+        conv[s:e] = cc.cpu().numpy()
+    return MCLResult(matrices=mats, n_iters=iters, converged=conv)
+
+
+def run_mcl_partitions(adjacency: Optional[np.ndarray],
+                       inflations: Sequence[float],
+                       expansion: int = 2, max_iter: int = 200,
+                       pruning: float = 1e-4,
+                       device_min_n: Optional[int] = None,
+                       coo=None, device=None):
+    """Inflation sweep returning per-inflation cluster partitions
+    (lists as interpret_result) plus (n_iters, converged). Only the
+    nonzero pattern of each final matrix goes to the host.
+
+    ``coo``: optional (ci, cj, cw, m) upper-triangle links — the matrix
+    is then densified on the device and ``adjacency`` may be None."""
+    dev = resolve_device(device)
+    if coo is not None:
+        ci, cj, cw, m = coo
+        m = int(m)
+    else:
+        m = adjacency.shape[0]
+    min_n = DEVICE_MIN_N if device_min_n is None else device_min_n
+    if m < min_n:
+        if coo is not None:
+            adjacency = _coo_to_dense_np(ci, cj, cw, m)
+        res = _run_mcl_numpy(adjacency,
+                             np.asarray(inflations, np.float32),
+                             expansion, max_iter, pruning)
+        parts = [interpret_result(res.matrices[b])
+                 for b in range(len(res.n_iters))]
+        logger.info('MCL sweep on the host (numpy, n=%d < %d)', m, min_n,
+                    extra={'metrics': {'mcl_route': 'host', 'n': m,
+                                       'n_iters': res.n_iters.tolist()}})
+        return parts, res.n_iters, res.converged
+    if coo is not None:
+        a = densify_coo(ci, cj, cw, m, dev)
+    else:
+        a = torch.as_tensor(adjacency.astype(np.float32), device=dev)
+    B = len(inflations)
+    parts = []
+    iters = np.empty((B,), dtype=np.int32)
+    conv = np.empty((B,), dtype=bool)
+    batches = []
+    for s, e, mm, ii, cc in _sweep(a, inflations, expansion, max_iter,
+                                   pruning):
+        nz = (mm != 0).cpu().numpy()
+        del mm
+        iters[s:e] = ii.cpu().numpy()
+        conv[s:e] = cc.cpu().numpy()
+        batches.append(e - s)
+        for b in range(e - s):
+            parts.append(interpret_result(nz[b]))
+    logger.info('MCL sweep on %s (n=%d, %d inflations in batches %s)',
+                dev, m, B, batches,
+                extra={'metrics': {'mcl_route': dev.type, 'n': m,
+                                   'batches': batches,
+                                   'n_iters': iters.tolist()}})
+    return parts, iters, conv
+
+
+def interpret_result(matrix: np.ndarray, tol: float = 0.0
+                     ) -> Optional[list]:
+    """Extract clusters from a converged MCL matrix.
+
+    Attractors are rows with a non-zero diagonal; each attractor's
+    cluster is the set of columns with non-zero entries in its row.
+    Returns None when the clusters do not form an exact partition
+    (parity: scripts/HapHiC_cluster.py:2065-2095).
+    """
+    m = matrix.shape[0]
+    nz = matrix > tol if tol else matrix != 0
+    attractors = np.nonzero(np.diagonal(nz))[0]
+    clusters = set()
+    for a in attractors:
+        clusters.add(tuple(np.nonzero(nz[a])[0].tolist()))
+    seen = set()
+    for cluster in clusters:
+        for node in cluster:
+            if node in seen:
+                return None
+            seen.add(node)
+    if len(seen) != m:
+        return None
+    return sorted(clusters)

@@ -1,0 +1,261 @@
+"""Inflation sweep orchestration + cluster file emission.
+
+Port of haphic_tpu/cluster/sweep.py. Mirrors run_mcl_clustering /
+get_main_groups / recommend_inflation
+(scripts/HapHiC_cluster.py:2098-2242) but:
+  * all inflations execute batched on the card
+    (haphic_tpu_torch.cluster.mcl);
+  * the recommended inflation is *returned as a value* instead of being
+    regex-scraped from a log file (reference design wart,
+    scripts/HapHiC_pipeline.py:382-401) — the log line is still emitted
+    for drop-in compatibility.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from dataclasses import dataclass
+from decimal import Decimal
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from haphic_tpu_torch.cluster import mcl as mcl_mod
+from haphic_tpu_torch.core.contacts import COO
+from haphic_tpu_torch.core.fragments import Fragments
+
+logger = logging.getLogger(__name__)
+
+
+def inflation_values(min_inflation: float, max_inflation: float,
+                     step: float) -> List[Decimal]:
+    """Decimal stepping, parity with reference lines :2139-2155."""
+    start = Decimal(str(min_inflation))
+    stepd = Decimal(str(step))
+    end = Decimal(str(max_inflation)) + stepd
+    out = []
+    v = start
+    while v < end:
+        out.append(v)
+        v += stepd
+    return out
+
+
+def build_adjacency(flank: COO, filtered_ids: np.ndarray, n_frag: int
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense symmetric adjacency over the filtered fragment subset, with
+    self loops (reference dict_to_matrix(add_self_loops=True)).
+
+    Returns (matrix, frag_ids) where frag_ids[i] is the fragment id of
+    dense row i (ascending fragment id order — a deterministic
+    canonicalisation of the reference's dict-insertion indexing, which
+    does not affect cluster membership).
+    """
+    filtered_ids = np.asarray(sorted(filtered_ids))
+    lookup = np.full(n_frag, -1, dtype=np.int64)
+    lookup[filtered_ids] = np.arange(len(filtered_ids))
+    sel = (lookup[flank.i] >= 0) & (lookup[flank.j] >= 0)
+    i = lookup[flank.i[sel]]
+    j = lookup[flank.j[sel]]
+    w = flank.w[sel].astype(np.float32)
+    m = len(filtered_ids)
+    mat = np.zeros((m, m), dtype=np.float32)
+    np.add.at(mat, (i, j), w)
+    np.add.at(mat, (j, i), w)
+    np.fill_diagonal(mat, mat.diagonal() + 1.0)
+    return mat, filtered_ids
+
+
+@dataclass
+class ClusterSet:
+    """Clusters of one inflation: list of (ctg_names, total_len),
+    sorted by total length descending; ctgs sorted by length desc."""
+    inflation: Decimal
+    clusters: List[Tuple[List[str], int]]
+
+
+@dataclass
+class SweepResult:
+    cluster_sets: List[ClusterSet]
+    mcl_nrounds: int
+    recommended_inflation: Optional[Decimal] = None
+    recommendation_len_ratio: Optional[float] = None
+
+
+def _clusters_to_ctgs(cluster_indices: List[Tuple[int, ...]],
+                      frag_ids: np.ndarray, frags: Fragments
+                      ) -> List[Tuple[List[str], int]]:
+    """Map fragment-level clusters to contig-level clusters: contigs
+    split into bins go to the cluster holding the largest summed bin
+    length (reference lines :2168-2194)."""
+    asm = frags.asm
+    result: List[Tuple[List[str], int]] = []
+    # split-contig votes: ctg -> {cluster_idx: bin_len_sum}, insertion ordered
+    ctg_votes: Dict[int, Dict[int, int]] = {}
+    per_cluster: List[List[int]] = []
+    for n, idxs in enumerate(cluster_indices):
+        ctgs: List[int] = []
+        for di in idxs:
+            fid = int(frag_ids[di])
+            c = int(frags.ctg_of_frag[fid])
+            if frags.split_ctg[c]:
+                votes = ctg_votes.setdefault(c, {})
+                votes[n] = votes.get(n, 0) + int(frags.frag_len[fid])
+            else:
+                ctgs.append(c)
+        per_cluster.append(ctgs)
+
+    for c, votes in ctg_votes.items():
+        # max by bin length; ties broken by insertion order (parity with
+        # the reference's stable sort over dict keys, line :2192)
+        best = sorted(votes.keys(), key=lambda k: votes[k], reverse=True)[0]
+        per_cluster[best].append(c)
+
+    for ctgs in per_cluster:
+        names = [asm.names[c] for c in ctgs]
+        total = int(asm.lengths[ctgs].sum()) if ctgs else 0
+        # sort contigs by length desc (reference line :2209)
+        names.sort(key=lambda x: asm.length_of(x), reverse=True)
+        result.append((names, total))
+
+    # sort clusters by total length desc; deterministic tie-break on the
+    # first contig name
+    result.sort(key=lambda x: (-x[1], x[0][0] if x[0] else ''))
+    return result
+
+
+def write_cluster_files(cs: ClusterSet, asm, outdir: str) -> str:
+    """Emit inflation_* directory with mcl_*.clusters.txt and group*.txt
+    (byte format per reference lines :2199-2218)."""
+    d = os.path.join(outdir, 'inflation_{}'.format(cs.inflation))
+    os.makedirs(d, exist_ok=True)
+    cpath = os.path.join(d, 'mcl_inflation_{}.clusters.txt'.format(cs.inflation))
+    with open(cpath, 'w') as f:
+        f.write('#Group\tnContigs\tContigs\n')
+        for n, (ctgs, glen) in enumerate(cs.clusters, 1):
+            f.write('group{}_{}bp\t{}\t{}\n'.format(n, glen, len(ctgs), ' '.join(ctgs)))
+    for n, (ctgs, glen) in enumerate(cs.clusters, 1):
+        with open(os.path.join(d, 'group{}_{}bp.txt'.format(n, glen)), 'w') as f:
+            f.write('#Contig\tRECounts\tLength\n')
+            for ctg in ctgs:
+                f.write('{}\t{}\t{}\n'.format(ctg, asm.re_of(ctg), asm.length_of(ctg)))
+    return cpath
+
+
+def get_main_groups(clusters: List[Tuple[List[str], int]],
+                    len_ratio: float) -> int:
+    """Length-ratio knee (parity: reference lines :2098-2107)."""
+    main_groups = len(clusters)
+    for n in range(len(clusters) - 1):
+        if clusters[n][1] and clusters[n + 1][1] / clusters[n][1] < len_ratio:
+            return n + 1
+    return main_groups
+
+
+def recommend_inflation(cluster_sets: List[ClusterSet], nchrs: int
+                        ) -> Tuple[Optional[Decimal], Optional[float]]:
+    """Smallest inflation whose #main_groups >= nchrs, relaxing the
+    length ratio 0.75 → 0.5 (parity: reference lines :2110-2129,
+    :2229-2240). Logs the reference's exact recommendation sentence."""
+    if not cluster_sets:
+        return None, None
+    max_ncl = max(len(cs.clusters) for cs in cluster_sets)
+    if max_ncl < nchrs:
+        logger.warning(
+            'The maximum number of clusters (%d) is even less than the expected '
+            'number of chromosomes (%d). You could try higher inflation.',
+            max_ncl, nchrs)
+        return None, None
+    for len_ratio in (0.75, 0.7, 0.65, 0.6, 0.55, 0.5):
+        separated = [(cs.inflation, get_main_groups(cs.clusters, len_ratio))
+                     for cs in cluster_sets]
+        separated = [(i, mg) for i, mg in separated if mg >= nchrs]
+        if separated:
+            separated.sort(key=lambda x: x[0])
+            rcm = separated[0][0]
+            logger.info('You could try inflation from %s (length ratio = %s)',
+                        rcm, len_ratio)
+            return rcm, len_ratio
+        if len_ratio <= 0.5:
+            logger.info(
+                'It seems that some chromosomes were grouped together '
+                '(length ratio = %s). You could check whether the parameters '
+                'used are correct / appropriate.', len_ratio)
+    return None, None
+
+
+def build_adjacency_coo(flank: COO, filtered_ids: np.ndarray, n_frag: int
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                   np.ndarray]:
+    """COO (i, j, w) over the filtered fragment subset (upper triangle,
+    local indices) plus the frag_ids row map — the sparse-path twin of
+    build_adjacency that never materializes n²."""
+    filtered_ids = np.asarray(sorted(filtered_ids))
+    lookup = np.full(n_frag, -1, dtype=np.int64)
+    lookup[filtered_ids] = np.arange(len(filtered_ids))
+    sel = (lookup[flank.i] >= 0) & (lookup[flank.j] >= 0)
+    i = lookup[flank.i[sel]]
+    j = lookup[flank.j[sel]]
+    w = flank.w[sel].astype(np.float64)
+    lo = np.minimum(i, j)
+    hi = np.maximum(i, j)
+    return lo, hi, w, filtered_ids
+
+
+# Above this fragment count the JAX package switches to its sparse
+# top-K ELL engine. The value and its environment variable follow the
+# JAX package so that the port routes work the same way; the sparse
+# engine itself is not ported yet (ROADMAP.md, queue item "sparse ELL
+# MCL"), so such inputs raise.
+SPARSE_MIN_N = int(os.environ.get('HAPHIC_SPARSE_MCL_MIN_N', 20000))
+
+
+def run_clustering(flank: COO, filtered_ids: np.ndarray, frags: Fragments,
+                   nchrs: int, expansion: int = 2, min_inflation: float = 1.1,
+                   max_inflation: float = 3.0, inflation_step: float = 0.1,
+                   max_iter: int = 200, pruning: float = 1e-4,
+                   outdir: str = '.', write_files: bool = True,
+                   mcl_backend: str = 'auto', sparse_K: int = 0,
+                   device=None) -> SweepResult:
+    """Full clustering stage: adjacency → batched MCL sweep → cluster
+    files + inflation recommendation.
+
+    ``mcl_backend``: 'dense' | 'auto'. The sparse engine ('sparse', or
+    'auto' from SPARSE_MIN_N fragments) is not ported yet and raises
+    NotImplementedError."""
+    inflations = inflation_values(min_inflation, max_inflation, inflation_step)
+    m = len(np.asarray(filtered_ids))
+    use_sparse = mcl_backend == 'sparse' or (
+        mcl_backend == 'auto' and m >= SPARSE_MIN_N)
+    if use_sparse:
+        raise NotImplementedError(
+            'the sparse top-K MCL engine (n={} fragments, SPARSE_MIN_N={}) '
+            'is not ported yet: ROADMAP.md queue item "sparse ELL MCL '
+            '(sparse_mcl.py)"'.format(m, SPARSE_MIN_N))
+    logger.info('Performing Markov clustering (n=%d fragments, %d '
+                'inflations, batched, dense)...', m, len(inflations))
+    # links go to the device as an O(nnz) COO list and are densified
+    # there; only the nonzero pattern of each result comes back
+    ci, cj, cw, frag_ids = build_adjacency_coo(flank, filtered_ids,
+                                               len(frags))
+    partitions, _, _ = mcl_mod.run_mcl_partitions(
+        None, [float(i) for i in inflations], expansion=expansion,
+        max_iter=max_iter, pruning=pruning,
+        coo=(ci, cj, cw, len(frag_ids)), device=device)
+    cluster_sets: List[ClusterSet] = []
+    for b, inflation in enumerate(inflations):
+        idx_clusters = partitions[b]
+        if not idx_clusters:
+            logger.info('Some fragments are missing / redundant, result of '
+                        'inflation %s will NOT be output', inflation)
+            continue
+        clusters = _clusters_to_ctgs(idx_clusters, frag_ids, frags)
+        cs = ClusterSet(inflation=inflation, clusters=clusters)
+        cluster_sets.append(cs)
+        if write_files:
+            write_cluster_files(cs, frags.asm, outdir)
+
+    rcm, ratio = recommend_inflation(cluster_sets, nchrs)
+    return SweepResult(cluster_sets=cluster_sets, mcl_nrounds=len(inflations),
+                       recommended_inflation=rcm, recommendation_len_ratio=ratio)

@@ -1,0 +1,873 @@
+"""Tour optimization on the card: port of haphic_tpu/order/optimize.py.
+
+The objective is reconstructed from the CLM file semantics
+(scripts/HapHiC_cluster.py:376-401): a CLM record stores, for one read
+pair spanning contigs a and b (a < b by name) and each of the four
+orientation combinations, the distance the read pair would span if the
+two contigs were placed adjacently in that orientation:
+
+    d(+,+) = len_a - p_a + p_b          d(-,+) = p_a + p_b
+    d(+,-) = len_a - p_a + len_b - p_b  d(-,-) = p_a + len_b - p_b
+
+For a full tour the implied genomic separation of the read pair is
+``d[combo] + G`` where G is the total length of contigs strictly between
+a and b, and combo is the orientation pair as seen with a first. The
+tour score is
+
+    score(tour) = sum_r w_r / max(d[combo_r] + G_r, 1)
+
+Design, as in the JAX package: groups are bucketed by padded shape
+(k_pad, R_pad) and every bucket evolves as one batch with a leading
+group axis. Each log_every window is a run of delta-scored cycles: one
+full-scored (mu+lambda) generation with OX crossover, mutation, stable
+top-P selection and a half-elitist reset, then GA_SYNC_EVERY-1 greedy
+generations whose moves are scored as explicit deltas from per-record
+endpoint caches updated in closed form (exact int32 coordinates). The
+population scorer (initial scores, skip_ga, the full-rescore window) is
+the hand-written CUDA kernel in haphic_tpu_torch.kernels.
+
+Differences from the JAX package: gathers and the permutation inverse
+are plain torch indexing and scatters (no one-hot matmuls, no 12-bit
+splits); random numbers come from a torch.Generator on the device,
+drawn in their own functions (``_move_draws``, ``_ox_draws``) so that a
+test can hand the same draws to both packages.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from haphic_tpu_torch.kernels.score import score_population
+from haphic_tpu_torch.runtime import resolve_device
+
+logger = logging.getLogger(__name__)
+
+CHUNK = 1 << 14          # max CLM records per scoring chunk (bucketing)
+MIN_CHUNK = 1 << 9       # smallest padded record count
+
+# Work (npop * ngen * total CLM records) below which the native C++ GA
+# (native/tour_ga.cpp) runs instead of the device GA. The value and its
+# environment variable follow the JAX package so that the port routes
+# work the same way; it changes only on H100 measurements (PERF.md).
+NATIVE_MAX_WORK = float(os.environ.get('HAPHIC_GA_NATIVE_MAX_WORK', 1e10))
+
+_native = None
+_native_checked = False
+
+
+def _load_native():
+    from haphic_tpu_torch.utils.nativelib import load_shared
+    lib = load_shared('libtourga.so', ['tour_ga.cpp'])
+    if lib is None:
+        return None
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.tour_ga_run.restype = ctypes.c_int
+    lib.tour_ga_run.argtypes = [
+        ctypes.c_int, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), i32p, i32p,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double,
+        ctypes.c_uint64, ctypes.c_int, ctypes.c_int,
+        i32p, i32p, ctypes.c_int,
+        i32p, i32p, ctypes.POINTER(ctypes.c_double),
+        i32p, ctypes.POINTER(ctypes.c_double)]
+    return lib
+
+
+def native_lib():
+    global _native, _native_checked
+    if not _native_checked:
+        _native = _load_native()
+        _native_checked = True
+    return _native
+
+
+def _optimize_native(problem: 'TourProblem', npop: int, ngen: int,
+                     mutprob: float, seed: int, hot_start, log_every: int,
+                     xoprob: float = 0.3, nthreads: int = 0) -> 'GAResult':
+    """One group on the native C++ GA kernel (small-problem path)."""
+    lib = native_lib()
+    k = problem.k
+    if hot_start is not None:
+        init_order = np.ascontiguousarray(hot_start[0], dtype=np.int32)
+        init_ori = np.ascontiguousarray(hot_start[1], dtype=np.int32)
+        shuffle = 0
+    else:
+        init_order = np.arange(k, dtype=np.int32)
+        init_ori = np.zeros(k, dtype=np.int32)
+        shuffle = 1
+    lengths = np.ascontiguousarray(problem.lengths, dtype=np.int64)
+    pa = np.ascontiguousarray(problem.pair_a, dtype=np.int32)
+    pb = np.ascontiguousarray(problem.pair_b, dtype=np.int32)
+    d = np.ascontiguousarray(problem.d, dtype=np.float32)
+    w = np.ascontiguousarray(problem.w, dtype=np.float32)
+    out_order = np.empty(k, dtype=np.int32)
+    out_ori = np.empty(k, dtype=np.int32)
+    out_score = ctypes.c_double()
+    nh = ngen // max(log_every, 1) + 2
+    hist_gen = np.empty(nh, dtype=np.int32)
+    hist_score = np.empty(nh, dtype=np.float64)
+
+    def ptr(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+
+    n = lib.tour_ga_run(
+        k, problem.n_records,
+        ptr(lengths, ctypes.c_int64), ptr(pa, ctypes.c_int32),
+        ptr(pb, ctypes.c_int32), ptr(d, ctypes.c_float),
+        ptr(w, ctypes.c_float),
+        npop, ngen, mutprob, xoprob, seed, max(log_every, 1), nthreads,
+        ptr(init_order, ctypes.c_int32), ptr(init_ori, ctypes.c_int32),
+        shuffle,
+        ptr(out_order, ctypes.c_int32), ptr(out_ori, ctypes.c_int32),
+        ctypes.byref(out_score),
+        ptr(hist_gen, ctypes.c_int32),
+        ptr(hist_score, ctypes.c_double))
+    history = [(int(hist_gen[i]), float(hist_score[i])) for i in range(n)]
+    return GAResult(order=out_order, ori=out_ori,
+                    score=float(out_score.value), history=history)
+
+
+def _effective_chunk(n_records: int, chunk: int = CHUNK) -> int:
+    """Chunk size adapted to the group's record count (a bucketing key:
+    groups with few CLM records must not pad to the maximum chunk)."""
+    return min(chunk, _bucket(max(n_records, 1), MIN_CHUNK))
+
+
+@dataclass
+class TourProblem:
+    """Per-group scoring data, record-level.
+
+    lengths: int64[k] contig lengths (local order = group order)
+    pair_a/pair_b: int32[R] local contig indices (a < b)
+    d: float32[4, R] orientation-combination distances
+    w: float32[R] record weights (collapsed duplicate counts)
+    """
+    lengths: np.ndarray
+    pair_a: np.ndarray
+    pair_b: np.ndarray
+    d: np.ndarray
+    w: np.ndarray
+
+    @property
+    def k(self) -> int:
+        return len(self.lengths)
+
+    @property
+    def n_records(self) -> int:
+        return len(self.pair_a)
+
+
+def build_problem(ctg_ids: Sequence[int], lengths_all: np.ndarray,
+                  clm_pair_i: np.ndarray, clm_pair_j: np.ndarray,
+                  clm_d: np.ndarray) -> TourProblem:
+    """Select the CLM records of one group and relabel to local ids.
+
+    ``ctg_ids`` must be the group's contig ordering used everywhere else
+    (fast_sort.GroupOrderData.ctg_ids). Duplicate records (same pair and
+    identical distance 4-tuple) are collapsed into weights.
+    """
+    ctg_ids = np.asarray(ctg_ids, dtype=np.int64)
+    n_all = int(lengths_all.shape[0])
+    lookup = np.full(n_all, -1, dtype=np.int64)
+    lookup[ctg_ids] = np.arange(len(ctg_ids))
+    a = lookup[clm_pair_i]
+    b = lookup[clm_pair_j]
+    sel = (a >= 0) & (b >= 0)
+    a, b = a[sel], b[sel]
+    d = clm_d[:, sel]
+    # collapse duplicates
+    rec = np.concatenate([a[None], b[None], d], axis=0)
+    uniq, inv, cnt = np.unique(rec.T, axis=0, return_inverse=True,
+                               return_counts=True)
+    return TourProblem(
+        lengths=lengths_all[ctg_ids].astype(np.int64),
+        pair_a=uniq[:, 0].astype(np.int32),
+        pair_b=uniq[:, 1].astype(np.int32),
+        d=uniq[:, 2:6].T.astype(np.float32),
+        w=cnt.astype(np.float32))
+
+
+def _bucket(n: int, base: int) -> int:
+    """Round up to base * 2^k."""
+    out = base
+    while out < n:
+        out *= 2
+    return out
+
+
+def _record_bucket(n: int, chunk: int) -> int:
+    """Padded record count for bucketing: the next power of two for
+    small groups; past 8192 records, quarter-octave steps (m/8 of the
+    next power of two, m in 5..8)."""
+    p = _bucket(max(n, 1), MIN_CHUNK)
+    if p <= max(chunk, 8192):
+        return p
+    q = p // 8
+    return -(-n // q) * q
+
+
+def _pad_records(p: TourProblem, chunk: int):
+    R = p.n_records
+    Rp = _record_bucket(max(R, 1), chunk)
+    pad = Rp - R
+    pa = np.pad(p.pair_a, (0, pad))
+    pb = np.pad(p.pair_b, (0, pad))
+    d = np.pad(p.d, ((0, 0), (0, pad)))
+    w = np.pad(p.w, (0, pad))          # zero weight => no contribution
+    return pa, pb, d, w, Rp
+
+
+# ---------------------------------------------------------------------------
+# Permutation helpers. Shapes carry a leading group axis: (G, P, k).
+# ---------------------------------------------------------------------------
+
+def _inverse(order: torch.Tensor) -> torch.Tensor:
+    """pos_of[g, p, c] = slot of contig c (scatter of the slot ids)."""
+    k = order.shape[-1]
+    slots = torch.arange(k, dtype=order.dtype, device=order.device)
+    return torch.empty_like(order).scatter_(
+        -1, order.long(), slots.expand(order.shape).contiguous())
+
+
+def _take(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[..., i] = vals[..., idx[..., i]] along the last axis."""
+    return torch.gather(vals, -1, idx.long())
+
+
+def _take_rows(vals: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """out[g, p] = vals[g, rows[g, p]] for (G, N, k) vals."""
+    return torch.gather(vals, 1, rows.long()[..., None].expand(
+        rows.shape + vals.shape[2:]))
+
+
+def _top_rows(scores: torch.Tensor, P: int):
+    """Best P rows per group, best first; ties keep the lower row (the
+    stable order of lax.top_k: parents win ties)."""
+    s, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return s[:, :P], idx[:, :P]
+
+
+# ---------------------------------------------------------------------------
+# Random draws and the moves they make
+# ---------------------------------------------------------------------------
+
+_LOG_075 = float(np.log(np.float32(0.75)).astype(np.float32))
+
+
+def _move_draws(gen: torch.Generator, shape, k: int, device):
+    """The seven draws of one mutation per individual: u_do, op, e1,
+    e2, e3, u_local, u_span (the JAX package's _sample_moves draws)."""
+    def u():
+        return torch.rand(shape, generator=gen, device=device)
+
+    def ri(hi):
+        return torch.randint(0, hi, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+    return u(), ri(4), ri(k), ri(k), ri(k), u(), u()
+
+
+def _moves_from_draws(u_do, op, e1, e2, e3, u_local, u_span, k: int,
+                      mutprob: float, local_frac: float = 0.5):
+    """(do, op, i, j, t) with op in {0 swap, 1 inversion of [i,j],
+    2 rotation of [i,t) by j-i, 3 orientation flip of [i,j]}. A
+    ``local_frac`` share of the moves is local (geometric span, mean
+    ~4)."""
+    do = u_do < mutprob
+    i = torch.minimum(e1, e2)
+    j = torch.maximum(e1, e2)
+    local = u_local < local_frac
+    log_075 = torch.tensor(_LOG_075, dtype=torch.float32,
+                           device=u_span.device)
+    span = 1 + torch.floor(torch.log(1.0 - u_span) / log_075).to(
+        torch.int32)
+    j_local = torch.clamp(e1 + span, max=k - 1)
+    i = torch.where(local, e1, i)
+    j = torch.where(local, torch.maximum(j_local, e1), j)
+    e3 = torch.where(local, j, e3)
+    t = torch.maximum(j, e3)
+    return do, op, i, j, t
+
+
+def _sample_moves(gen, shape, k: int, mutprob: float, local_frac=0.5,
+                  device=None):
+    return _moves_from_draws(*_move_draws(gen, shape, k, device), k,
+                             mutprob, local_frac)
+
+
+def _move_src(do, op, i, j, t, k: int):
+    """Slot-level source indices of one move: new[idx] = old[src[idx]],
+    plus the orientation-flip mask (inversion and op 3 flip the
+    span)."""
+    idx = torch.arange(k, dtype=torch.int32, device=do.device)
+    ii, jj, tt = i[..., None], j[..., None], t[..., None]
+    opx = op[..., None]
+    src_swap = torch.where(idx == ii, jj, torch.where(idx == jj, ii, idx))
+    in_span = (idx >= ii) & (idx <= jj)
+    src_inv = torch.where(in_span, ii + jj - idx, idx)
+    span = torch.clamp(tt - ii, min=1)
+    in_rot = (idx >= ii) & (idx < tt)
+    src_rot = torch.where(in_rot, ii + (idx - ii + (jj - ii)) % span, idx)
+    src = torch.where(opx == 0, src_swap,
+                      torch.where(opx == 1, src_inv,
+                                  torch.where(opx == 2, src_rot, idx)))
+    src = torch.where(do[..., None], src, idx)
+    flip = do[..., None] & in_span & ((opx == 1) | (opx == 3))
+    return src, flip
+
+
+def _apply_move(order, ori, src, flip):
+    new_order = _take(order, src)
+    new_ori = _take(ori, src)
+    return new_order, torch.where(flip, 1 - new_ori, new_ori)
+
+
+def _mutate(gen, order, ori, mutprob: float):
+    """One mutation per individual, applied with probability
+    ``mutprob`` (else identity)."""
+    k = order.shape[-1]
+    do, op, i, j, t = _sample_moves(gen, order.shape[:-1], k, mutprob,
+                                    device=order.device)
+    return _apply_move(order, ori, *_move_src(do, op, i, j, t, k))
+
+
+def _ox_draws(gen: torch.Generator, G: int, P: int, k: int, device):
+    """u_do, partner, e1, e2 of one OX crossover per individual."""
+    u = torch.rand((G, P), generator=gen, device=device)
+    partner = torch.randint(0, P, (G, P), generator=gen, device=device,
+                            dtype=torch.int32)
+    e1 = torch.randint(0, k, (G, P), generator=gen, device=device,
+                       dtype=torch.int32)
+    e2 = torch.randint(0, k, (G, P), generator=gen, device=device,
+                       dtype=torch.int32)
+    return u, partner, e1, e2
+
+
+def _ox_from_draws(order, ori, u_do, partner, e1, e2, xoprob: float):
+    """Order crossover (OX1): the child keeps this individual's genes on
+    the slot span [i, j] and fills the other slots with the partner's
+    remaining genes in partner order (orientations travel with their
+    gene)."""
+    G, P, k = order.shape
+    do = u_do < xoprob
+    i = torch.minimum(e1, e2)[..., None]
+    j = torch.maximum(e1, e2)[..., None]
+    idx = torch.arange(k, dtype=torch.int32, device=order.device)
+    in_span = (idx >= i) & (idx <= j)
+    pos_a = _inverse(order)
+    b_order = _take_rows(order, partner)
+    b_ori = _take_rows(ori, partner)
+    pos_in_a = _take(pos_a, b_order)
+    keep = ~((pos_in_a >= i) & (pos_in_a <= j))        # partner genes
+    kept = keep.to(torch.int64)
+    b_rank = torch.cumsum(kept, dim=2) - kept          # outside A's span
+    out = (~in_span).to(torch.int64)
+    slot_rank = torch.cumsum(out, dim=2) - out
+    # compact the kept partner genes to the front, in partner order;
+    # the rest land in the spare slot k
+    dst = torch.where(keep, b_rank, torch.full_like(b_rank, k))
+    buf = torch.zeros((G, P, k + 1), dtype=order.dtype, device=order.device)
+    fill = torch.gather(buf.scatter(2, dst, b_order), 2, slot_rank)
+    fillo = torch.gather(buf.scatter(2, dst, b_ori), 2, slot_rank)
+    child = torch.where(in_span, order, fill)
+    child_ori = torch.where(in_span, ori, fillo)
+    dox = do[..., None]
+    return torch.where(dox, child, order), torch.where(dox, child_ori, ori)
+
+
+def _ox_crossover(gen, order, ori, xoprob: float):
+    G, P, k = order.shape
+    return _ox_from_draws(order, ori, *_ox_draws(gen, G, P, k,
+                                                 order.device), xoprob)
+
+
+# ---------------------------------------------------------------------------
+# Delta-scored evolution. The score of a mutated tour is recomputed from
+# CACHED per-record endpoint state updated in closed form: every move
+# permutes only the slots inside its span and preserves the span's total
+# length, so the new (slot, start, orientation) of a record endpoint is
+# arithmetic on its old cached values plus five per-individual scalars
+# read from the slot-start table (see the JAX package for the quality
+# measurements behind each rule below).
+# ---------------------------------------------------------------------------
+
+
+def _contrib_from_cache(posA, sA, oA, posB, sB, oB, la, lb, d, w):
+    """Per-record score contributions (G, P, R) from cached endpoint
+    state: posA/posB int32 slots, sA/sB EXACT int32 start offsets (f32
+    offsets carry ulp ~64 bp at chromosome scale and broke the delta
+    hill climb in the JAX package), oA/oB int32 orientations, la/lb
+    int32 (G, R) contig lengths, d f32 (G, 4, R), w f32 (G, R). The gap
+    is exact; only the final f32 conversion rounds."""
+    a_first = posA < posB
+    gap = torch.where(a_first, sB - (sA + la[:, None]),
+                      sA - (sB + lb[:, None])).to(torch.float32)
+    combo = 2 * oA + oB
+    combo = torch.where(a_first, combo, 3 - combo)
+    dd = d[:, None]
+    dval = torch.where(combo == 0, dd[:, :, 0],
+                       torch.where(combo == 1, dd[:, :, 1],
+                                   torch.where(combo == 2, dd[:, :, 2],
+                                               dd[:, :, 3])))
+    dist = torch.clamp(gap + dval, min=1.0)
+    return w[:, None] / dist
+
+
+def _build_caches(order, ori, lengths, pa, pb):
+    """Per-record endpoint caches + slot tables from the population.
+    Returns (L_slot (G,P,k) int32, startsx (G,P,k+1) int32 slot starts
+    with a total-length sentinel, posA, sA, oA, posB, sB, oB (G,P,R)),
+    all coordinates exact int32."""
+    G, P, k = order.shape
+    R = pa.shape[1]
+    Li = lengths.to(torch.int32)
+    idx = order.long()
+    L_slot = torch.gather(Li[:, None, :].expand(G, P, k), 2, idx)
+    startsx = torch.cat([
+        torch.zeros((G, P, 1), dtype=torch.int32, device=order.device),
+        torch.cumsum(L_slot, dim=2, dtype=torch.int32)], dim=2)
+    pos_of = _inverse(order)
+    start_of = torch.empty_like(L_slot).scatter_(2, idx, startsx[..., :k])
+    ori_of = torch.empty_like(ori).scatter_(2, idx, ori)
+    iA = pa.long()[:, None, :].expand(G, P, R)
+    iB = pb.long()[:, None, :].expand(G, P, R)
+    caches = [torch.gather(t, 2, ix) for ix in (iA, iB)
+              for t in (pos_of, start_of, ori_of)]
+    return (L_slot, startsx) + tuple(caches)
+
+
+def _endpoint_update(pos, s, o, le, do, op, i, j, t, Sx, Sy, Lx, Ly, Et):
+    """Closed-form update of one record endpoint under one move.
+
+    pos/s/o: cached slot / start / orientation (G, P, R); le (G, R) the
+    endpoint contig's length. Scalars (G, P): Sx/Sy = starts of slots
+    i/j, Lx/Ly = lengths at slots i/j, Et = start of slot t.
+      swap i<->j: slot i keeps start Sx (now holds contig Y); contig X
+        lands at start Sy + Ly - Lx; middle slots shift by Ly - Lx.
+      inversion [i,j]: slot of contig c -> i + j - pos; its start ->
+        Sx + (Sy + Ly) - s - len(c); orientation flips.
+      rotation [i,t) by r=j-i: block A=[i,j) (length W = Sy - Sx)
+        moves right by t - j and +(Et - Sy); block B=[j,t) moves left
+        by j - i and -W.
+      flip [i,j]: orientation flips in the span.
+    """
+    i_, j_, t_ = i[..., None], j[..., None], t[..., None]
+    Sx_, Sy_ = Sx[..., None], Sy[..., None]
+    dL = (Ly - Lx)[..., None]
+    Ej_ = (Sy + Ly)[..., None]
+    Et_ = Et[..., None]
+    op_ = op[..., None]
+    le_ = le[:, None, :]
+
+    is_i = pos == i_
+    is_j = pos == j_
+    mid = (pos > i_) & (pos < j_)
+    in_ij = (pos >= i_) & (pos <= j_)
+    in_rot = (pos >= i_) & (pos < t_)
+    in_a = (pos >= i_) & (pos < j_)
+
+    # swap
+    pos_sw = torch.where(is_i, j_, torch.where(is_j, i_, pos))
+    s_sw = torch.where(is_i, Sy_ + dL,
+                       torch.where(is_j, Sx_,
+                                   torch.where(mid, s + dL, s)))
+    # inversion
+    pos_inv = torch.where(in_ij, i_ + j_ - pos, pos)
+    s_inv = torch.where(in_ij, Sx_ + Ej_ - s - le_, s)
+    o_flip = torch.where(in_ij, 1 - o, o)
+    # rotation
+    pos_rot = torch.where(in_a, pos + (t_ - j_),
+                          torch.where(in_rot, pos - (j_ - i_), pos))
+    s_rot = torch.where(in_a, s + (Et_ - Sy_),
+                        torch.where(in_rot, s - (Sy_ - Sx_), s))
+
+    pos_n = torch.where(op_ == 0, pos_sw,
+                        torch.where(op_ == 1, pos_inv,
+                                    torch.where(op_ == 2, pos_rot, pos)))
+    s_n = torch.where(op_ == 0, s_sw,
+                      torch.where(op_ == 1, s_inv,
+                                  torch.where(op_ == 2, s_rot, s)))
+    o_n = torch.where((op_ == 1) | (op_ == 3), o_flip, o)
+    keep = ~do[..., None]
+    return (torch.where(keep, pos, pos_n),
+            torch.where(keep, s, s_n),
+            torch.where(keep, o, o_n))
+
+
+def _move_scalars(startsx, i, j, t):
+    """(Sx, Sy, Lx, Ly, Et) per individual, gathered from the int32
+    slot-start table (G, P, k+1)."""
+    v = torch.gather(startsx, 2, torch.stack(
+        [i, i + 1, j, j + 1, t], dim=-1).long())
+    Sx, Sxe, Sy, Sye, Et = v.unbind(-1)
+    return Sx, Sy, Sxe - Sx, Sye - Sy, Et
+
+
+# one full-scored (mu+lambda) + OX-crossover generation every
+# GA_SYNC_EVERY generations; the rest are delta-scored greedy moves
+GA_SYNC_EVERY = int(os.environ.get('HAPHIC_GA_SYNC_EVERY', 25))
+# share of delta-generation moves drawn with a local (geometric) span
+_DELTA_LOCAL_FRAC = 0.5
+# relative gain a greedy move needs per slot of its span (see _dgen)
+_DELTA_SPAN_GAIN = 2e-6
+
+
+class _Records:
+    """One bucket's device-resident records: lengths (G, k) int64,
+    pa/pb (G, R) int32, d (G, 4, R) f32, w (G, R) f32, and the int32
+    endpoint lengths la/lb (G, R)."""
+
+    def __init__(self, lengths, pa, pb, d, w):
+        self.lengths, self.pa, self.pb, self.d, self.w = \
+            lengths, pa, pb, d, w
+        Li = lengths.to(torch.int32)
+        self.la = torch.gather(Li, 1, pa.long())
+        self.lb = torch.gather(Li, 1, pb.long())
+
+    def score(self, order, ori):
+        """Full f32-table score: the CUDA kernel (plain on CPU)."""
+        return score_population(order, ori, self.lengths, self.pa,
+                                self.pb, self.d, self.w)
+
+    def caches(self, order, ori):
+        """(L_slot, startsx, posA, sA, oA, posB, sB, oB, contrib,
+        scores) of the population, from exact int32 caches."""
+        c = _build_caches(order, ori, self.lengths, self.pa, self.pb)
+        contrib = _contrib_from_cache(*c[2:], self.la, self.lb, self.d,
+                                      self.w)
+        return c + (contrib, contrib.sum(dim=2))
+
+    def cache_scores(self, order, ori):
+        return self.caches(order, ori)[-1]
+
+
+def _dgen(gen, rec: _Records, state):
+    """One delta-scored greedy generation (the JAX package's dgen)."""
+    (order, ori, L_slot, startsx, posA, sA, oA, posB, sB, oB, contrib,
+     scores) = state
+    k = order.shape[-1]
+    # always mutate: rejection handles bad moves
+    do, op, i, j, t = _sample_moves(gen, order.shape[:-1], k, 1.1,
+                                    local_frac=_DELTA_LOCAL_FRAC,
+                                    device=order.device)
+    Sx, Sy, Lx, Ly, Et = _move_scalars(startsx, i, j, t)
+    posA2, sA2, oA2 = _endpoint_update(
+        posA, sA, oA, rec.la, do, op, i, j, t, Sx, Sy, Lx, Ly, Et)
+    posB2, sB2, oB2 = _endpoint_update(
+        posB, sB, oB, rec.lb, do, op, i, j, t, Sx, Sy, Lx, Ly, Et)
+    # score the move as an explicit DELTA: unaffected records have
+    # bit-identical state, so their (new - old) contribution is exactly
+    # 0.0 (the old contributions are carried, not recomputed: the same
+    # elementwise arithmetic on the same values gives the same bits)
+    new_c = _contrib_from_cache(posA2, sA2, oA2, posB2, sB2, oB2,
+                                rec.la, rec.lb, rec.d, rec.w)
+    delta = (new_c - contrib).sum(dim=2)
+    # span-proportional acceptance threshold (rejects score-neutral
+    # macro moves that ride on an epsilon boundary gain)
+    spanv = torch.where(op == 2, t - i, j - i).to(torch.float32)
+    thr = scores * (_DELTA_SPAN_GAIN * spanv)
+    acc = delta > thr
+    a_ = acc[..., None]
+    src, flip = _move_src(do, op, i, j, t, k)
+    order2, ori2 = _apply_move(order, ori, src, flip)
+    order = torch.where(a_, order2, order)
+    ori = torch.where(a_, ori2, ori)
+    L_slot = torch.where(a_, _take(L_slot, src), L_slot)
+    startsx = torch.cat([startsx[..., :1],
+                         torch.cumsum(L_slot, dim=2, dtype=torch.int32)],
+                        dim=2)
+    return (order, ori, L_slot, startsx,
+            torch.where(a_, posA2, posA), torch.where(a_, sA2, sA),
+            torch.where(a_, oA2, oA), torch.where(a_, posB2, posB),
+            torch.where(a_, sB2, sB), torch.where(a_, oB2, oB),
+            torch.where(a_, new_c, contrib),
+            torch.where(acc, scores + delta, scores))
+
+
+def _select(order, ori, scores, off_order, off_ori, off_scores, P):
+    """(mu+lambda) selection: best P of parents + offspring, stable."""
+    top_scores, top = _top_rows(torch.cat([scores, off_scores], dim=1), P)
+    return (_take_rows(torch.cat([order, off_order], dim=1), top),
+            _take_rows(torch.cat([ori, off_ori], dim=1), top), top_scores)
+
+
+def _evolve_delta_impl(gen, rec: _Records, order, ori, mutprob: float,
+                       ngen: int, xoprob: float = 0.3):
+    """One window: repeating cycles of [1 full-scored (mu+lambda)
+    generation (crossover + selection + cache rebuild) + cycle-1
+    delta-scored greedy generations]; returns (order, ori, scores)
+    sorted best-first."""
+    P = order.shape[1]
+    n_cycles = max(1, ngen // max(GA_SYNC_EVERY, 2))
+    per = ngen // n_cycles                   # gens per cycle (>= 2)
+    rem = ngen - n_cycles * per              # trailing delta gens
+
+    state = None
+    for _ in range(n_cycles):
+        state = None                         # free the caches first
+        # parent scores recomputed from fresh caches (the delta-updated
+        # carry can lag by ~ulp, which would bias tie-breaking)
+        scores = rec.cache_scores(order, ori)
+        off_order, off_ori = _ox_crossover(gen, order, ori, xoprob)
+        off_order, off_ori = _mutate(gen, off_order, off_ori, mutprob)
+        off_scores = rec.cache_scores(off_order, off_ori)
+        order, ori, _ = _select(order, ori, scores, off_order, off_ori,
+                                off_scores, P)
+        # half-elitist re-seed: the selection sorted rows best-first;
+        # the bottom half restarts from the incumbent
+        order[:, P // 2:] = order[:, :1]
+        ori[:, P // 2:] = ori[:, :1]
+        state = (order, ori) + rec.caches(order, ori)
+        for _ in range(per - 1):
+            state = _dgen(gen, rec, state)
+        order, ori = state[0], state[1]
+    for _ in range(rem):
+        state = _dgen(gen, rec, state)
+    order, ori, scores = state[0], state[1], state[-1]
+    top_scores, top = _top_rows(scores, P)
+    return _take_rows(order, top), _take_rows(ori, top), top_scores
+
+
+def _evolve_impl(gen, rec: _Records, order, ori, mutprob: float,
+                 ngen: int, xoprob: float = 0.3):
+    """`ngen` generations of (mu + lambda) evolution, every offspring
+    scored in full by the CUDA kernel. Each generation: offspring = OX
+    crossover then mutation of the parents; next population = best P
+    of parents + offspring (row 0 is the incumbent best)."""
+    P = order.shape[1]
+    scores = rec.score(order, ori)
+    for _ in range(ngen):
+        off_order, off_ori = _ox_crossover(gen, order, ori, xoprob)
+        off_order, off_ori = _mutate(gen, off_order, off_ori, mutprob)
+        off_scores = rec.score(off_order, off_ori)
+        order, ori, scores = _select(order, ori, scores, off_order,
+                                     off_ori, off_scores, P)
+    return order, ori, scores
+
+
+def _use_delta() -> bool:
+    """Delta-scored windows are the device default; HAPHIC_GA_NO_DELTA
+    with a truthy value selects full rescoring every generation."""
+    return os.environ.get('HAPHIC_GA_NO_DELTA', '') in ('', '0')
+
+
+def _delta_applicable(problems) -> bool:
+    """The delta path keeps coordinates in exact int32; intermediates
+    are bounded by 2x the group's total length, so groups past 2^30 bp
+    take the full-rescore window."""
+    if not _use_delta():
+        return False
+    return all(int(p.lengths.sum()) < (1 << 30)
+               for p in problems if p.k > 1)
+
+
+@dataclass
+class GAResult:
+    order: np.ndarray        # int32[k] best tour (local contig ids)
+    ori: np.ndarray          # int32[k]
+    score: float
+    history: List[Tuple[int, float]]   # (generation, best score)
+
+
+def _trivial(p: TourProblem) -> GAResult:
+    order = np.zeros(max(p.k, 1), dtype=np.int32)[:p.k]
+    return GAResult(order=order, ori=np.zeros_like(order), score=0.0,
+                    history=[])
+
+
+def _initial_population(problem: TourProblem, k_pad: int, npop: int,
+                        hot_start, gen: torch.Generator, device
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Hot start on every row, or identity on row 0 and one random
+    permutation (k padding included) on each other row."""
+    k = problem.k
+    if hot_start is not None:
+        base_order = np.concatenate([
+            np.asarray(hot_start[0], dtype=np.int32),
+            np.arange(k, k_pad, dtype=np.int32)])
+        base_ori = np.concatenate([
+            np.asarray(hot_start[1], dtype=np.int32),
+            np.zeros(k_pad - k, dtype=np.int32)])
+    else:
+        base_order = np.arange(k_pad, dtype=np.int32)
+        base_ori = np.zeros(k_pad, dtype=np.int32)
+    order = np.broadcast_to(base_order, (npop, k_pad)).copy()
+    ori = np.broadcast_to(base_ori, (npop, k_pad)).copy()
+    if hot_start is None:
+        perm = torch.argsort(torch.rand((npop, k_pad), generator=gen,
+                                        device=device), dim=1)
+        order[1:] = perm.cpu().numpy()[1:]
+    return order, ori
+
+
+def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
+                   ngen: int = 5000, mutprob: float = 0.2, seed: int = 42,
+                   hot_starts: Optional[Sequence] = None,
+                   log_every: int = 500, skip_ga: bool = False,
+                   chunk: int = CHUNK, backend: str = 'auto',
+                   device=None) -> List[GAResult]:
+    """Evolve every group at once: groups are bucketed by padded shape
+    (k_pad, R_pad) and each bucket runs as one batch with a leading
+    group axis, per log_every window.
+
+    Small workloads (npop * ngen * total records < NATIVE_MAX_WORK)
+    dispatch to the native C++ kernel instead (backend='auto'; force
+    with 'device'/'native')."""
+    dev = resolve_device(device)
+    results: List[Optional[GAResult]] = [None] * len(problems)
+    hot_starts = list(hot_starts) if hot_starts is not None \
+        else [None] * len(problems)
+
+    total_records = sum(p.n_records for p in problems if p.k > 1)
+    work = float(npop) * (0 if skip_ga else ngen) * max(total_records, 1)
+    use_native = backend == 'native' or (
+        backend == 'auto' and work < NATIVE_MAX_WORK
+        and native_lib() is not None)
+    route = 'native' if use_native else dev.type
+    logger.info('GA route: %s (work %.3g, %d groups, %d records)', route,
+                work, len(problems), total_records,
+                extra={'metrics': {'ga_route': route, 'ga_work': work,
+                                   'records': [p.n_records
+                                               for p in problems]}})
+    if use_native:
+        for gi, p in enumerate(problems):
+            results[gi] = _trivial(p) if p.k <= 1 else _optimize_native(
+                p, npop, 0 if skip_ga else ngen, mutprob, seed,
+                hot_starts[gi], log_every)
+        return results
+
+    buckets: dict = {}
+    for gi, p in enumerate(problems):
+        if p.k <= 1:
+            results[gi] = _trivial(p)
+            continue
+        k_pad = _bucket(p.k, 8)
+        c_eff = _effective_chunk(p.n_records, chunk)
+        _, _, _, _, Rp = _pad_records(p, c_eff)
+        buckets.setdefault((k_pad, Rp, c_eff), []).append(gi)
+
+    # split buckets so the delta caches fit in device memory: ~56 bytes
+    # per (individual, record) of a batch
+    mem_budget = float(os.environ.get('HAPHIC_GA_MEM_BUDGET', 8e9))
+    split = []
+    for key3, idxs in sorted(buckets.items()):
+        _, Rp_, _ = key3
+        g_max = max(1, int(mem_budget / (56.0 * npop * max(Rp_, 1))))
+        for s0 in range(0, len(idxs), g_max):
+            split.append((key3, idxs[s0:s0 + g_max]))
+
+    evolve = _evolve_delta_impl if _delta_applicable(problems) \
+        else _evolve_impl
+    for (k_pad, Rp, c_eff), idxs in split:
+        G = len(idxs)
+        lengths = np.zeros((G, k_pad), dtype=np.int64)
+        pa = np.zeros((G, Rp), dtype=np.int32)
+        pb = np.zeros((G, Rp), dtype=np.int32)
+        d = np.zeros((G, 4, Rp), dtype=np.float32)
+        w = np.zeros((G, Rp), dtype=np.float32)
+        order = np.zeros((G, npop, k_pad), dtype=np.int32)
+        ori = np.zeros((G, npop, k_pad), dtype=np.int32)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        for t, gi in enumerate(idxs):
+            p = problems[gi]
+            lengths[t, :p.k] = p.lengths
+            pa[t], pb[t], d[t], w[t], _ = _pad_records(p, c_eff)
+            order[t], ori[t] = _initial_population(
+                p, k_pad, npop, hot_starts[gi], gen, dev)
+        logger.info('GA batch: %d groups, k_pad=%d, R_pad=%d on %s', G,
+                    k_pad, Rp, dev,
+                    extra={'metrics': {'ga_batch': {'G': G, 'P': npop,
+                                                    'k_pad': k_pad,
+                                                    'R_pad': Rp}}})
+
+        def put(x):
+            return torch.as_tensor(x, device=dev)
+
+        rec = _Records(put(lengths), put(pa), put(pb), put(d), put(w))
+        order_t, ori_t = put(order), put(ori)
+        scores = rec.score(order_t, ori_t)
+        best0 = scores.max(dim=1).values.cpu().numpy()
+        histories: List[List[Tuple[int, float]]] = \
+            [[(0, float(b))] for b in best0]
+
+        if skip_ga:
+            bsel = scores.argmax(dim=1).cpu().numpy()
+            order_h, ori_h = order_t.cpu().numpy(), ori_t.cpu().numpy()
+            for t, gi in enumerate(idxs):
+                o = order_h[t, bsel[t]]
+                r = ori_h[t, bsel[t]]
+                real = o < problems[gi].k
+                results[gi] = GAResult(order=o[real], ori=r[real],
+                                       score=float(best0[t]),
+                                       history=histories[t])
+            continue
+
+        done = 0
+        # windows run back to back; each window's best stays on the
+        # device until the last one has been queued
+        window_best = []
+        while done < ngen:
+            step = min(log_every, ngen - done)
+            order_t, ori_t, scores = evolve(gen, rec, order_t, ori_t,
+                                            mutprob, step)
+            done += step
+            window_best.append((done, scores[:, 0]))
+        for gen_done, best_t in window_best:
+            best = best_t.cpu().numpy()
+            for t in range(G):
+                histories[t].append((gen_done, float(best[t])))
+            logger.debug('GA generation %d: bucket (k=%d, R=%d) best %s',
+                          gen_done, k_pad, Rp, best)
+
+        order_h = order_t[:, 0].cpu().numpy()
+        ori_h = ori_t[:, 0].cpu().numpy()
+        final = scores[:, 0].cpu().numpy()
+        for t, gi in enumerate(idxs):
+            o, r = order_h[t], ori_h[t]
+            real = o < problems[gi].k
+            results[gi] = GAResult(order=o[real], ori=r[real],
+                                   score=float(final[t]),
+                                   history=histories[t])
+    return results
+
+
+def optimize_tour(problem: TourProblem, npop: int = 100, ngen: int = 5000,
+                  mutprob: float = 0.2, seed: int = 42,
+                  hot_start: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                  log_every: int = 500, skip_ga: bool = False,
+                  chunk: int = CHUNK, backend: str = 'auto',
+                  device=None) -> GAResult:
+    """Evolve tours for one group. ``hot_start`` is (order, ori) from
+    fast sorting (`--resume` semantics, scripts/HapHiC_sort.py:631-632).
+    ``backend``: 'device' forces the GA on ``device``, 'native' the C++
+    kernel, 'auto' picks by problem size (see NATIVE_MAX_WORK)."""
+    return optimize_tours([problem], npop=npop, ngen=ngen, mutprob=mutprob,
+                          seed=seed, hot_starts=[hot_start],
+                          log_every=log_every, skip_ga=skip_ga, chunk=chunk,
+                          backend=backend, device=device)[0]
+
+
+def result_to_tour(res: GAResult, ctg_ids: np.ndarray, names: List[str]
+                   ) -> List[Tuple[str, str]]:
+    return [(names[int(ctg_ids[c])], '-' if o else '+')
+            for c, o in zip(res.order.tolist(), res.ori.tolist())]
+
+
+def write_ga_tour(path: str, res: GAResult, tour: List[Tuple[str, str]],
+                  init_tour: Optional[List[Tuple[str, str]]] = None) -> None:
+    """Reference-format .tour file with GA checkpoint headers."""
+    with open(path, 'w') as f:
+        f.write('>INIT\n')
+        if init_tour is not None:
+            f.write('{}\n'.format(' '.join(c + o for c, o in init_tour)))
+        for gen, score in res.history[1:]:
+            f.write('>GA{}-{:.5f}\n'.format(gen, score))
+        f.write('{}\n'.format(' '.join(c + o for c, o in tour)))

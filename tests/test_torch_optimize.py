@@ -1,0 +1,342 @@
+"""Parity of the port's tour optimizer (haphic_tpu_torch.order.optimize
+and the score kernel's plain version) with the JAX package's, on the
+CPU.
+
+Random draws cannot be replayed across frameworks, so the step tests
+re-derive the JAX package's draws from its keys and hand them to the
+port; end to end, the device GA is held to the JAX package's quality
+tests (tests/test_optimize.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from haphic_tpu.order import optimize as jopt
+
+from haphic_tpu_torch import convert
+from haphic_tpu_torch.kernels import score as tscore
+from haphic_tpu_torch.order import optimize as topt
+
+from .test_optimize import (_brute_score, _canonical_tour, _random_problem,
+                            _sim_chromosome_problem)
+
+# xdist runs several test files at once on the same cores; torch's
+# default of one intra-op thread per core then oversubscribes them and
+# the many small ops of the GA and MCL loops wait on each other.
+torch.set_num_threads(1)
+
+
+def _t(x, dtype=None):
+    return torch.as_tensor(np.array(x), dtype=dtype)
+
+
+def _score_case(seed, G=2, P=6, k=32, R=1024):
+    """The shapes of tests/test_optimize.py::test_pallas_score_matches_xla."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1000, 500000, (G, k)).astype(np.int64)
+    pa = rng.integers(0, k, (G, R)).astype(np.int32)
+    pb = rng.integers(0, k, (G, R)).astype(np.int32)
+    sel = pa == pb
+    pb[sel] = (pb[sel] + 1) % k
+    d = rng.integers(1, 100000, (G, 4, R)).astype(np.float32)
+    w = rng.random((G, R)).astype(np.float32)
+    order = np.stack([np.stack([rng.permutation(k).astype(np.int32)
+                                for _ in range(P)]) for _ in range(G)])
+    ori = rng.integers(0, 2, (G, P, k)).astype(np.int32)
+    return order, ori, lengths, pa, pb, d, w
+
+
+@pytest.mark.parametrize('seed', [9, 10])
+def test_plain_scorer_matches_xla_and_pallas(seed):
+    case = _score_case(seed)
+    args = [jnp.asarray(x) for x in case]
+    R = case[3].shape[1]
+    xla = np.asarray(jopt._score_batched(*args, R))
+    pallas = np.asarray(jopt._score_stacked_pallas(*args, interpret=True))
+    got = tscore.score_population(*[_t(x) for x in case]).numpy()
+    np.testing.assert_allclose(got, xla, rtol=1e-5)
+    np.testing.assert_allclose(got, pallas, rtol=1e-5)
+    # the plain version with small record chunks sums in another order
+    small = tscore.score_population_plain(*[_t(x) for x in case],
+                                          chunk=100).numpy()
+    np.testing.assert_allclose(small, got, rtol=1e-5)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_plain_scorer_matches_bruteforce(seed):
+    problem = _random_problem(seed)
+    rng = np.random.default_rng(seed + 100)
+    P = 4
+    orders = np.stack([rng.permutation(problem.k) for _ in range(P)]
+                      ).astype(np.int32)
+    oris = rng.integers(0, 2, size=(P, problem.k)).astype(np.int32)
+    pa, pb, d, w, _ = topt._pad_records(convert.problem_from_jax(problem),
+                                        64)
+    got = tscore.score_population(
+        *convert.population_from_jax(orders[None], oris[None]),
+        _t(problem.lengths[None]),
+        _t(pa[None]), _t(pb[None]), _t(d[None]), _t(w[None]))[0]
+    for p in range(P):
+        assert float(got[p]) == pytest.approx(
+            _brute_score(problem, orders[p], oris[p]), rel=1e-4)
+
+
+def _cache_setup(P=16, k=32, R=300):
+    """Inputs of tests/test_optimize.py::
+    test_delta_endpoint_update_matches_rebuild, with int32 endpoint
+    lengths as the delta window uses them."""
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(16, 4096, size=k).astype(np.int32)
+    a = rng.integers(0, k - 1, size=R)
+    b = a + rng.integers(1, k - np.maximum(a, 1), size=R).clip(1)
+    b = np.minimum(b, k - 1)
+    order = np.stack([rng.permutation(k) for _ in range(P)]).astype(
+        np.int32)
+    ori = rng.integers(0, 2, size=(P, k)).astype(np.int32)
+    d = rng.integers(1, 100000, (4, R)).astype(np.float32)
+    w = rng.random(R).astype(np.float32)
+    return lengths, a.astype(np.int32), b.astype(np.int32), order, ori, d, w
+
+
+def _eq(got, want, what):
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    assert np.array_equal(np.squeeze(got, 0), np.asarray(want)), what
+
+
+def test_delta_caches_match_jax_over_40_generations():
+    """_build_caches, _move_scalars, _endpoint_update, _move_src and
+    _contrib_from_cache of both packages agree exactly over 40
+    generations of the moves JAX's _sample_moves draws."""
+    P, k = 16, 32
+    lengths, pa, pb, order, ori, d, w = _cache_setup(P, k)
+    jl, jpa, jpb = jnp.asarray(lengths), jnp.asarray(pa), jnp.asarray(pb)
+    jla, jlb = jl[jpa], jl[jpb]
+    jorder, jori = jnp.asarray(order), jnp.asarray(ori)
+    tl = _t(lengths[None], torch.int64)
+    tpa, tpb = _t(pa[None]), _t(pb[None])
+    tla, tlb = _t(lengths[pa][None]), _t(lengths[pb][None])
+    td, tw = _t(d[None]), _t(w[None])
+    jc = jopt._build_caches(jorder, jori, jl, jpa, jpb)
+    torder, tori = _t(order[None]), _t(ori[None])
+    tc = topt._build_caches(torder, tori, tl, tpa, tpb)
+    for name, g, x in zip(('L_slot', 'startsx', 'posA', 'sA', 'oA', 'posB',
+                           'sB', 'oB'), tc, jc):
+        _eq(g, x, 'initial ' + name)
+    jposA, jsA, joA, jposB, jsB, joB = jc[2:]
+    tposA, tsA, toA, tposB, tsB, toB = tc[2:]
+    key = jax.random.PRNGKey(7)
+    for gen in range(40):
+        key, km = jax.random.split(key)
+        do, op, i, j, t = jopt._sample_moves(km, P, k, 0.9)
+        tm = [_t(np.asarray(x)[None]) for x in (do, op, i, j, t)]
+        jsc = jopt._move_scalars(jc[1], i, j, t)
+        tsc = topt._move_scalars(tc[1], *tm[2:])
+        for name, g, x in zip(('Sx', 'Sy', 'Lx', 'Ly', 'Et'), tsc, jsc):
+            _eq(g, x, 'gen {} {}'.format(gen, name))
+        jposA, jsA, joA = jopt._endpoint_update(
+            jposA, jsA, joA, jla, do, op, i, j, t, *jsc)
+        jposB, jsB, joB = jopt._endpoint_update(
+            jposB, jsB, joB, jlb, do, op, i, j, t, *jsc)
+        tposA, tsA, toA = topt._endpoint_update(
+            tposA, tsA, toA, tla, *tm, *tsc)
+        tposB, tsB, toB = topt._endpoint_update(
+            tposB, tsB, toB, tlb, *tm, *tsc)
+        for name, g, x in zip(('posA', 'sA', 'oA', 'posB', 'sB', 'oB'),
+                              (tposA, tsA, toA, tposB, tsB, toB),
+                              (jposA, jsA, joA, jposB, jsB, joB)):
+            _eq(g, x, 'gen {} update {}'.format(gen, name))
+        jsrc, jflip = jopt._move_src(do, op, i, j, t, k)
+        tsrc, tflip = topt._move_src(*tm, k)
+        _eq(tsrc, jsrc, 'gen {} src'.format(gen))
+        _eq(tflip, jflip, 'gen {} flip'.format(gen))
+        jc_ = jopt._contrib_from_cache(jposA, jsA, joA, jposB, jsB, joB,
+                                       jla, jlb, jnp.asarray(d),
+                                       jnp.asarray(w))
+        tc_ = topt._contrib_from_cache(tposA, tsA, toA, tposB, tsB, toB,
+                                       tla, tlb, td, tw)
+        _eq(tc_, jc_, 'gen {} contrib'.format(gen))
+        # tables follow the move; caches rebuilt from them must agree
+        jorder = jnp.take_along_axis(jorder, jsrc, axis=1)
+        jori = jnp.take_along_axis(jori, jsrc, axis=1)
+        jori = jnp.where(jflip, 1 - jori, jori)
+        torder, tori = topt._apply_move(torder, tori, tsrc, tflip)
+        _eq(torder, jorder, 'gen {} order'.format(gen))
+        _eq(tori, jori, 'gen {} ori'.format(gen))
+        jc = jopt._build_caches(jorder, jori, jl, jpa, jpb)
+        tc = topt._build_caches(torder, tori, tl, tpa, tpb)
+        for name, g, x in zip(('posA', 'sA', 'oA'), (tposA, tsA, toA),
+                              jc[2:5]):
+            _eq(g, x, 'gen {} rebuild {}'.format(gen, name))
+
+
+@pytest.mark.parametrize('mutprob,local_frac', [(0.9, 0.5), (1.1, 0.0),
+                                                (0.5, 1.0)])
+def test_moves_from_jax_draws(mutprob, local_frac):
+    """The port's move arithmetic on JAX's own draws (same key, same
+    splits) gives JAX's _sample_moves exactly."""
+    P, k = 512, 40
+    key = jax.random.PRNGKey(3)
+    keys = jax.random.split(key, 7)
+    draws = (jax.random.uniform(keys[0], (P,)),
+             jax.random.randint(keys[1], (P,), 0, 4),
+             jax.random.randint(keys[2], (P,), 0, k),
+             jax.random.randint(keys[3], (P,), 0, k),
+             jax.random.randint(keys[4], (P,), 0, k),
+             jax.random.uniform(keys[5], (P,)),
+             jax.random.uniform(keys[6], (P,)))
+    want = jopt._sample_moves(key, P, k, mutprob, local_frac=local_frac)
+    got = topt._moves_from_draws(*[_t(x) for x in draws], k, mutprob,
+                                 local_frac)
+    for name, g, x in zip(('do', 'op', 'i', 'j', 't'), got, want):
+        assert np.array_equal(g.numpy(), np.asarray(x)), name
+
+
+def _ox_case(P=16, k=12, seed=0):
+    rng = np.random.default_rng(seed)
+    order = np.stack([rng.permutation(k) for _ in range(P)]).astype(
+        np.int32)
+    ori = rng.integers(0, 2, size=(P, k)).astype(np.int32)
+    return order, ori
+
+
+@pytest.mark.parametrize('xoprob', [1.0, 0.3])
+def test_ox_crossover_matches_jax(xoprob):
+    P, k = 16, 12
+    order, ori = _ox_case(P, k)
+    key = jax.random.PRNGKey(0)
+    keys = jax.random.split(key, 4)
+    draws = (jax.random.uniform(keys[0], (P,)),
+             jax.random.randint(keys[1], (P,), 0, P),
+             jax.random.randint(keys[2], (P,), 0, k),
+             jax.random.randint(keys[3], (P,), 0, k))
+    want = jopt._ox_crossover(key, jnp.asarray(order), jnp.asarray(ori),
+                              xoprob)
+    got = topt._ox_from_draws(_t(order[None]), _t(ori[None]),
+                              *[_t(np.asarray(x)[None]) for x in draws],
+                              xoprob)
+    _eq(got[0], want[0], 'child')
+    _eq(got[1], want[1], 'child ori')
+    for p in range(P):
+        assert sorted(got[0][0, p].tolist()) == list(range(k))
+
+
+def test_mutate_matches_jax():
+    P, k, mutprob = 16, 12, 0.7
+    order, ori = _ox_case(P, k, seed=4)
+    key = jax.random.PRNGKey(5)
+    want = jopt._mutate(key, jnp.asarray(order), jnp.asarray(ori), mutprob)
+    moves = jopt._sample_moves(key, P, k, mutprob)
+    tm = [_t(np.asarray(x)[None]) for x in moves]
+    got = topt._apply_move(_t(order[None]), _t(ori[None]),
+                           *topt._move_src(*tm, k))
+    _eq(got[0], want[0], 'order')
+    _eq(got[1], want[1], 'ori')
+
+
+def test_selection_is_stable_parents_win_ties():
+    scores = torch.tensor([[1.0, 3.0, 2.0, 3.0, 1.0, 2.0]])
+    top_scores, top = topt._top_rows(scores, 3)
+    assert top.tolist() == [[1, 3, 2]]
+    assert top_scores.tolist() == [[3.0, 3.0, 2.0]]
+    s, idx = jax.lax.top_k(jnp.asarray(scores.numpy()), 3)
+    assert np.asarray(idx).tolist() == top.tolist()
+
+
+def test_native_ga_bit_identical_to_jax():
+    if jopt.native_lib() is None or topt.native_lib() is None:
+        pytest.fail('native tour GA (native/tour_ga.cpp) did not build')
+    problems = [_sim_chromosome_problem(s, k=k)[0]
+                for s, k in ((3, 8), (4, 5))]
+    want = jopt.optimize_tours(problems, npop=16, ngen=300, seed=9,
+                               log_every=100, backend='native')
+    got = topt.optimize_tours([convert.problem_from_jax(p)
+                               for p in problems], npop=16, ngen=300,
+                              seed=9, log_every=100, backend='native',
+                              device='cpu')
+    for g, x in zip(got, want):
+        assert np.array_equal(g.order, x.order)
+        assert np.array_equal(g.ori, x.ori)
+        assert g.score == x.score
+        assert g.history == x.history
+
+
+@pytest.mark.parametrize('delta', [True, False],
+                         ids=['delta-window', 'full-rescore'])
+def test_device_ga_recovers_true_order(delta, monkeypatch):
+    """tests/test_optimize.py::test_ga_recovers_true_order with the
+    device backend, for the delta window and the full-rescore window."""
+    if not delta:
+        monkeypatch.setenv('HAPHIC_GA_NO_DELTA', '1')
+    problem, true_order, true_ori = _sim_chromosome_problem(3)
+    res = topt.optimize_tour(convert.problem_from_jax(problem), npop=32,
+                             ngen=600 if delta else 300, seed=1,
+                             log_every=200, backend='device', device='cpu')
+    scores = [s for _, s in res.history]
+    assert all(b >= a - 1e-6 for a, b in zip(scores, scores[1:]))
+    true_score = _brute_score(problem, true_order, true_ori[true_order])
+    assert res.score >= 0.95 * true_score
+    assert _canonical_tour(res.order, res.ori) == \
+        _canonical_tour(true_order, true_ori[true_order])
+
+
+def test_device_hot_start_and_skip_ga():
+    problem, true_order, true_ori = _sim_chromosome_problem(5)
+    hot = (true_order.astype(np.int32),
+           true_ori[true_order].astype(np.int32))
+    res = topt.optimize_tour(convert.problem_from_jax(problem), npop=8,
+                             skip_ga=True, hot_start=hot,
+                             backend='device', device='cpu')
+    assert res.score == pytest.approx(
+        _brute_score(problem, true_order, true_ori[true_order]), rel=1e-4)
+    assert np.array_equal(res.order, hot[0])
+
+
+def test_device_batched_groups_match_quality():
+    """tests/test_optimize.py::test_optimize_tours_batched_matches_quality
+    with the device backend: mixed (k, R) buckets plus a single-contig
+    group."""
+    problems, truths = [], []
+    for seed, k in ((3, 8), (11, 8), (4, 5)):
+        problem, true_order, true_ori = _sim_chromosome_problem(seed, k=k)
+        problems.append(problem)
+        truths.append((true_order, true_ori))
+    tproblems = [convert.problem_from_jax(p) for p in problems]
+    tproblems.append(topt.TourProblem(
+        lengths=np.asarray([5000], np.int64),
+        pair_a=np.zeros(0, np.int32), pair_b=np.zeros(0, np.int32),
+        d=np.zeros((4, 0), np.float32), w=np.zeros(0, np.float32)))
+    results = topt.optimize_tours(tproblems, npop=32, ngen=600, seed=1,
+                                  log_every=200, backend='device',
+                                  device='cpu')
+    assert len(results) == 4
+    assert results[3].order.tolist() == [0]
+    for res, problem, (true_order, true_ori) in zip(results, problems,
+                                                    truths):
+        scores = [s for _, s in res.history]
+        assert all(b >= a - 1e-6 for a, b in zip(scores, scores[1:]))
+        true_score = _brute_score(problem, true_order,
+                                  true_ori[true_order])
+        assert res.score >= 0.95 * true_score
+        assert _canonical_tour(res.order, res.ori) == \
+            _canonical_tour(true_order, true_ori[true_order])
+
+
+def test_tour_file_format(tmp_path):
+    problem, _, _ = _sim_chromosome_problem(7)
+    res = topt.optimize_tour(convert.problem_from_jax(problem), npop=8,
+                             ngen=100, log_every=50, backend='device',
+                             device='cpu')
+    names = ['c{}'.format(i) for i in range(problem.k)]
+    tour = topt.result_to_tour(res, np.arange(problem.k), names)
+    p = tmp_path / 'group1.tour'
+    topt.write_ga_tour(str(p), res, tour)
+    lines = p.read_text().splitlines()
+    assert lines[0] == '>INIT'
+    ga_lines = [l for l in lines if l.startswith('>GA')]
+    assert len(ga_lines) == 2 and ga_lines[0].startswith('>GA50-')
+    final = lines[-1].split()
+    assert sorted(x[:-1] for x in final) == sorted(names)
+    assert all(x[-1] in '+-' for x in final)
