@@ -17,10 +17,16 @@ Phases, each printing one JSON line:
              before and read just after. The scaffolds must recover
              the 8 simulated chromosomes as a partition.
 3. kernel    every kernel against its plain torch version on the card,
-             at a small shape and at the shapes the pipeline gave it
-             (max relative error <= 1e-5: the sums run in another
-             order), with CUDA-event times and the least time the card
-             could take for the same work.
+             at a small shape and at the shapes the pipeline gave it,
+             with CUDA-event times and the least time the card could
+             take for the same work. score_population: max relative
+             error <= 1e-5 (the sums run in another order).
+             delta_generation, on a GA state built by _Records.caches
+             from a random population and one set of moves: delta
+             within 1e-6 x |score| (sums in another order), equal
+             acceptance wherever |delta - thr| exceeds that, and, under
+             one acceptance mask, exactly equal caches, contributions,
+             slot tables, order and ori; with no move, delta exactly 0.
 4. kernels   one line listing every kernel (the line before the last).
 
 The last line is {"ok": true, "device": {...}}. The script exits
@@ -28,6 +34,7 @@ non-zero, printing no result, when CUDA is unavailable, when the
 package is missing, or when any phase fails.
 """
 
+import functools
 import json
 import logging
 import os
@@ -39,6 +46,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, 'build', 'chip_smoke')
+DEVICE = 'cuda'
 
 SIM = dict(nchrs=8, ctgs_per_chr=1000, ctg_len=20000, n_pairs=2_000_000,
            seed=17)
@@ -48,7 +56,8 @@ SIM_FLAGS = ['--Nx', '100', '--RE_site_cutoff', '0',
              '--rank_sum_upper', '1', '--flank', '0',
              '--min_group_len', '0', '--min_RE_sites', '0',
              '--min_links', '1']
-REL_TOL = 1e-5
+REL_TOL = 1e-5           # score_population, relative
+DELTA_TOL = 1e-6         # delta_generation, relative to the row's score
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor)
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
@@ -58,6 +67,11 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'haphic_tpu_torch/kernels/csrc/score_population.cu',
     'replaces': 'haphic_tpu/order/optimize.py:470',
+}, {
+    'name': 'delta_generation',
+    'route': 'cuda',
+    'source': 'haphic_tpu_torch/kernels/csrc/delta_generation.cu',
+    'replaces': 'haphic_tpu/order/optimize.py:824',
 }]
 
 
@@ -167,7 +181,7 @@ def phase_env(torch, kbuild):
                         for n, p in paths.items()}})
 
 
-def phase_pipeline(torch, cli, kscore):
+def phase_pipeline(torch, cli, kscore, kdelta):
     t0 = time.time()
     fa, pairs = make_sim(os.path.join(WORK, 'sim'), **SIM)
     sim_s = time.time() - t0
@@ -176,12 +190,14 @@ def phase_pipeline(torch, cli, kscore):
     logging.getLogger('haphic_tpu_torch').addHandler(log)
     torch.cuda.reset_peak_memory_stats()
     kscore.score_population.launches = 0
+    kdelta.delta_generation.launches = 0
     t0 = time.time()
     rc = cli.main(['pipeline', fa, pairs, str(SIM['nchrs']), '--outdir',
                    out, '--ngen', str(NGEN)] + SIM_FLAGS)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {'score_population': kscore.score_population.launches}
+    launches = {'score_population': kscore.score_population.launches,
+                'delta_generation': kdelta.delta_generation.launches}
     logging.getLogger('haphic_tpu_torch').removeHandler(log)
     check(rc == 0, 'pipeline exit code {}'.format(rc))
     m = log.metrics
@@ -211,19 +227,25 @@ def phase_pipeline(torch, cli, kscore):
     return launches, big
 
 
-def _score_inputs(torch, G, P, k, R, seed):
+def _score_inputs(torch, G, P, k, R, seed, sort=True):
+    """Random tours and records between contigs at most 4 apart; sorted
+    by contig as build_problem sorts them (``sort=False``: in random
+    order, the inputs of the kernel's first measurement in PERF.md)."""
     rng = np.random.default_rng(seed)
     kk = max(2, k - 3)                      # real contigs; rest k padding
     lengths = np.zeros((G, k), np.int64)
     lengths[:, :kk] = rng.integers(5000, 40000, (G, kk))
-    pa = rng.integers(0, kk - 1, (G, R)).astype(np.int32)
-    pb = np.minimum(pa + rng.integers(1, 5, (G, R)), kk - 1).astype(
-        np.int32)
+    pa = rng.integers(0, kk - 1, (G, R))
+    pb = np.minimum(pa + rng.integers(1, 5, (G, R)), kk - 1)
+    if sort:
+        key = np.sort(pa * k + pb, axis=1)
+        pa, pb = key // k, key % k
+    pa, pb = pa.astype(np.int32), pb.astype(np.int32)
     d = rng.integers(1, 40000, (G, 4, R)).astype(np.float32)
     w = rng.integers(1, 4, (G, R)).astype(np.float32)
     order = np.argsort(rng.random((G, P, k)), axis=2).astype(np.int32)
     ori = rng.integers(0, 2, (G, P, k)).astype(np.int32)
-    return [torch.as_tensor(x, device='cuda')
+    return [torch.as_tensor(x, device=DEVICE)
             for x in (order, ori, lengths, pa, pb, d, w)]
 
 
@@ -242,11 +264,13 @@ def _time_ms(torch, fn, reps):
 
 def phase_kernel(torch, kscore, big, launches):
     rows = []
+    main = (big['G'], big['P'], big['k_pad'], big['R_pad'])
     shapes = [('small', 2, 6, 32, 1000),
-              ('main_path', big['G'], big['P'], big['k_pad'],
-               big['R_pad'])]
+              ('main_path_unsorted',) + main,
+              ('main_path',) + main]
     for seed, (label, G, P, k, R) in enumerate(shapes):
-        args = _score_inputs(torch, G, P, k, R, seed)
+        args = _score_inputs(torch, G, P, k, R, min(seed, 1),
+                             sort=label != 'main_path_unsorted')
         got = kscore.score_population(*args)
         want = kscore.score_population_plain(*args)
         torch.cuda.synchronize()
@@ -274,6 +298,132 @@ def phase_kernel(torch, kscore, big, launches):
     return rows
 
 
+def _delta_inputs(torch, topt, trace_ga, G, P, k, R, seed):
+    """A GA batch as the delta window holds it (trace_ga.make_batch:
+    records between near contigs sorted by contig, the caches of a
+    random population) and one move per individual drawn as _dgen
+    draws it."""
+    rec, state = trace_ga.make_batch(G, P, k, R, seed, DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    move = topt._sample_moves(gen, (G, P), k, 1.1,
+                              local_frac=topt._DELTA_LOCAL_FRAC,
+                              device=DEVICE)
+    return rec, state, move
+
+
+def _clone(state):
+    return tuple(x.clone() for x in state)
+
+
+def _delta_bound_ms(torch, state, move, acc):
+    """Least time for one delta generation on this input: every
+    (individual, record) pair reads its two slots; the pairs a move
+    touches read the rest of their state (20 B); the records (28 B)
+    are read once; accepted touched pairs write 7 values (28 B). The
+    arithmetic (~40 FP32 ops per touched pair) is far below the bytes."""
+    posA, posB = state[4], state[7]
+    do, op, i, j, t = [x[..., None] for x in move]
+    hi = torch.where(op == 2, t - 1, j)
+    touched = do & (((posA >= i) & (posA <= hi)) |
+                    ((posB >= i) & (posB <= hi)))
+    n_touched = int(touched.sum())
+    n_written = int((touched & acc[..., None]).sum())
+    G, P, R = posA.shape
+    nbytes = (8 * G * P * R + 20 * n_touched + 28 * G * R
+              + 28 * n_written + 60 * G * P)
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 40 * n_touched / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations'), n_touched
+
+
+def phase_delta(torch, kdelta, topt, trace_ga, big, launches):
+    rows = []
+    shapes = [('small', 2, 6, 32, 1000),
+              ('main_path', big['G'], big['P'], big['k_pad'],
+               big['R_pad'])]
+    kern, plain = kdelta.delta_generation, kdelta.delta_generation_plain
+    for seed, (label, G, P, k, R) in enumerate(shapes):
+        rec, state, move = _delta_inputs(torch, topt, trace_ga, G, P, k, R,
+                                         seed)
+        scores = state[-1]
+        tol = DELTA_TOL * scores.abs()
+        # the deltas, and the acceptance each version makes
+        d_got, acc_got = kern(*_wrapper_args(torch, _clone(state), move,
+                                             rec, topt))
+        d_want, acc_want = plain(*_wrapper_args(torch, _clone(state), move,
+                                                rec, topt))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(d_got).all()),
+              'delta kernel output at {} shape'.format(label))
+        err = (d_got - d_want).abs()
+        check(bool((err <= tol).all()), 'delta kernel disagrees at {} '
+              'shape: max |delta error| / |score| {}'.format(
+                  label, float((err / scores.abs()).max())))
+        thr = _threshold(torch, topt, scores, move)
+        sure = (d_want - thr).abs() > tol
+        check(torch.equal(acc_got[sure], acc_want[sure]),
+              'delta kernel acceptance differs at {} shape'.format(label))
+        # one acceptance mask for both: the commit is exactly equal
+        mask = acc_want
+        got = topt._delta_step(rec, _clone(state), move, functools.partial(
+            kern, accept=mask))
+        want = topt._delta_step(rec, _clone(state), move, functools.partial(
+            plain, accept=mask))
+        torch.cuda.synchronize()
+        for n, (a, b) in enumerate(zip(got[:-1], want[:-1])):
+            check(torch.equal(a, b), 'delta commit differs at {} shape in '
+                  'state field {}'.format(label, n))
+        check(bool(((got[-1] - want[-1]).abs() <= tol).all()),
+              'delta commit scores differ at {} shape'.format(label))
+        # no move: delta exactly 0.0
+        still = (torch.zeros_like(move[0]),) + tuple(move[1:])
+        d0, _ = kern(*_wrapper_args(torch, _clone(state), still, rec,
+                                    topt))
+        torch.cuda.synchronize()
+        check(bool((d0 == 0.0).all()),
+              'delta kernel gives a nonzero delta with no move')
+        bound_ms, bound_by, n_touched = _delta_bound_ms(torch, state, move,
+                                                        mask)
+        # times: the same move and acceptance applied again and again to
+        # one copy of the state (each repetition does the same work)
+        timed = _clone(state)
+        args = _wrapper_args(torch, timed, move, rec, topt)
+        ms = _time_ms(torch, lambda: kern(*args, accept=mask), 20)
+        plain_ms = _time_ms(torch, lambda: plain(*args, accept=mask), 3)
+        del timed, args, got, want
+        row = {'shape': label, 'G': G, 'P': P, 'k': k, 'R': R,
+               'max_abs_err': float(err.max()),
+               'max_err_over_score': float((err / scores.abs()).max()),
+               'touched_pairs': n_touched, 'pairs': G * P * R,
+               'accepted_rows': int(mask.sum()), 'ms': ms,
+               'plain_ms': plain_ms, 'bound_ms': bound_ms,
+               'bound_by': bound_by}
+        emit({'phase': 'kernel', 'name': 'delta_generation',
+              'main_path_launches': launches['delta_generation'], **row})
+        rows.append(row)
+        del rec, state, move
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _threshold(torch, topt, scores, move):
+    do, op, i, j, t = move
+    spanv = torch.where(op == 2, t - i, j - i).to(torch.float32)
+    return scores * (topt._DELTA_MIN_GAIN + topt._DELTA_SPAN_GAIN * spanv)
+
+
+def _wrapper_args(torch, state, move, rec, topt):
+    """delta_generation's arguments for ``move`` on ``state`` (whose
+    caches it updates in place)."""
+    i, j, t = move[2], move[3], move[4]
+    return (state[4:10], state[10],
+            tuple(move) + topt._move_scalars(state[3], i, j, t),
+            _threshold(torch, topt, state[-1], move),
+            rec.la, rec.lb, rec.d, rec.w)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -282,21 +432,26 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from haphic_tpu_torch import cli
     from haphic_tpu_torch.kernels import build as kbuild
+    from haphic_tpu_torch.kernels import delta as kdelta
     from haphic_tpu_torch.kernels import score as kscore
+    from haphic_tpu_torch.kernels import trace_ga
+    from haphic_tpu_torch.order import optimize as topt
 
     phase_env(torch, kbuild)
-    launches, big = phase_pipeline(torch, cli, kscore)
-    rows = phase_kernel(torch, kscore, big, launches)
-    main_row = rows[-1]
+    launches, big = phase_pipeline(torch, cli, kscore, kdelta)
+    main_rows = {
+        'score_population': phase_kernel(torch, kscore, big, launches)[-1],
+        'delta_generation': phase_delta(torch, kdelta, topt, trace_ga,
+                                        big, launches)[-1]}
     kernels = []
     for k in KERNELS:
+        row = main_rows[k['name']]
+        # no single PyTorch call computes either function
         kernels.append(dict(k, launches=launches[k['name']],
-                            max_abs_err=main_row['max_abs_err'],
-                            ms=main_row['ms'],
-                            plain_ms=main_row['plain_ms'],
-                            bound_ms=main_row['bound_ms'],
-                            bound_by=main_row['bound_by'],
-                            library_ms=None))
+                            max_abs_err=row['max_abs_err'], ms=row['ms'],
+                            plain_ms=row['plain_ms'],
+                            bound_ms=row['bound_ms'],
+                            bound_by=row['bound_by'], library_ms=None))
     print(nvidia_smi(), flush=True)
     emit({'kernels': kernels})
     emit({'ok': True, 'device': {

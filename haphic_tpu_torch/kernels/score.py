@@ -30,30 +30,32 @@ from haphic_tpu_torch.kernels import build as kbuild
 # this size so its intermediates stay O(G * P * chunk)
 PLAIN_CHUNK = 1 << 14
 # kernel geometry (see csrc/score_population.cu)
-TILE_MAX = 16                 # individuals per block (SCORE_TILE_MAX)
-SMEM_TILE_BYTES = 56 * 1024   # table bytes per block: ~4 blocks per SM
-SMEM_MAX_BYTES = 200 * 1024   # under the 227 KB a block may use
-RECORDS_PER_BLOCK = 4096      # records one block streams
+TILE_MAX = 32                   # tours per block (SCORE_TILE_MAX)
+STAGE = 1024                    # records per staged chunk (SCORE_STAGE)
+SMEM_BYTES = 232448             # shared memory a block may use (227 KB)
+# table bytes per block: what the two record stages (2 x 7 x STAGE x 4
+# bytes) and the static per-warp reduction buffer and barriers leave
+TABLE_BUDGET = SMEM_BYTES - 2 * 7 * STAGE * 4 - 4096 - 64
 MAX_P = 256
 
 
 def build_tables(order, ori, lengths):
     """Per-contig tables of every tour: (slot of contig int32, start
     offset f32, orientation int32), each (G, P, k), plus the lengths as
-    f32 (G, k). Starts are the f32 cumsum of the slot lengths as in
-    _score_population (optimize.py:296-303); the permutation inverse is
-    a scatter."""
+    f32 (G, k). Starts are the exact int64 prefix sums of the slot
+    lengths, rounded once to f32: the values the kernel builds in its
+    prologue (the XLA scorer's f32 cumsum, optimize.py:296-303, is the
+    same below 2^24 bp); the permutation inverse is a scatter."""
     G, P, k = order.shape
-    Lf = lengths.to(torch.float32)
     idx = order.long()
-    L_slot = torch.gather(Lf[:, None, :].expand(G, P, k), 2, idx)
-    starts = torch.cumsum(L_slot, dim=2) - L_slot
+    L_slot = torch.gather(lengths[:, None, :].expand(G, P, k), 2, idx)
+    starts = (torch.cumsum(L_slot, dim=2) - L_slot).to(torch.float32)
     slots = torch.arange(k, dtype=torch.int32, device=order.device)
     pos_of = torch.empty_like(order).scatter_(
         2, idx, slots.expand(G, P, k).contiguous())
     start_of = torch.empty_like(starts).scatter_(2, idx, starts)
     ori_of = torch.empty_like(ori).scatter_(2, idx, ori)
-    return pos_of, start_of, ori_of, Lf
+    return pos_of, start_of, ori_of, lengths.to(torch.float32)
 
 
 def score_population_plain(order, ori, lengths, pa, pb, d, w,
@@ -94,22 +96,25 @@ def _fn():
     lib = kbuild.load('score_population')
     fn = lib.score_population_launch
     vp = ctypes.c_void_p
-    fn.argtypes = [vp] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int64, ctypes.c_int,
-                               ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                               vp]
+    fn.argtypes = [vp] * 9 + [ctypes.c_int64, vp, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                              ctypes.c_int, vp]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _geometry(P: int, k: int):
-    """(tile, use_smem): individuals per block and whether their tables
-    sit in shared memory. Tiles fill SMEM_TILE_BYTES; a single tour's
-    tables past that still use shared memory up to SMEM_MAX_BYTES, and
-    past that are read from global memory (L2)."""
-    per = 12 * k
-    tile = min(TILE_MAX, P, max(1, SMEM_TILE_BYTES // per))
-    return tile, int(tile * per <= SMEM_MAX_BYTES)
+    """(tile, smem_table): tours per block and whether their tables are
+    copied into shared memory. The kernel lays a tile's tables out
+    contig-major over the tile padded to a multiple of 4 tours; a tile
+    holds as many such groups as TABLE_BUDGET fits (at most TILE_MAX
+    tours), balanced over the population. Past one group of 4, the
+    block reads the tables from device memory (L2), where the kernel's
+    table pass builds them in every case."""
+    fit = TABLE_BUDGET // (8 * k) // 4 * 4
+    cap = min(fit, TILE_MAX) if fit >= 4 else TILE_MAX
+    tile = -(-P // -(-P // cap))
+    return tile, int(fit >= 4)
 
 
 def _check(order, ori, lengths, pa, pb, d, w):
@@ -144,18 +149,30 @@ def score_population(order, ori, lengths, pa, pb, d, w):
         raise ValueError('unsupported device {}'.format(dev))
     G, P, k = order.shape
     R = pa.shape[1]
-    pos_of, start_of, ori_of, Lf = build_tables(order, ori, lengths)
-    tile, use_smem = _geometry(P, k)
-    nchunks = max(1, -(-R // RECORDS_PER_BLOCK))
-    partial = torch.empty((G, P, nchunks), dtype=torch.float32, device=dev)
+    if R % 4:
+        # bulk copies move 16-byte multiples: pad with zero-weight
+        # records (pa = pb = 0, d = 0), which add exactly 0.0
+        pad = 4 - R % 4
+        pa, pb, d, w = [torch.nn.functional.pad(x, (0, pad))
+                        for x in (pa, pb, d, w)]
+        R += pad
+    pa, pb, d, w = [x if x.data_ptr() % 16 == 0 else x.clone()
+                    for x in (pa, pb, d, w)]
+    tile, smem_table = _geometry(P, k)
+    max_chunks = max(1, -(-R // STAGE))
+    partial = torch.empty((G, P, max_chunks), dtype=torch.float32,
+                          device=dev)
+    pad = -(-tile // 4) * 4
+    gtab = torch.empty((G, -(-P // tile), k, pad), dtype=torch.int64,
+                       device=dev)                         # the tables
     out = torch.empty((G, P), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn()(pos_of.data_ptr(), start_of.data_ptr(),
-                    ori_of.data_ptr(), Lf.data_ptr(), pa.data_ptr(),
-                    pb.data_ptr(), d.data_ptr(), w.data_ptr(),
-                    partial.data_ptr(), out.data_ptr(), G, P, k, R, tile,
-                    RECORDS_PER_BLOCK, nchunks, use_smem, stream)
+        err = _fn()(order.data_ptr(), ori.data_ptr(), lengths.data_ptr(),
+                    gtab.data_ptr(),
+                    pa.data_ptr(), pb.data_ptr(), d.data_ptr(),
+                    w.data_ptr(), partial.data_ptr(), max_chunks,
+                    out.data_ptr(), G, P, k, R, tile, smem_table, stream)
     if err != 0:
         raise RuntimeError('score_population kernel launch failed: CUDA '
                            'error {}'.format(err))

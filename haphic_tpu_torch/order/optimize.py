@@ -22,9 +22,11 @@ group axis. Each log_every window is a run of delta-scored cycles: one
 full-scored (mu+lambda) generation with OX crossover, mutation, stable
 top-P selection and a half-elitist reset, then GA_SYNC_EVERY-1 greedy
 generations whose moves are scored as explicit deltas from per-record
-endpoint caches updated in closed form (exact int32 coordinates). The
-population scorer (initial scores, skip_ga, the full-rescore window) is
-the hand-written CUDA kernel in haphic_tpu_torch.kernels.
+endpoint caches updated in closed form (exact int32 coordinates). Two
+hand-written CUDA kernels in haphic_tpu_torch.kernels carry it: the
+population scorer (initial scores, skip_ga, the full-rescore window)
+and the per-record work of each delta generation (delta_generation,
+which updates the caches in place).
 
 Differences from the JAX package: gathers and the permutation inverse
 are plain torch indexing and scatters (no one-hot matmuls, no 12-bit
@@ -44,6 +46,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from haphic_tpu_torch.kernels.delta import (  # noqa: F401 (tests)
+    contrib_from_cache as _contrib_from_cache, delta_generation,
+    endpoint_update as _endpoint_update)
 from haphic_tpu_torch.kernels.score import score_population
 from haphic_tpu_torch.runtime import resolve_device
 
@@ -399,27 +404,6 @@ def _ox_crossover(gen, order, ori, xoprob: float):
 # ---------------------------------------------------------------------------
 
 
-def _contrib_from_cache(posA, sA, oA, posB, sB, oB, la, lb, d, w):
-    """Per-record score contributions (G, P, R) from cached endpoint
-    state: posA/posB int32 slots, sA/sB EXACT int32 start offsets (f32
-    offsets carry ulp ~64 bp at chromosome scale and broke the delta
-    hill climb in the JAX package), oA/oB int32 orientations, la/lb
-    int32 (G, R) contig lengths, d f32 (G, 4, R), w f32 (G, R). The gap
-    is exact; only the final f32 conversion rounds."""
-    a_first = posA < posB
-    gap = torch.where(a_first, sB - (sA + la[:, None]),
-                      sA - (sB + lb[:, None])).to(torch.float32)
-    combo = 2 * oA + oB
-    combo = torch.where(a_first, combo, 3 - combo)
-    dd = d[:, None]
-    dval = torch.where(combo == 0, dd[:, :, 0],
-                       torch.where(combo == 1, dd[:, :, 1],
-                                   torch.where(combo == 2, dd[:, :, 2],
-                                               dd[:, :, 3])))
-    dist = torch.clamp(gap + dval, min=1.0)
-    return w[:, None] / dist
-
-
 def _build_caches(order, ori, lengths, pa, pb):
     """Per-record endpoint caches + slot tables from the population.
     Returns (L_slot (G,P,k) int32, startsx (G,P,k+1) int32 slot starts
@@ -443,64 +427,6 @@ def _build_caches(order, ori, lengths, pa, pb):
     return (L_slot, startsx) + tuple(caches)
 
 
-def _endpoint_update(pos, s, o, le, do, op, i, j, t, Sx, Sy, Lx, Ly, Et):
-    """Closed-form update of one record endpoint under one move.
-
-    pos/s/o: cached slot / start / orientation (G, P, R); le (G, R) the
-    endpoint contig's length. Scalars (G, P): Sx/Sy = starts of slots
-    i/j, Lx/Ly = lengths at slots i/j, Et = start of slot t.
-      swap i<->j: slot i keeps start Sx (now holds contig Y); contig X
-        lands at start Sy + Ly - Lx; middle slots shift by Ly - Lx.
-      inversion [i,j]: slot of contig c -> i + j - pos; its start ->
-        Sx + (Sy + Ly) - s - len(c); orientation flips.
-      rotation [i,t) by r=j-i: block A=[i,j) (length W = Sy - Sx)
-        moves right by t - j and +(Et - Sy); block B=[j,t) moves left
-        by j - i and -W.
-      flip [i,j]: orientation flips in the span.
-    """
-    i_, j_, t_ = i[..., None], j[..., None], t[..., None]
-    Sx_, Sy_ = Sx[..., None], Sy[..., None]
-    dL = (Ly - Lx)[..., None]
-    Ej_ = (Sy + Ly)[..., None]
-    Et_ = Et[..., None]
-    op_ = op[..., None]
-    le_ = le[:, None, :]
-
-    is_i = pos == i_
-    is_j = pos == j_
-    mid = (pos > i_) & (pos < j_)
-    in_ij = (pos >= i_) & (pos <= j_)
-    in_rot = (pos >= i_) & (pos < t_)
-    in_a = (pos >= i_) & (pos < j_)
-
-    # swap
-    pos_sw = torch.where(is_i, j_, torch.where(is_j, i_, pos))
-    s_sw = torch.where(is_i, Sy_ + dL,
-                       torch.where(is_j, Sx_,
-                                   torch.where(mid, s + dL, s)))
-    # inversion
-    pos_inv = torch.where(in_ij, i_ + j_ - pos, pos)
-    s_inv = torch.where(in_ij, Sx_ + Ej_ - s - le_, s)
-    o_flip = torch.where(in_ij, 1 - o, o)
-    # rotation
-    pos_rot = torch.where(in_a, pos + (t_ - j_),
-                          torch.where(in_rot, pos - (j_ - i_), pos))
-    s_rot = torch.where(in_a, s + (Et_ - Sy_),
-                        torch.where(in_rot, s - (Sy_ - Sx_), s))
-
-    pos_n = torch.where(op_ == 0, pos_sw,
-                        torch.where(op_ == 1, pos_inv,
-                                    torch.where(op_ == 2, pos_rot, pos)))
-    s_n = torch.where(op_ == 0, s_sw,
-                      torch.where(op_ == 1, s_inv,
-                                  torch.where(op_ == 2, s_rot, s)))
-    o_n = torch.where((op_ == 1) | (op_ == 3), o_flip, o)
-    keep = ~do[..., None]
-    return (torch.where(keep, pos, pos_n),
-            torch.where(keep, s, s_n),
-            torch.where(keep, o, o_n))
-
-
 def _move_scalars(startsx, i, j, t):
     """(Sx, Sy, Lx, Ly, Et) per individual, gathered from the int32
     slot-start table (G, P, k+1)."""
@@ -514,9 +440,15 @@ def _move_scalars(startsx, i, j, t):
 # GA_SYNC_EVERY generations; the rest are delta-scored greedy moves
 GA_SYNC_EVERY = int(os.environ.get('HAPHIC_GA_SYNC_EVERY', 25))
 # share of delta-generation moves drawn with a local (geometric) span
-_DELTA_LOCAL_FRAC = 0.5
-# relative gain a greedy move needs per slot of its span (see _dgen)
-_DELTA_SPAN_GAIN = 2e-6
+_DELTA_LOCAL_FRAC = float(os.environ.get('HAPHIC_GA_DELTA_LOCAL', 0.5))
+# minimum relative gain for a greedy move to be accepted
+_DELTA_MIN_GAIN = float(os.environ.get('HAPHIC_GA_DELTA_MIN_GAIN', 0.0))
+# additional per-slot-of-span relative gain requirement (see _delta_step)
+_DELTA_SPAN_GAIN = float(os.environ.get('HAPHIC_GA_DELTA_SPAN_GAIN',
+                                        2e-6))
+# rows that each cycle's full generation re-seeds from the incumbent:
+# 'half' (the bottom half), 'all' (every row but the best) or 'none'
+_GA_RESET = os.environ.get('HAPHIC_GA_RESET', 'half')
 
 
 class _Records:
@@ -548,34 +480,33 @@ class _Records:
         return self.caches(order, ori)[-1]
 
 
-def _dgen(gen, rec: _Records, state):
+def _dgen(gen, rec: _Records, state, step=delta_generation):
     """One delta-scored greedy generation (the JAX package's dgen)."""
+    order = state[0]
+    # always mutate: rejection handles bad moves
+    move = _sample_moves(gen, order.shape[:-1], order.shape[-1], 1.1,
+                         local_frac=_DELTA_LOCAL_FRAC, device=order.device)
+    return _delta_step(rec, state, move, step)
+
+
+def _delta_step(rec: _Records, state, move, step=delta_generation):
+    """The generation of ``move`` = (do, op, i, j, t): ``step`` (the
+    kernel's wrapper, or its plain version) scores each move as an
+    explicit delta over the records and commits the accepted rows'
+    caches and contributions in place; the slot tables follow here."""
     (order, ori, L_slot, startsx, posA, sA, oA, posB, sB, oB, contrib,
      scores) = state
-    k = order.shape[-1]
-    # always mutate: rejection handles bad moves
-    do, op, i, j, t = _sample_moves(gen, order.shape[:-1], k, 1.1,
-                                    local_frac=_DELTA_LOCAL_FRAC,
-                                    device=order.device)
-    Sx, Sy, Lx, Ly, Et = _move_scalars(startsx, i, j, t)
-    posA2, sA2, oA2 = _endpoint_update(
-        posA, sA, oA, rec.la, do, op, i, j, t, Sx, Sy, Lx, Ly, Et)
-    posB2, sB2, oB2 = _endpoint_update(
-        posB, sB, oB, rec.lb, do, op, i, j, t, Sx, Sy, Lx, Ly, Et)
-    # score the move as an explicit DELTA: unaffected records have
-    # bit-identical state, so their (new - old) contribution is exactly
-    # 0.0 (the old contributions are carried, not recomputed: the same
-    # elementwise arithmetic on the same values gives the same bits)
-    new_c = _contrib_from_cache(posA2, sA2, oA2, posB2, sB2, oB2,
-                                rec.la, rec.lb, rec.d, rec.w)
-    delta = (new_c - contrib).sum(dim=2)
+    do, op, i, j, t = move
     # span-proportional acceptance threshold (rejects score-neutral
     # macro moves that ride on an epsilon boundary gain)
     spanv = torch.where(op == 2, t - i, j - i).to(torch.float32)
-    thr = scores * (_DELTA_SPAN_GAIN * spanv)
-    acc = delta > thr
+    thr = scores * (_DELTA_MIN_GAIN + _DELTA_SPAN_GAIN * spanv)
+    caches = (posA, sA, oA, posB, sB, oB)
+    delta, acc = step(caches, contrib,
+                      move + _move_scalars(startsx, i, j, t), thr,
+                      rec.la, rec.lb, rec.d, rec.w)
     a_ = acc[..., None]
-    src, flip = _move_src(do, op, i, j, t, k)
+    src, flip = _move_src(do, op, i, j, t, order.shape[-1])
     order2, ori2 = _apply_move(order, ori, src, flip)
     order = torch.where(a_, order2, order)
     ori = torch.where(a_, ori2, ori)
@@ -583,12 +514,19 @@ def _dgen(gen, rec: _Records, state):
     startsx = torch.cat([startsx[..., :1],
                          torch.cumsum(L_slot, dim=2, dtype=torch.int32)],
                         dim=2)
-    return (order, ori, L_slot, startsx,
-            torch.where(a_, posA2, posA), torch.where(a_, sA2, sA),
-            torch.where(a_, oA2, oA), torch.where(a_, posB2, posB),
-            torch.where(a_, sB2, sB), torch.where(a_, oB2, oB),
-            torch.where(a_, new_c, contrib),
-            torch.where(acc, scores + delta, scores))
+    return ((order, ori, L_slot, startsx) + caches
+            + (contrib, torch.where(acc, scores + delta, scores)))
+
+
+def _reseed(order, ori):
+    """Elitist re-seed after a cycle's selection (rows sorted
+    best-first): the rows past the kept head restart from the
+    incumbent, per _GA_RESET (in place)."""
+    if _GA_RESET == 'none':
+        return
+    h = 1 if _GA_RESET == 'all' else order.shape[1] // 2
+    order[:, h:] = order[:, :1]
+    ori[:, h:] = ori[:, :1]
 
 
 def _select(order, ori, scores, off_order, off_ori, off_scores, P):
@@ -620,10 +558,7 @@ def _evolve_delta_impl(gen, rec: _Records, order, ori, mutprob: float,
         off_scores = rec.cache_scores(off_order, off_ori)
         order, ori, _ = _select(order, ori, scores, off_order, off_ori,
                                 off_scores, P)
-        # half-elitist re-seed: the selection sorted rows best-first;
-        # the bottom half restarts from the incumbent
-        order[:, P // 2:] = order[:, :1]
-        ori[:, P // 2:] = ori[:, :1]
+        _reseed(order, ori)
         state = (order, ori) + rec.caches(order, ori)
         for _ in range(per - 1):
             state = _dgen(gen, rec, state)

@@ -7,6 +7,9 @@ re-derive the JAX package's draws from its keys and hand them to the
 port; end to end, the device GA is held to the JAX package's quality
 tests (tests/test_optimize.py)."""
 
+import importlib
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,7 @@ import jax.numpy as jnp
 from haphic_tpu.order import optimize as jopt
 
 from haphic_tpu_torch import convert
+from haphic_tpu_torch.kernels import delta as tdelta
 from haphic_tpu_torch.kernels import score as tscore
 from haphic_tpu_torch.order import optimize as topt
 
@@ -170,6 +174,217 @@ def test_delta_caches_match_jax_over_40_generations():
         for name, g, x in zip(('posA', 'sA', 'oA'), (tposA, tsA, toA),
                               jc[2:5]):
             _eq(g, x, 'gen {} rebuild {}'.format(gen, name))
+
+
+def _jax_draws(key, P, k):
+    """The seven draws jopt._sample_moves makes from ``key``."""
+    keys = jax.random.split(key, 7)
+    return (jax.random.uniform(keys[0], (P,)),
+            jax.random.randint(keys[1], (P,), 0, 4),
+            jax.random.randint(keys[2], (P,), 0, k),
+            jax.random.randint(keys[3], (P,), 0, k),
+            jax.random.randint(keys[4], (P,), 0, k),
+            jax.random.uniform(keys[5], (P,)),
+            jax.random.uniform(keys[6], (P,)))
+
+
+def _row_sums(x):
+    """Row sums of a (P, R) f32 array by torch's reduction. Both
+    packages' per-record terms are held bit for bit; the order of a
+    float sum is the one thing the two frameworks do not share, so the
+    JAX side's scores and deltas are summed by this same reduction (the
+    port's, over contiguous rows), and XLA's own sum is held to the
+    kernel tolerance instead."""
+    return torch.as_tensor(np.array(x)).sum(dim=1).numpy()
+
+
+def _jax_dgen(state, moves, la, lb, d, w):
+    """The body of dgen in jopt._evolve_delta_impl
+    (haphic_tpu/order/optimize.py:824-894), assembled from the JAX
+    package's own functions; returns (state, acc, delta, xla_delta)."""
+    (order, ori, L_slot, startsx, posA, sA, oA, posB, sB, oB,
+     scores) = state
+    do, op, i, j, t = moves
+    k = order.shape[1]
+    Sx, Sy, Lx, Ly, Et = jopt._move_scalars(startsx, i, j, t)
+    posA2, sA2, oA2 = jopt._endpoint_update(
+        posA, sA, oA, la, do, op, i, j, t, Sx, Sy, Lx, Ly, Et)
+    posB2, sB2, oB2 = jopt._endpoint_update(
+        posB, sB, oB, lb, do, op, i, j, t, Sx, Sy, Lx, Ly, Et)
+    old_c = jopt._contrib_from_cache(posA, sA, oA, posB, sB, oB,
+                                     la, lb, d, w)
+    new_c = jopt._contrib_from_cache(posA2, sA2, oA2, posB2, sB2, oB2,
+                                     la, lb, d, w)
+    xla_delta = np.asarray((new_c - old_c).sum(axis=1))
+    delta = jnp.asarray(_row_sums(new_c - old_c))
+    spanv = jnp.where(op == 2, t - i, j - i).astype(jnp.float32)
+    thr = scores * (jopt._DELTA_MIN_GAIN + jopt._DELTA_SPAN_GAIN * spanv)
+    acc = delta > thr
+    new_scores = scores + delta
+    a_ = acc[:, None]
+    src, flip = jopt._move_src(do, op, i, j, t, k)
+    tabs = jnp.stack([order.astype(jnp.float32),
+                      ori.astype(jnp.float32),
+                      (L_slot >> 12).astype(jnp.float32),
+                      (L_slot & 0xfff).astype(jnp.float32)], axis=1)
+    g = jopt._permute_tables(tabs, src)
+    order2 = g[:, 0].astype(jnp.int32)
+    ori2 = g[:, 1].astype(jnp.int32)
+    ori2 = jnp.where(flip, 1 - ori2, ori2)
+    L2 = (jnp.round(g[:, 2]).astype(jnp.int32) << 12) \
+        + jnp.round(g[:, 3]).astype(jnp.int32)
+    L_slot = jnp.where(a_, L2, L_slot)
+    startsx = jnp.concatenate([jnp.zeros((order.shape[0], 1), jnp.int32),
+                               jnp.cumsum(L_slot, axis=1)], axis=1)
+    out = (jnp.where(a_, order2, order), jnp.where(a_, ori2, ori), L_slot,
+           startsx) + tuple(jnp.where(a_, n, o) for n, o in zip(
+               (posA2, sA2, oA2, posB2, sB2, oB2),
+               (posA, sA, oA, posB, sB, oB))) + (
+        jnp.where(acc, new_scores, scores),)
+    return out, np.asarray(acc), np.asarray(delta), xla_delta
+
+
+def _dgen_parity(gens, seed=7, P=16, k=32):
+    """Whole delta generations of both packages on the same moves:
+    acceptance, order, ori, L_slot, startsx, the six caches, the carried
+    contributions and the scores exact after every generation."""
+    lengths, pa, pb, order, ori, d, w = _cache_setup(P, k)
+    jl, jpa, jpb = jnp.asarray(lengths), jnp.asarray(pa), jnp.asarray(pb)
+    jla, jlb, jd, jw = jl[jpa], jl[jpb], jnp.asarray(d), jnp.asarray(w)
+    jc = jopt._build_caches(jnp.asarray(order), jnp.asarray(ori), jl,
+                            jpa, jpb)
+    c0 = jopt._contrib_from_cache(*jc[2:], jla, jlb, jd, jw)
+    jstate = (jnp.asarray(order), jnp.asarray(ori)) + tuple(jc) + (
+        jnp.asarray(_row_sums(c0)),)
+    rec = topt._Records(_t(lengths[None], torch.int64), _t(pa[None]),
+                        _t(pb[None]), _t(d[None]), _t(w[None]))
+    tstate = (_t(order[None]), _t(ori[None])) + rec.caches(
+        _t(order[None]), _t(ori[None]))
+    names = ('order', 'ori', 'L_slot', 'startsx', 'posA', 'sA', 'oA',
+             'posB', 'sB', 'oB')
+    seen = []
+
+    def step(*args, **kw):
+        seen.append(tdelta.delta_generation_plain(*args, **kw))
+        return seen[-1]
+    key = jax.random.PRNGKey(seed)
+    n_acc = 0
+    for gen in range(gens):
+        key, km = jax.random.split(key)
+        jmoves = jopt._sample_moves(km, P, k, 1.1,
+                                    local_frac=jopt._DELTA_LOCAL_FRAC)
+        tmoves = topt._moves_from_draws(
+            *[_t(np.asarray(x)[None]) for x in _jax_draws(km, P, k)], k,
+            1.1, topt._DELTA_LOCAL_FRAC)
+        for name, g, x in zip(('do', 'op', 'i', 'j', 't'), tmoves, jmoves):
+            _eq(g, x, 'gen {} move {}'.format(gen, name))
+        jstate, jacc, jdelta, xla_delta = _jax_dgen(jstate, jmoves, jla,
+                                                    jlb, jd, jw)
+        tstate = topt._delta_step(rec, tstate, tmoves, step)
+        tdelta_, tacc = seen[-1]
+        _eq(tacc, jacc, 'gen {} acceptance'.format(gen))
+        _eq(tdelta_, jdelta, 'gen {} delta'.format(gen))
+        assert np.all(np.abs(xla_delta - jdelta)
+                      <= 1e-6 * np.abs(np.asarray(jstate[-1])))
+        for name, g, x in zip(names, tstate[:10], jstate[:10]):
+            _eq(g, x, 'gen {} {}'.format(gen, name))
+        _eq(tstate[10], jopt._contrib_from_cache(*jstate[4:10], jla, jlb,
+                                                 jd, jw),
+            'gen {} contrib'.format(gen))
+        _eq(tstate[11], jstate[10], 'gen {} scores'.format(gen))
+        n_acc += int(jacc.sum())
+    return n_acc
+
+
+def test_delta_generation_matches_jax_dgen_over_40_generations():
+    """The port's whole delta generation (_delta_step with the plain
+    delta_generation) against JAX's dgen body over 40 generations at
+    P=16, k=32."""
+    n_acc = _dgen_parity(40)
+    assert 0 < n_acc < 40 * 16
+
+
+def test_cpu_delta_generation_takes_the_plain_version():
+    """On CPU tensors delta_generation runs the plain version and
+    launches nothing."""
+    lengths, pa, pb, order, ori, d, w = _cache_setup(8, 24, 200)
+    rec = topt._Records(_t(lengths[None], torch.int64), _t(pa[None]),
+                        _t(pb[None]), _t(d[None]), _t(w[None]))
+    gen = torch.Generator()
+    n0 = tdelta.delta_generation.launches
+    out = []
+    for step in (tdelta.delta_generation, tdelta.delta_generation_plain):
+        gen.manual_seed(3)
+        state = (_t(order[None]), _t(ori[None])) + rec.caches(
+            _t(order[None]), _t(ori[None]))
+        for _ in range(5):
+            state = topt._dgen(gen, rec, state, step)
+        out.append(state)
+    assert tdelta.delta_generation.launches == n0
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+_GA_SETTINGS = [('HAPHIC_GA_DELTA_LOCAL', '0.9'),
+                ('HAPHIC_GA_DELTA_MIN_GAIN', '1e-3'),
+                ('HAPHIC_GA_DELTA_SPAN_GAIN', '1e-4'),
+                ('HAPHIC_GA_RESET', 'all'),
+                ('HAPHIC_GA_RESET', 'none')]
+
+
+@pytest.fixture
+def ga_env(monkeypatch):
+    """Sets one GA variable and reloads both optimize modules, which
+    read it at load; restores both afterwards."""
+    def apply(var, value):
+        monkeypatch.setenv(var, value)
+        importlib.reload(jopt)
+        importlib.reload(topt)
+    yield apply
+    monkeypatch.undo()
+    importlib.reload(jopt)
+    importlib.reload(topt)
+
+
+@pytest.mark.parametrize('var,value', _GA_SETTINGS,
+                         ids=[v.lower() if v != 'HAPHIC_GA_RESET' else
+                              'haphic_ga_reset_' + x
+                              for v, x in _GA_SETTINGS])
+def test_ga_settings_follow_the_environment(ga_env, var, value):
+    """Each GA variable that the JAX package reads changes the port the
+    same way: thresholds and the reset rule, and the acceptance of
+    delta generations on JAX-derived moves."""
+    ga_env(var, value)
+    assert topt._DELTA_LOCAL_FRAC == jopt._DELTA_LOCAL_FRAC
+    assert topt._DELTA_MIN_GAIN == jopt._DELTA_MIN_GAIN
+    assert topt._DELTA_SPAN_GAIN == jopt._DELTA_SPAN_GAIN
+    assert topt._GA_RESET == os.environ.get('HAPHIC_GA_RESET', 'half')
+    if var != 'HAPHIC_GA_RESET':
+        assert float(value) in (topt._DELTA_LOCAL_FRAC,
+                                topt._DELTA_MIN_GAIN,
+                                topt._DELTA_SPAN_GAIN)
+    # reset: one window of one cycle with no crossover and no mutation
+    # leaves the selection, the re-seed and the final sort
+    P, k = 16, 32
+    lengths, pa, pb, order, ori, d, w = _cache_setup(P, k)
+    want = jopt._evolve_delta_impl(
+        jax.random.PRNGKey(0), jnp.asarray(order), jnp.asarray(ori),
+        jnp.asarray(lengths.astype(np.int64)), jnp.asarray(pa),
+        jnp.asarray(pb), jnp.asarray(d), jnp.asarray(w), 0.0, 1024, 1,
+        xoprob=0.0)
+    rec = topt._Records(_t(lengths[None], torch.int64), _t(pa[None]),
+                        _t(pb[None]), _t(d[None]), _t(w[None]))
+    got = topt._evolve_delta_impl(torch.Generator(), rec, _t(order[None]),
+                                  _t(ori[None]), 0.0, 1, xoprob=0.0)
+    _eq(got[0], want[0], 'order after reset')
+    _eq(got[1], want[1], 'ori after reset')
+    np.testing.assert_allclose(got[2][0].numpy(), np.asarray(want[2]),
+                               rtol=1e-6)
+    distinct = len({tuple(r) for r in np.asarray(want[0]).tolist()})
+    assert distinct == {'all': 1, 'none': P // 2}.get(
+        os.environ.get('HAPHIC_GA_RESET'), distinct)
+    # acceptance of delta generations on JAX-derived moves
+    _dgen_parity(5, seed=11)
 
 
 @pytest.mark.parametrize('mutprob,local_frac', [(0.9, 0.5), (1.1, 0.0),
