@@ -21,12 +21,25 @@ Phases, each printing one JSON line:
              with CUDA-event times and the least time the card could
              take for the same work. score_population: max relative
              error <= 1e-5 (the sums run in another order).
-             delta_generation, on a GA state built by _Records.caches
-             from a random population and one set of moves: delta
-             within 1e-6 x |score| (sums in another order), equal
-             acceptance wherever |delta - thr| exceeds that, and, under
-             one acceptance mask, exactly equal caches, contributions,
-             slot tables, order and ori; with no move, delta exactly 0.
+             delta_generation (one launch per generation: delta,
+             acceptance, commit, slot tables), on a GA state built by
+             _Records.caches from a random population and one set of
+             moves, against the plain step: delta within 1e-6 x |score|
+             of the plain version's (sums in another order) where
+             |delta| <= |score|, and on every row within half an ulp of
+             the exact sum of the plain version's f32 terms (plus the
+             f64 sums' own error); equal acceptance wherever
+             |delta - thr| exceeds what the two may differ by; a repeat
+             run bit-identical, and, under one acceptance mask, exactly
+             equal caches, contributions, order, ori, L_slot and
+             startsx, scores exactly score + delta; the same for moves
+             over the whole tour
+             (more touched records than the kernel keeps in shared
+             memory); with no move, delta exactly 0 and the state
+             unchanged. The bound is the function's least work
+             (changed pairs; bound_touched_ms reads every touched
+             pair); the figure that also reads the two slots of every
+             pair stays beside it as bound_scan_ms.
 4. kernels   one line listing every kernel (the line before the last).
 
 The last line is {"ok": true, "device": {...}}. The script exits
@@ -34,7 +47,6 @@ non-zero, printing no result, when CUDA is unavailable, when the
 package is missing, or when any phase fails.
 """
 
-import functools
 import json
 import logging
 import os
@@ -208,17 +220,23 @@ def phase_pipeline(torch, cli, kscore, kdelta):
     for name, n in launches.items():
         check(n > 0, 'kernel {} was not launched on the main path'.format(
             name))
+    batches = m['ga_batch']
+    # the delta generations the GA says it ran, one launch each
+    want = sum(m['ga_delta_gens'])
+    check(launches['delta_generation'] == want,
+          'delta_generation launched {} times for {} delta generations'
+          .format(launches['delta_generation'], want))
     agp = os.path.join(out, '04.build', 'scaffolds.agp')
     check(os.path.exists(agp), 'no {}'.format(agp))
     part = check_partition(agp, SIM['nchrs'])
-    batches = m['ga_batch']
     emit({'phase': 'pipeline', 'sim': SIM, 'sim_s': sim_s,
           'cut': {'ngen': [5000, NGEN]}, 'n': m['n'][-1],
           'mcl_route': mcl, 'mcl_batches': m['batches'][-1],
           'mcl_iters_per_inflation': m['n_iters'][-1],
           'records_per_group': m['records'][-1],
           'ga_work': m['ga_work'][-1], 'ga_route': m['ga_route'][-1],
-          'ga_batches': batches, 'stage_s': m['stage_secs'][-1],
+          'ga_batches': batches, 'ga_delta_gens': want,
+          'stage_s': m['stage_secs'][-1],
           'cluster_s': m['cluster_secs'][-1], 'ga_s': m['ga_secs'][-1],
           'wall_s': wall,
           'max_memory_allocated': torch.cuda.max_memory_allocated(),
@@ -316,26 +334,128 @@ def _clone(state):
     return tuple(x.clone() for x in state)
 
 
-def _delta_bound_ms(torch, state, move, acc):
-    """Least time for one delta generation on this input: every
-    (individual, record) pair reads its two slots; the pairs a move
-    touches read the rest of their state (20 B); the records (28 B)
-    are read once; accepted touched pairs write 7 values (28 B). The
-    arithmetic (~40 FP32 ops per touched pair) is far below the bytes."""
+def _step(fn, topt, rec, state, move, accept=None):
+    """One delta generation by ``fn`` (the kernel's wrapper or the plain
+    version) on ``state``, which it updates in place."""
+    return fn(state, move, rec.la, rec.lb, rec.d, rec.w,
+              topt._DELTA_MIN_GAIN, topt._DELTA_SPAN_GAIN, accept=accept)
+
+
+def _run(fn, topt, rec, state, move, accept=None):
+    """(delta, acc, state after) of one generation on a copy of
+    ``state``."""
+    st = _clone(state)
+    delta, acc = _step(fn, topt, rec, st, move, accept)
+    return delta, acc, st
+
+
+def _delta_bound_ms(torch, kdelta, state, move, acc):
+    """Least time for one delta generation on this input. Bytes: the
+    state of every (individual, record) pair whose contribution the move
+    may change (its two slots and 20 B more: 28 B;
+    kdelta.changed_records), the state of the other touched pairs of an
+    accepted row (28 B), 28 B written per touched pair of an accepted
+    row, the records once per group (la, lb, d[4], w: 28 B), the move's
+    span of ``order`` for every row, the slot tables over the span of
+    each accepted row (order, ori, L_slot read and written and startsx
+    written: 28 B a slot; a flip's ori only: 8 B), and per row the move,
+    its slot starts, the score and the outputs (60 B). The arithmetic
+    (~40 FP32 operations per computed pair) is far below the bytes.
+    Beside it, the same with the state of every touched pair read
+    (bound_touched_ms), and the same with the two slots of every pair
+    read as well (bound_scan_ms), as a kernel that scans them moves. Pairs are counted by the plain rules
+    (kdelta.touched_records, kdelta.changed_records)."""
     posA, posB = state[4], state[7]
-    do, op, i, j, t = [x[..., None] for x in move]
-    hi = torch.where(op == 2, t - 1, j)
-    touched = do & (((posA >= i) & (posA <= hi)) |
-                    ((posB >= i) & (posB <= hi)))
-    n_touched = int(touched.sum())
-    n_written = int((touched & acc[..., None]).sum())
     G, P, R = posA.shape
-    nbytes = (8 * G * P * R + 20 * n_touched + 28 * G * R
-              + 28 * n_written + 60 * G * P)
+    touched = kdelta.touched_records(posA, posB, move)
+    changed = kdelta.changed_records(posA, posB, move)
+    written = touched & acc[..., None]
+    n_touched, n_changed = int(touched.sum()), int(changed.sum())
+    n_written = int(written.sum())
+    n_still = int((written & ~changed).sum())
+    del touched, changed, written
+    do, op, i, j, t = move
+    span = torch.where(do, torch.where(op == 2, t - i, j - i + 1),
+                       0).clamp(min=0)
+    slot_bytes = torch.where(op == 3, 8, 28)
+    n_span = int(span.sum())
+    fixed = (28 * G * R + 28 * n_written + 4 * n_span
+             + int((span * slot_bytes * acc).sum()) + 60 * G * P)
+    nbytes = 28 * n_changed + 28 * n_still + fixed
+    touched_bytes = 28 * n_touched + fixed
+    scan_bytes = (8 * G * P * R + 20 * n_touched + 28 * G * R
+                  + 28 * n_written + 60 * G * P)
+    t_ops = 40 * n_changed / FP32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = 40 * n_touched / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
-                                 else 'operations'), n_touched
+    return {'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+            'bound_touched_ms': touched_bytes / HBM_BPS * 1e3,
+            'bound_scan_ms': scan_bytes / HBM_BPS * 1e3,
+            'touched_pairs': n_touched, 'changed_pairs': n_changed,
+            'written_pairs': n_written}
+
+
+def _check_delta(torch, kdelta, topt, what, rec, state, move, got, want):
+    """The kernel's (delta, acc) ``got`` against the plain version's
+    ``want`` on ``state`` before the step. Every row: the kernel sums
+    its f32 per-record terms in f64 and rounds once, so its delta lies
+    within half an f32 ulp of the exact (f64) sum of the plain
+    version's terms, plus the two f64 sums' own error (R * 2^-53 of the
+    terms' magnitudes each). Rows whose |delta| is at most |score|: the
+    deltas within DELTA_TOL * |score| of the plain version's (its f32
+    sum runs in another order), and equal acceptance wherever
+    |delta - thr| exceeds that. Rows with a larger delta, where one f32
+    ulp of the delta can exceed 1e-6 * |score|: equal acceptance
+    wherever |delta - thr| exceeds the most the two deltas can differ
+    by the bounds above."""
+    scores, R = state[-1], state[4].shape[2]
+    new_c = kdelta.record_update(state, move, rec.la, rec.lb, rec.d,
+                                 rec.w)[1]
+    terms = (new_c - state[10]).double()
+    del new_c
+    exact, mag = terms.sum(dim=2), terms.abs().sum(dim=2)
+    del terms
+    kd = got[0].abs()
+    half_ulp = 0.5 * (torch.nextafter(kd, torch.full_like(kd, np.inf))
+                      - kd).double()
+    bound = half_ulp + 2.0 * R * 2.0 ** -53 * mag
+    exact_err = (got[0].double() - exact).abs()
+    check(bool((exact_err <= bound).all()), 'delta kernel is not the exact '
+          'sum rounded once ({}): max error / bound {}'.format(
+              what, float((exact_err / bound).max())))
+    big = want[0].abs() > scores.abs()
+    err = (got[0] - want[0]).abs()
+    tol = DELTA_TOL * scores.abs()
+    check(bool((big | (err <= tol)).all()), 'delta kernel disagrees ({}): '
+          'max |delta error| / |score| {}'.format(
+              what, float(torch.where(big, 0.0, err / scores.abs()).max())))
+    thr = _threshold(torch, topt, scores, move)
+    big_tol = (want[0].double() - exact).abs() + bound
+    sure = torch.where(big, (want[0].double() - thr.double()).abs() > big_tol,
+                       (want[0] - thr).abs() > tol)
+    check(torch.equal(got[1][sure], want[1][sure]),
+          'delta kernel acceptance differs ({})'.format(what))
+    return {'max_abs_err': float(err.max()),
+            'max_err_over_score': float((err / scores.abs()).max()),
+            'max_err_over_exact_bound': float((exact_err / bound).max()),
+            'rows_delta_over_score': int(big.sum())}
+
+
+def _check_commit(torch, what, scores, got, want):
+    """Under one acceptance mask every state field but the scores is
+    bit-equal; the kernel's scores are exactly score + its delta on the
+    accepted rows, and within DELTA_TOL * |score| of the plain
+    version's where |delta| is at most |score|."""
+    for n, (a, b) in enumerate(zip(got[2][:-1], want[2][:-1])):
+        check(torch.equal(a, b), 'delta {} differs in state field {}'
+              .format(what, n))
+    check(torch.equal(got[2][-1],
+                      torch.where(got[1], scores + got[0], scores)),
+          'delta {}: scores are not score + delta'.format(what))
+    small = want[0].abs() <= scores.abs()
+    check(bool(((got[2][-1] - want[2][-1]).abs()
+                <= DELTA_TOL * scores.abs())[small].all()),
+          'delta {}: scores differ'.format(what))
 
 
 def phase_delta(torch, kdelta, topt, trace_ga, big, launches):
@@ -348,58 +468,69 @@ def phase_delta(torch, kdelta, topt, trace_ga, big, launches):
         rec, state, move = _delta_inputs(torch, topt, trace_ga, G, P, k, R,
                                          seed)
         scores = state[-1]
-        tol = DELTA_TOL * scores.abs()
         # the deltas, and the acceptance each version makes
-        d_got, acc_got = kern(*_wrapper_args(torch, _clone(state), move,
-                                             rec, topt))
-        d_want, acc_want = plain(*_wrapper_args(torch, _clone(state), move,
-                                                rec, topt))
+        got = _run(kern, topt, rec, state, move)
+        want = _run(plain, topt, rec, state, move)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(d_got).all()),
+        check(bool(torch.isfinite(got[0]).all()),
               'delta kernel output at {} shape'.format(label))
-        err = (d_got - d_want).abs()
-        check(bool((err <= tol).all()), 'delta kernel disagrees at {} '
-              'shape: max |delta error| / |score| {}'.format(
-                  label, float((err / scores.abs()).max())))
-        thr = _threshold(torch, topt, scores, move)
-        sure = (d_want - thr).abs() > tol
-        check(torch.equal(acc_got[sure], acc_want[sure]),
-              'delta kernel acceptance differs at {} shape'.format(label))
-        # one acceptance mask for both: the commit is exactly equal
-        mask = acc_want
-        got = topt._delta_step(rec, _clone(state), move, functools.partial(
-            kern, accept=mask))
-        want = topt._delta_step(rec, _clone(state), move, functools.partial(
-            plain, accept=mask))
+        errs = _check_delta(torch, kdelta, topt, '{} shape'.format(label),
+                            rec, state, move, got, want)
+        # the same generation again: the same bits
+        again = _run(kern, topt, rec, state, move)
         torch.cuda.synchronize()
-        for n, (a, b) in enumerate(zip(got[:-1], want[:-1])):
-            check(torch.equal(a, b), 'delta commit differs at {} shape in '
-                  'state field {}'.format(label, n))
-        check(bool(((got[-1] - want[-1]).abs() <= tol).all()),
-              'delta commit scores differ at {} shape'.format(label))
-        # no move: delta exactly 0.0
+        for a, b in zip(got[:2] + got[2], again[:2] + again[2]):
+            check(torch.equal(a, b), 'delta kernel is not repeatable at '
+                  '{} shape'.format(label))
+        mask = want[1]
+        del got, want, again
+        # one acceptance mask for both: the commit is exactly equal
+        got = _run(kern, topt, rec, state, move, mask)
+        want = _run(plain, topt, rec, state, move, mask)
+        torch.cuda.synchronize()
+        _check_commit(torch, 'commit at {} shape'.format(label), scores,
+                      got, want)
+        del got, want
+        # moves over the whole tour, all accepted: every record touched;
+        # a flip changes every contribution (more new states than the
+        # kernel keeps in shared memory), an inversion none
+        ones = torch.ones_like(mask)
+        for op in (3, 1):
+            whole = (torch.ones_like(move[0]), torch.full_like(move[1], op),
+                     torch.zeros_like(move[2]),
+                     torch.full_like(move[3], k - 1),
+                     torch.full_like(move[4], k - 1))
+            got = _run(kern, topt, rec, state, whole, ones)
+            want = _run(plain, topt, rec, state, whole, ones)
+            torch.cuda.synchronize()
+            what = 'whole-tour moves (op {}) at {} shape'.format(op, label)
+            _check_delta(torch, kdelta, topt, what, rec, state, whole, got,
+                         want)
+            _check_commit(torch, what, scores, got, want)
+            del got, want
+        # no move: delta exactly 0.0, nothing written
         still = (torch.zeros_like(move[0]),) + tuple(move[1:])
-        d0, _ = kern(*_wrapper_args(torch, _clone(state), still, rec,
-                                    topt))
+        d0, _, st0 = _run(kern, topt, rec, state, still, ones)
         torch.cuda.synchronize()
         check(bool((d0 == 0.0).all()),
               'delta kernel gives a nonzero delta with no move')
-        bound_ms, bound_by, n_touched = _delta_bound_ms(torch, state, move,
-                                                        mask)
+        for a, b in zip(st0, state):
+            check(torch.equal(a, b), 'delta kernel changed the state '
+                  'with no move')
+        del st0
+        bound = _delta_bound_ms(torch, kdelta, state, move, mask)
         # times: the same move and acceptance applied again and again to
-        # one copy of the state (each repetition does the same work)
+        # one copy of the state (the moves permute slots inside their
+        # own range, so each repetition touches the same records)
         timed = _clone(state)
-        args = _wrapper_args(torch, timed, move, rec, topt)
-        ms = _time_ms(torch, lambda: kern(*args, accept=mask), 20)
-        plain_ms = _time_ms(torch, lambda: plain(*args, accept=mask), 3)
-        del timed, args, got, want
-        row = {'shape': label, 'G': G, 'P': P, 'k': k, 'R': R,
-               'max_abs_err': float(err.max()),
-               'max_err_over_score': float((err / scores.abs()).max()),
-               'touched_pairs': n_touched, 'pairs': G * P * R,
-               'accepted_rows': int(mask.sum()), 'ms': ms,
-               'plain_ms': plain_ms, 'bound_ms': bound_ms,
-               'bound_by': bound_by}
+        ms = _time_ms(torch, lambda: _step(kern, topt, rec, timed, move,
+                                           mask), 20)
+        plain_ms = _time_ms(torch, lambda: _step(plain, topt, rec, timed,
+                                                 move, mask), 3)
+        del timed
+        row = {'shape': label, 'G': G, 'P': P, 'k': k, 'R': R, **errs,
+               'pairs': G * P * R, 'accepted_rows': int(mask.sum()),
+               'ms': ms, 'plain_ms': plain_ms, **bound}
         emit({'phase': 'kernel', 'name': 'delta_generation',
               'main_path_launches': launches['delta_generation'], **row})
         rows.append(row)
@@ -412,16 +543,6 @@ def _threshold(torch, topt, scores, move):
     do, op, i, j, t = move
     spanv = torch.where(op == 2, t - i, j - i).to(torch.float32)
     return scores * (topt._DELTA_MIN_GAIN + topt._DELTA_SPAN_GAIN * spanv)
-
-
-def _wrapper_args(torch, state, move, rec, topt):
-    """delta_generation's arguments for ``move`` on ``state`` (whose
-    caches it updates in place)."""
-    i, j, t = move[2], move[3], move[4]
-    return (state[4:10], state[10],
-            tuple(move) + topt._move_scalars(state[3], i, j, t),
-            _threshold(torch, topt, state[-1], move),
-            rec.la, rec.lb, rec.d, rec.w)
 
 
 def main() -> int:

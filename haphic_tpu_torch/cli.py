@@ -291,8 +291,6 @@ def cmd_reassign(args) -> int:
 def cmd_sort(args) -> int:
     import os
 
-    import numpy as np
-
     from haphic_tpu_torch.io.artifacts import (load_ht_pickle, parse_clm_file,
                                          parse_group_file)
     from haphic_tpu_torch.io.fasta import read_fasta
@@ -323,7 +321,6 @@ def cmd_sort(args) -> int:
         members = [asm.name2id[c] for c, _, __ in ctgs]
         gd = make_group_data(members, asm.lengths, ht)
         fast_tour = None
-        hot = None
         if not args.skip_fast_sort and members:
             paths = fast_sort(
                 gd, confidence_cutoff=args.confidence_cutoff,
@@ -334,18 +331,13 @@ def cmd_sort(args) -> int:
             write_tour(os.path.join(args.outdir,
                                     '{}.tour.sav'.format(prefix)),
                        fast_tour)
-            local_of = {int(c): i for i, c in enumerate(gd.ctg_ids)}
-            hot = (np.asarray([local_of[asm.name2id[c]]
-                               for c, _ in fast_tour], np.int32),
-                   np.asarray([1 if o == '-' else 0
-                               for _, o in fast_tour], np.int32))
         final = fast_tour
         if not args.skip_allhic and len(members) > 1:
             clm_path = os.path.join(args.clm_dir,
                                     '{}.clm'.format(prefix))
             clm = parse_clm_file(clm_path, asm.name2id)
-            problem = opt.build_problem(gd.ctg_ids, asm.lengths,
-                                        clm.pair_i, clm.pair_j, clm.d)
+            problem, hot = opt.group_problem(gd.ctg_ids, asm.lengths, clm,
+                                             fast_tour, asm.name2id)
             res = opt.optimize_tour(problem, npop=args.npop,
                                     ngen=args.ngen,
                                     mutprob=args.mutprob,

@@ -1,21 +1,26 @@
-// Delta generation of the device GA, for NVIDIA Hopper (sm_90a).
+// Delta generation of the device GA, for NVIDIA Hopper (sm_90a): one
+// launch per generation.
 //
-// Replaces dgen in _evolve_delta_impl, haphic_tpu/order/optimize.py:824
-// (jitted XLA there, ~40 elementwise ops over (G, P, R) tensors per
-// generation). For every (group g, individual p) with its move (do, op,
-// i, j, t and the slot scalars Sx, Sy, Lx, Ly, Et), every CLM record r:
+// Replaces the body of dgen in _evolve_delta_impl,
+// haphic_tpu/order/optimize.py:824-894 (jitted XLA there, ~40
+// elementwise ops over (G, P, R) tensors per generation), after the
+// move is drawn. For every (group g, individual p) row with its move
+// (do, op, i, j, t):
 //
-//   - both cached endpoints (slot, exact int32 start, orientation) are
-//     updated in closed form (_endpoint_update, optimize.py:709);
-//   - the record's new contribution w / max(gap + d[combo], 1) is formed
-//     (_contrib_from_cache, optimize.py:659);
-//   - delta[g, p] = sum_r (new - old), old being the carried contrib.
-//
-// Then, in a second kernel, the rows whose delta passed the acceptance
-// test (done by torch between the two launches) write their updated
-// caches and contributions in place, visiting only the record chunks in
-// which the first kernel found a touched record (a local move touches
-// a few chunks: records are sorted by contig).
+//   - the move scalars Sx, Sy, Lx, Ly, Et are read from startsx
+//     (_move_scalars, optimize.py:774);
+//   - every CLM record r with an endpoint on a slot of the move's range
+//     [i, j] ([i, t) for a rotation) has both endpoints (slot, exact
+//     int32 start, orientation) updated in closed form
+//     (_endpoint_update, optimize.py:709) and its new contribution
+//     w / max(gap + d[combo], 1) formed (_contrib_from_cache, :659);
+//   - delta = sum_r (new - old), and the row accepts when delta > thr,
+//     thr = score * (min_gain + span_gain * span) (:859-861), or by a
+//     given mask;
+//   - an accepted row writes the new caches and contributions of its
+//     touched records in place, applies the move to order, ori and
+//     L_slot (the _move_src rule, :541), rebuilds startsx over the span
+//     and adds delta to its score.
 //
 // Bit-identical contributions. The carried contrib comes from torch's
 // _contrib_from_cache at every cycle start, and records a move does not
@@ -24,33 +29,101 @@
 // is torch's, operation for operation: the exact int32 gap rounded once
 // (__int2float_rn), __fadd_rn, fmaxf, and an IEEE division (__fdiv_rn;
 // no fast math). That makes contrib == formula(caches) an invariant, so
-// a record whose two endpoints lie outside the move's slot range
-// [i, j] (or [i, t) for a rotation) is skipped: its (new - old) is 0.0.
+// a record whose two endpoints lie outside the move's range is skipped:
+// its (new - old) is 0.0. The threshold is rounded as torch rounds it
+// (__fmul_rn, __fadd_rn: no contraction into an FMA).
 //
-// What bounds it on the card: bytes. Every (individual, record) pair
-// reads its two slots (8 bytes, coalesced, 16-byte loads); only the
-// records a move touches read the rest of their state and the record
-// data (which stay in L2: 28 bytes a record). The sums are per block
-// and reduced in a fixed order by a second small kernel (no float
-// atomics), so GA runs are repeatable.
+// What bounds it on the card: bytes. The function's least work is the
+// state of the (individual, record) pairs whose contribution the move
+// may change (28 B each), the other touched pairs of an accepted row
+// (28 B read, and 28 B written for every touched pair), the records
+// (28 B, once per group) and the span of the slot tables. This design
+// still finds those pairs by reading the two slots of every pair (8 B,
+// 16-byte loads); the rest it does once, in one launch:
 //
-// Grid: x = record chunk, y = individual, z = group.
+//   - One cluster of DG_CLUSTER CTAs per row (cudaLaunchKernelEx with a
+//     cluster-dimension attribute). Each CTA owns a contiguous range of
+//     the row's records and handles its ragged tail itself.
+//   - Only the records whose contribution may change are computed for
+//     the delta. A record whose two endpoints move with one block (the
+//     middle of a swap, the span of an inversion, either block of a
+//     rotation) keeps its gap and its orientation combination seen from
+//     the first contig, so its (new - old) is exactly 0.0: a move over
+//     much of the tour changes the contributions of the few records
+//     that cross its edges. Their state still changes; an accepted row
+//     writes it at the commit.
+//   - Compact, then compute densely, warp by warp. Each warp scans
+//     steps of DG_STEP records with 16-byte slot loads (the next two
+//     steps' in flight while it works on one), compacts the selected
+//     records into its list in shared memory (in record order, by a
+//     ballot count and a warp prefix sum), then walks the list with
+//     every lane busy. No block barrier stalls the scan: warps run
+//     freely, DG_MIN_CTAS CTAs to an SM, so the other warps' loads hide
+//     the latency of one warp's scattered state and record loads.
+//   - The new states of the records computed for the delta stay in
+//     shared memory (DG_KEEP entries): an accepted row writes them back
+//     without reading anything again. The commit scans the slots once
+//     more for the touched records whose contribution stays, and for
+//     every touched record of the steps past that capacity.
+//   - The f32 terms (new - old, rounded as torch rounds them) are
+//     summed in FP64 and delta is rounded to f32 once, so it lies
+//     within half an ulp of the exact sum of the terms whatever order
+//     the threads take them in. Each CTA writes its partial sum into
+//     every CTA's shared memory (distributed shared memory), and after
+//     one cluster barrier every CTA adds them in rank order: all hold
+//     the same bits of delta and decide acceptance themselves. No float
+//     atomics, no second kernel, no scratch in device memory; GA runs
+//     are repeatable.
+//   - Rank 0 applies an accepted move to the slot tables in place (a
+//     swap, one reversal, or three for a rotation) and rebuilds startsx
+//     over the span by a block prefix sum of exact int32 lengths. Every
+//     CTA reads its move scalars before the cluster barrier that
+//     precedes those writes.
+//
+// Grid: x = DG_CLUSTER * row + rank, row = g * P + p.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#define DELTA_THREADS 256
+namespace cg = cooperative_groups;
+
+#define DG_THREADS 256
+#define DG_WARPS (DG_THREADS / 32)
+#define DG_CLUSTER 8
+#define DG_STEP 128     // records a warp scans per step (16 B a lane)
+#define DG_KEEP 1024    // new states kept per CTA
+#define DG_MIN_CTAS 4   // CTAs resident per SM
+
+struct Args {
+  int32_t* order; int32_t* ori; int32_t* L; int32_t* startsx;
+  int32_t* posA; int32_t* sA; int32_t* oA;
+  int32_t* posB; int32_t* sB; int32_t* oB;
+  float* contrib; float* scores;
+  const uint8_t* mdo; const int32_t* mop; const int32_t* mi;
+  const int32_t* mj; const int32_t* mt;
+  const int32_t* la; const int32_t* lb; const float* d; const float* w;
+  const uint8_t* accept; float* delta; uint8_t* acc;
+  int P, k;
+  int64_t R, per;  // records, records per CTA (a multiple of 4)
+  float min_gain, span_gain;
+  int vec;
+};
+
+// dynamic shared memory: each warp's list of a step's selected records
+// (record, slot of A, slot of B) and the kept new states
+struct Smem {
+  int lidx[DG_WARPS][DG_STEP], lpa[DG_WARPS][DG_STEP],
+      lpb[DG_WARPS][DG_STEP];
+  int kidx[DG_KEEP], kposA[DG_KEEP], ksA[DG_KEEP], kposB[DG_KEEP],
+      ksB[DG_KEEP], ko[DG_KEEP];  // ko = oA | oB << 1
+  float kc[DG_KEEP];
+};
 
 struct Move {
   int do_, op, i, j, t, Sx, Sy, Lx, Ly, Et;
 };
-
-__device__ __forceinline__ Move load_move(const int32_t* m) {
-  Move v;
-  v.do_ = m[0]; v.op = m[1]; v.i = m[2]; v.j = m[3]; v.t = m[4];
-  v.Sx = m[5]; v.Sy = m[6]; v.Lx = m[7]; v.Ly = m[8]; v.Et = m[9];
-  return v;
-}
 
 // slots whose endpoint state the move may change: [lo, hi]
 __device__ __forceinline__ void move_range(const Move& m, int& lo, int& hi) {
@@ -106,208 +179,470 @@ __device__ __forceinline__ float contribution(int posA, int sA, int oA,
   return __fdiv_rn(w, dist);
 }
 
-struct Ptrs {
-  int32_t* posA; int32_t* sA; int32_t* oA;
-  int32_t* posB; int32_t* sB; int32_t* oB;
-  float* contrib;
-  const int32_t* la; const int32_t* lb;
-  const float* d; const float* w;
-};
-
-// new state and contribution of record r (row offset base, record
-// offset rbase) under move m
-struct Updated {
-  int posA, sA, oA, posB, sB, oB;
-  float c;
-};
-
-__device__ __forceinline__ Updated update_record(const Ptrs& q, const Move& m,
-                                                 size_t base, size_t rbase,
-                                                 int64_t R, int64_t r,
-                                                 int pA, int pB) {
-  Updated u;
-  const size_t e = base + r;
-  u.posA = pA; u.sA = q.sA[e]; u.oA = q.oA[e];
-  u.posB = pB; u.sB = q.sB[e]; u.oB = q.oB[e];
-  const int la = __ldg(q.la + rbase + r);
-  const int lb = __ldg(q.lb + rbase + r);
-  endpoint_update(u.posA, u.sA, u.oA, la, m);
-  endpoint_update(u.posB, u.sB, u.oB, lb, m);
-  const float* dr = q.d + 4 * rbase + r;
-  u.c = contribution(u.posA, u.sA, u.oA, u.posB, u.sB, u.oB, la, lb,
-                     __ldg(dr), __ldg(dr + R), __ldg(dr + 2 * R),
-                     __ldg(dr + 3 * R), __ldg(q.w + rbase + r));
-  return u;
+__device__ __forceinline__ bool in_range(int pos, int lo, int hi) {
+  return pos >= lo && pos <= hi;
 }
 
-// Calls f(r, posA[r], posB[r]) for every record of [r0, r1) this thread
-// owns whose endpoints may have moved; 16-byte slot loads when vec.
-template <typename F>
-__device__ __forceinline__ void for_affected(const Ptrs& q, size_t base,
-                                             int64_t r0, int64_t r1, int lo,
-                                             int hi, int vec, F f) {
-  if (hi < lo) return;
-  if (vec) {
-    const int4* pa4 = reinterpret_cast<const int4*>(q.posA + base);
-    const int4* pb4 = reinterpret_cast<const int4*>(q.posB + base);
-    for (int64_t v = r0 / 4 + threadIdx.x; v < r1 / 4; v += blockDim.x) {
-      const int4 a = pa4[v];
-      const int4 b = pb4[v];
-      const int av[4] = {a.x, a.y, a.z, a.w};
-      const int bv[4] = {b.x, b.y, b.z, b.w};
+// The block of slots an endpoint moves with (0: the move leaves it
+// alone). A record whose two endpoints move with one block keeps its
+// gap and its orientation combination seen from the first contig, so
+// its contribution is bit-identical: the middle of a swap, the span of
+// an inversion, either block of a rotation. A flip changes the
+// orientation combination of every record it touches.
+__device__ __forceinline__ int block_of(int pos, const Move& m, int lo,
+                                        int hi) {
+  if (!in_range(pos, lo, hi)) return 0;
+  if (m.op == 0) return pos == m.i ? 3 : (pos == m.j ? 4 : 1);
+  if (m.op == 2) return pos < m.j ? 1 : 2;
+  return 1;
+}
+
+// whether the record's contribution may change under the move
+__device__ __forceinline__ bool changes(int pa, int pb, const Move& m, int lo,
+                                        int hi) {
+  const int ca = block_of(pa, m, lo, hi);
+  const int cb = block_of(pb, m, lo, hi);
+  return (ca | cb) != 0 && (m.op == 3 || ca != cb);
+}
+
+__device__ __forceinline__ int warp_incl_scan(int v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if ((av[u] >= lo && av[u] <= hi) || (bv[u] >= lo && bv[u] <= hi))
-          f(4 * v + u, av[u], bv[u]);
-      }
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += y;
+  }
+  return v;
+}
+
+// The slots of 4 records of a step in one lane (16-byte loads when the
+// rows are 16-byte aligned); -1, never in a move's range, past r1.
+struct Slots {
+  int a[4], b[4];
+};
+
+__device__ __forceinline__ void load_slots(const Args& a, size_t base,
+                                           int64_t r, int64_t r1, Slots& v) {
+  if (a.vec) {
+    int4 A = make_int4(-1, -1, -1, -1), B = A;
+    if (r < r1) {  // r1 is a multiple of 4 here
+      A = *reinterpret_cast<const int4*>(a.posA + base + r);
+      B = *reinterpret_cast<const int4*>(a.posB + base + r);
     }
+    v.a[0] = A.x; v.a[1] = A.y; v.a[2] = A.z; v.a[3] = A.w;
+    v.b[0] = B.x; v.b[1] = B.y; v.b[2] = B.z; v.b[3] = B.w;
   } else {
-    for (int64_t r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-      const int a = q.posA[base + r];
-      const int b = q.posB[base + r];
-      if ((a >= lo && a <= hi) || (b >= lo && b <= hi)) f(r, a, b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = r + e < r1;
+      v.a[e] = ok ? a.posA[base + r + e] : -1;
+      v.b[e] = ok ? a.posB[base + r + e] : -1;
     }
   }
 }
 
-__global__ void __launch_bounds__(DELTA_THREADS)
-delta_partial_kernel(const int32_t* __restrict__ moves, Ptrs q,
-                     float* __restrict__ partial,
-                     uint8_t* __restrict__ touched, int P, int64_t R,
-                     int64_t chunk, int nchunks, int vec) {
-  __shared__ float red[DELTA_THREADS / 32];
-  const int c = blockIdx.x;
-  const int p = blockIdx.y;
-  const int g = blockIdx.z;
-  const size_t row = (size_t)g * P + p;
-  const Move m = load_move(moves + row * 10);
-  int lo, hi;
-  move_range(m, lo, hi);
-  const size_t base = row * (size_t)R;
-  const size_t rbase = (size_t)g * (size_t)R;
-  const int64_t r0 = (int64_t)c * chunk;
-  const int64_t r1 = min(R, r0 + chunk);
+// One listed record: its cached state, its record data, and (after
+// update()) its new state and contribution.
+struct Rec {
+  int r, posA, sA, oA, posB, sB, oB, la, lb;
+  float old, d0, d1, d2, d3, w, c;
+};
 
-  float acc = 0.0f;
-  int any = 0;
-  for_affected(q, base, r0, r1, lo, hi, vec,
-               [&](int64_t r, int pA, int pB) {
-                 const Updated u = update_record(q, m, base, rbase, R, r,
-                                                 pA, pB);
-                 acc += u.c - q.contrib[base + r];
-                 any = 1;
-               });
-  any = __syncthreads_or(any);
+__device__ __forceinline__ void load_rec(const Args& a, const Smem& sm,
+                                         int warp, size_t base, size_t rbase,
+                                         int n, Rec& x) {
+  const int r = sm.lidx[warp][n];
+  const size_t e = base + r;
+  const size_t q = rbase + r;
+  x.r = r;
+  x.posA = sm.lpa[warp][n]; x.posB = sm.lpb[warp][n];
+  x.sA = a.sA[e]; x.oA = a.oA[e]; x.sB = a.sB[e]; x.oB = a.oB[e];
+  x.old = a.contrib[e];
+  x.la = __ldg(a.la + q); x.lb = __ldg(a.lb + q);
+  const float* dr = a.d + 4 * rbase + r;
+  x.d0 = __ldg(dr); x.d1 = __ldg(dr + a.R); x.d2 = __ldg(dr + 2 * a.R);
+  x.d3 = __ldg(dr + 3 * a.R);
+  x.w = __ldg(a.w + q);
+}
 
+__device__ __forceinline__ void update(const Move& m, Rec& x) {
+  endpoint_update(x.posA, x.sA, x.oA, x.la, m);
+  endpoint_update(x.posB, x.sB, x.oB, x.lb, m);
+  x.c = contribution(x.posA, x.sA, x.oA, x.posB, x.sB, x.oB, x.la, x.lb,
+                     x.d0, x.d1, x.d2, x.d3, x.w);
+}
+
+__device__ __forceinline__ void store_rec(const Args& a, size_t base,
+                                          const Rec& x) {
+  const size_t e = base + x.r;
+  a.posA[e] = x.posA; a.sA[e] = x.sA; a.oA[e] = x.oA;
+  a.posB[e] = x.posB; a.sB[e] = x.sB; a.oB[e] = x.oB;
+  a.contrib[e] = x.c;
+}
+
+// Walks the warp's list of cnt records, one entry a lane at a time.
+// COMMIT: writes every new state to device memory. Otherwise adds
+// (new - old) to acc, in a fixed order, and keeps the new states in
+// shared memory from entry keep_at on (keep_at < 0: not kept).
+template <bool COMMIT>
+__device__ __forceinline__ double walk(const Args& a, Smem& sm, const Move& m,
+                                       int warp, size_t base, size_t rbase,
+                                       int cnt, int keep_at, double acc) {
+  for (int n = threadIdx.x & 31; n < cnt; n += 32) {
+    Rec x;
+    load_rec(a, sm, warp, base, rbase, n, x);
+    update(m, x);
+    if (COMMIT) {
+      store_rec(a, base, x);
+      continue;
+    }
+    acc += (double)(x.c - x.old);
+    if (keep_at >= 0) {
+      const int s = keep_at + n;
+      sm.kidx[s] = x.r;
+      sm.kposA[s] = x.posA; sm.ksA[s] = x.sA;
+      sm.kposB[s] = x.posB; sm.ksB[s] = x.sB;
+      sm.ko[s] = x.oA | (x.oB << 1);
+      sm.kc[s] = x.c;
+    }
+  }
+  return acc;
+}
+
+// Reserves cnt entries of the kept new states (lane 0 of a warp): their
+// first index, or -1 when they do not fit.
+__device__ __forceinline__ int reserve_keep(int* kcount, int cnt) {
+  int old = *reinterpret_cast<volatile int*>(kcount);
+  while (old + cnt <= DG_KEEP) {
+    const int prev = atomicCAS(kcount, old, old + cnt);
+    if (prev == old) return old;
+    old = prev;
+  }
+  return -1;
+}
+
+// The steps of DG_STEP records of the CTA's range [r0, r1), from step
+// first on, each warp taking every DG_WARPS-th step (the slots of its
+// next two steps in flight while it works on one): the records selected are
+// compacted into the warp's list in record order (a ballot count and a
+// warp prefix sum; no block barrier), then walked with every lane busy.
+// Pass 1 (COMMIT false) selects the records whose contribution may
+// change, adds their deltas to acc and keeps their new states while
+// they fit; a step whose states were not kept lowers *resume to its
+// index. The commit (COMMIT true) selects the touched records pass 1
+// did not keep (all of them from step *resume on) and writes them.
+template <bool COMMIT>
+__device__ __forceinline__ double warp_steps(const Args& a, Smem& sm,
+                                             const Move& m, size_t base,
+                                             size_t rbase, int64_t r0,
+                                             int64_t r1, int first, int lo,
+                                             int hi, int* kcount, int* resume,
+                                             double acc) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int nsteps = r1 > r0 ? (int)((r1 - r0 + DG_STEP - 1) / DG_STEP) : 0;
+  int s = first + ((warp - first % DG_WARPS) + DG_WARPS) % DG_WARPS;
+  const int64_t stride = (int64_t)DG_WARPS * DG_STEP;
+  const int64_t rs = r0 + (int64_t)s * DG_STEP + 4 * lane;
+  Slots cur, nx1, nx2;
+  if (s < nsteps) load_slots(a, base, rs, r1, cur);
+  if (s + DG_WARPS < nsteps) load_slots(a, base, rs + stride, r1, nx1);
+  for (; s < nsteps; s += DG_WARPS) {
+    const int64_t r = r0 + (int64_t)s * DG_STEP + 4 * lane;
+    if (s + 2 * DG_WARPS < nsteps)
+      load_slots(a, base, r + 2 * stride, r1, nx2);
+    const bool all = COMMIT && s >= *resume;
+    unsigned bits = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ch = changes(cur.a[e], cur.b[e], m, lo, hi);
+      const bool touched =
+          in_range(cur.a[e], lo, hi) || in_range(cur.b[e], lo, hi);
+      if (COMMIT ? touched && (all || !ch) : ch) bits |= 1u << e;
+    }
+    const int cnt = __popc(bits);
+    const int incl = warp_incl_scan(cnt);
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    int o = incl - cnt;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if ((bits >> e) & 1u) {
+        sm.lidx[warp][o] = (int)(r + e);
+        sm.lpa[warp][o] = cur.a[e];
+        sm.lpb[warp][o] = cur.b[e];
+        ++o;
+      }
+    }
+    __syncwarp();
+    if (COMMIT) {
+      walk<true>(a, sm, m, warp, base, rbase, total, -1, 0.0);
+    } else if (total > 0) {
+      int keep_at = 0;
+      if (lane == 0) {
+        keep_at = reserve_keep(kcount, total);
+        if (keep_at < 0) atomicMin(resume, s);
+      }
+      keep_at = __shfl_sync(0xffffffffu, keep_at, 0);
+      acc = walk<false>(a, sm, m, warp, base, rbase, total, keep_at, acc);
+    }
+    __syncwarp();  // the list is free again
+    cur = nx1;
+    nx1 = nx2;
+  }
+  return acc;
+}
+
+// Reverses slots [p0, q0] of order, ori and L_slot in place (flipping
+// the orientations when flip), one pair of slots a thread.
+__device__ __forceinline__ void reverse_slots(int32_t* ord, int32_t* ori,
+                                              int32_t* L, int p0, int q0,
+                                              bool flip) {
+  const int n = q0 - p0 + 1;
+  for (int x = threadIdx.x; x < (n + 1) / 2; x += DG_THREADS) {
+    const int p = p0 + x, q = q0 - x;
+    const int cp = ord[p], cq = ord[q], rp = ori[p], rq = ori[q];
+    const int lp = L[p], lq = L[q];
+    ord[p] = cq; ord[q] = cp;
+    L[p] = lq; L[q] = lp;
+    ori[p] = flip ? 1 - rq : rq;
+    ori[q] = flip ? 1 - rp : rp;
+  }
+}
+
+// The accepted move applied to the row's slot tables in place (rank 0,
+// every thread): new[idx] = old[src[idx]] as _move_src gives src, the
+// span's orientations flipped for an inversion or a flip, and
+// startsx[i+1 .. hi+1] rebuilt as startsx[i] plus the exact int32
+// prefix sums of the new lengths (slots outside the span keep theirs).
+__device__ void permute_slots(const Args& a, int64_t row, const Move& m,
+                              int* wtot) {
+  int32_t* ord = a.order + row * a.k;
+  int32_t* ori = a.ori + row * a.k;
+  int32_t* L = a.L + row * a.k;
+  int32_t* S = a.startsx + row * (a.k + 1);
+  int hi;
+  if (m.op == 0) {
+    if (threadIdx.x == 0 && m.i != m.j) {
+      const int ci = ord[m.i], ri = ori[m.i], li = L[m.i];
+      ord[m.i] = ord[m.j]; ori[m.i] = ori[m.j]; L[m.i] = L[m.j];
+      ord[m.j] = ci; ori[m.j] = ri; L[m.j] = li;
+    }
+    hi = m.j;
+  } else if (m.op == 1) {
+    reverse_slots(ord, ori, L, m.i, m.j, true);
+    hi = m.j;
+  } else if (m.op == 2) {
+    // left rotation of [i, t) by j - i: reverse [i, j) and [j, t), then
+    // [i, t)
+    reverse_slots(ord, ori, L, m.i, m.j - 1, false);
+    reverse_slots(ord, ori, L, m.j, m.t - 1, false);
+    __syncthreads();
+    reverse_slots(ord, ori, L, m.i, m.t - 1, false);
+    hi = m.t - 1;
+  } else {
+    if (m.op == 3)
+      for (int x = m.i + threadIdx.x; x <= m.j; x += DG_THREADS)
+        ori[x] = 1 - ori[x];
+    return;  // lengths unchanged
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int carry = S[m.i];
+  for (int c0 = m.i; c0 <= hi; c0 += DG_THREADS) {
+    const int x = c0 + threadIdx.x;
+    const int incl = warp_incl_scan(x <= hi ? L[x] : 0);
+    if (lane == 31) wtot[warp] = incl;
+    __syncthreads();
+    int before = 0, tot = 0;
+#pragma unroll
+    for (int w2 = 0; w2 < DG_WARPS; ++w2) {
+      const int s = wtot[w2];
+      tot += s;
+      if (w2 < warp) before += s;
+    }
+    if (x <= hi) S[x + 1] = carry + before + incl;
+    carry += tot;
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(DG_THREADS, DG_MIN_CTAS)
+delta_generation_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char dg_smem[];
+  Smem& sm = *reinterpret_cast<Smem*>(dg_smem);
+  __shared__ int wtot[DG_WARPS];
+  __shared__ int kcount, resume;
+  __shared__ double red[DG_WARPS];
+  __shared__ double parts[DG_CLUSTER];  // the cluster's partial sums
+  __shared__ double s_part;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int64_t row = blockIdx.x / DG_CLUSTER;
+  const int64_t g = row / a.P;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    kcount = 0;
+    resume = INT_MAX;  // first step whose new states were not kept
+  }
+  __syncthreads();
+
+  Move m;
+  m.do_ = a.mdo[row] != 0;
+  m.op = a.mop[row]; m.i = a.mi[row]; m.j = a.mj[row]; m.t = a.mt[row];
+  m.Sx = m.Sy = m.Lx = m.Ly = m.Et = 0;
+  if (m.do_) {
+    const int32_t* S = a.startsx + row * (a.k + 1);
+    m.Sx = S[m.i];
+    m.Lx = S[m.i + 1] - m.Sx;
+    m.Sy = S[m.j];
+    m.Ly = S[m.j + 1] - m.Sy;
+    m.Et = S[m.t];
+  }
+  const float score = a.scores[row];
+  int lo, hi;
+  move_range(m, lo, hi);
+  const size_t base = (size_t)row * (size_t)a.R;
+  const size_t rbase = (size_t)g * (size_t)a.R;
+  const int64_t r0 = (int64_t)rank * a.per;
+  const int64_t r1 = min(a.R, r0 + a.per);
+
+  // pass 1: the delta of this CTA's records
+  double acc = 0.0;
+  if (hi >= lo)
+    acc = warp_steps<false>(a, sm, m, base, rbase, r0, r1, 0, lo, hi,
+                            &kcount, &resume, acc);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, off);
   if (lane == 0) red[warp] = acc;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int wi = 0; wi < DELTA_THREADS / 32; ++wi) s += red[wi];
-    partial[row * nchunks + c] = s;
-    touched[row * nchunks + c] = (uint8_t)any;
+  if (tid == 0) {
+    double s = 0.0;
+    for (int w2 = 0; w2 < DG_WARPS; ++w2) s += red[w2];
+    s_part = s;
+  }
+  float delta = 0.0f;
+  if (hi >= lo) {  // the same for every CTA of the cluster
+    __syncthreads();
+    // each CTA writes its partial into every CTA's shared memory; after
+    // the barrier no CTA touches another's, so none waits to leave.
+    // The barrier also follows every CTA's reads of its move scalars
+    // and score.
+    if (tid < DG_CLUSTER)
+      *cluster.map_shared_rank(&parts[rank], (unsigned)tid) = s_part;
+    cluster.sync();
+    double s = 0.0;
+    for (int r = 0; r < DG_CLUSTER; ++r) s += parts[r];
+    delta = __double2float_rn(s);
+  }
+  const float spanv = __int2float_rn(m.op == 2 ? m.t - m.i : m.j - m.i);
+  const float thr = __fmul_rn(
+      score, __fadd_rn(__fmul_rn(spanv, a.span_gain), a.min_gain));
+  const bool accepted = a.accept ? a.accept[row] != 0 : delta > thr;
+
+  // pass 2: the commit of an accepted row. The touched records pass 1
+  // did not keep (those whose contribution stays, and every one from
+  // step resume on) are computed from their unchanged state and
+  // written; then the kept states of the steps before resume go back
+  // as they are (after a barrier: the scan must read the old slots).
+  if (accepted && hi >= lo) {
+    // a flip's delta pass computed every touched record
+    const int first = m.op == 3 ? resume : 0;
+    if (first != INT_MAX)
+      warp_steps<true>(a, sm, m, base, rbase, r0, r1, first, lo, hi,
+                       &kcount, &resume, 0.0);
+    __syncthreads();
+    for (int n = tid; n < kcount; n += DG_THREADS) {
+      const int r = sm.kidx[n];
+      if ((r - r0) / DG_STEP >= resume) continue;
+      const size_t e = base + r;
+      a.posA[e] = sm.kposA[n]; a.sA[e] = sm.ksA[n]; a.oA[e] = sm.ko[n] & 1;
+      a.posB[e] = sm.kposB[n]; a.sB[e] = sm.ksB[n]; a.oB[e] = sm.ko[n] >> 1;
+      a.contrib[e] = sm.kc[n];
+    }
+  }
+  if (rank == 0) {
+    if (accepted && m.do_) permute_slots(a, row, m, wtot);
+    if (tid == 0) {
+      a.delta[row] = delta;
+      a.acc[row] = accepted ? 1 : 0;
+      if (accepted) a.scores[row] = __fadd_rn(score, delta);
+    }
   }
 }
 
-__global__ void delta_reduce_kernel(const float* __restrict__ partial,
-                                    float* __restrict__ out, int64_t n,
-                                    int nchunks) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* row = partial + (size_t)i * nchunks;
-  float s = 0.0f;
-  for (int c = 0; c < nchunks; ++c) s += row[c];
-  out[i] = s;
-}
-
-__global__ void __launch_bounds__(DELTA_THREADS)
-delta_commit_kernel(const int32_t* __restrict__ moves,
-                    const uint8_t* __restrict__ accept,
-                    const uint8_t* __restrict__ touched, Ptrs q, int P,
-                    int64_t R, int64_t chunk, int nchunks, int vec) {
-  const int c = blockIdx.x;
-  const int p = blockIdx.y;
-  const int g = blockIdx.z;
-  const size_t row = (size_t)g * P + p;
-  // only accepted rows, and only the chunks the delta pass found touched
-  if (!accept[row] || !touched[row * nchunks + c]) return;
-  const Move m = load_move(moves + row * 10);
-  int lo, hi;
-  move_range(m, lo, hi);
-  const size_t base = row * (size_t)R;
-  const size_t rbase = (size_t)g * (size_t)R;
-  const int64_t r0 = (int64_t)c * chunk;
-  const int64_t r1 = min(R, r0 + chunk);
-  for_affected(q, base, r0, r1, lo, hi, vec,
-               [&](int64_t r, int pA, int pB) {
-                 const Updated u = update_record(q, m, base, rbase, R, r,
-                                                 pA, pB);
-                 const size_t e = base + r;
-                 q.posA[e] = u.posA; q.sA[e] = u.sA; q.oA[e] = u.oA;
-                 q.posB[e] = u.posB; q.sB[e] = u.sB; q.oB[e] = u.oB;
-                 q.contrib[e] = u.c;
-               });
-}
-
-static Ptrs make_ptrs(void* posA, void* sA, void* oA, void* posB, void* sB,
-                      void* oB, void* contrib, const void* la,
-                      const void* lb, const void* d, const void* w) {
-  Ptrs q;
-  q.posA = static_cast<int32_t*>(posA);
-  q.sA = static_cast<int32_t*>(sA);
-  q.oA = static_cast<int32_t*>(oA);
-  q.posB = static_cast<int32_t*>(posB);
-  q.sB = static_cast<int32_t*>(sB);
-  q.oB = static_cast<int32_t*>(oB);
-  q.contrib = static_cast<float*>(contrib);
-  q.la = static_cast<const int32_t*>(la);
-  q.lb = static_cast<const int32_t*>(lb);
-  q.d = static_cast<const float*>(d);
-  q.w = static_cast<const float*>(w);
-  return q;
-}
-
-// touched: uint8 (G, P, nchunks) scratch the commit reads back
-extern "C" int delta_scores_launch(
-    const void* moves, void* posA, void* sA, void* oA, void* posB, void* sB,
-    void* oB, void* contrib, const void* la, const void* lb, const void* d,
-    const void* w, void* partial, void* touched, void* delta, int G, int P,
-    int64_t R, int64_t chunk, int nchunks, int vec, void* stream) {
-  if (G < 1 || P < 1 || nchunks < 1 || chunk < 1 || (vec && chunk % 4))
+extern "C" int delta_generation_launch(
+    void* order, void* ori, void* L, void* startsx, void* posA, void* sA,
+    void* oA, void* posB, void* sB, void* oB, void* contrib, void* scores,
+    const void* mdo, const void* mop, const void* mi, const void* mj,
+    const void* mt, const void* la, const void* lb, const void* d,
+    const void* w, const void* accept, void* delta, void* acc, int G, int P,
+    int k, int64_t R, float min_gain, float span_gain, int vec,
+    void* stream) {
+  const int64_t rows = (int64_t)G * P;
+  if (G < 1 || P < 1 || k < 1 || R < 0 || R > INT_MAX || (vec && R % 4) ||
+      rows * DG_CLUSTER > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const Ptrs q = make_ptrs(posA, sA, oA, posB, sB, oB, contrib, la, lb, d, w);
-  dim3 grid((unsigned)nchunks, (unsigned)P, (unsigned)G);
-  delta_partial_kernel<<<grid, DELTA_THREADS, 0, st>>>(
-      static_cast<const int32_t*>(moves), q, static_cast<float*>(partial),
-      static_cast<uint8_t*>(touched), P, R, chunk, nchunks, vec);
-  cudaError_t e = cudaGetLastError();
+  Args a;
+  a.order = static_cast<int32_t*>(order);
+  a.ori = static_cast<int32_t*>(ori);
+  a.L = static_cast<int32_t*>(L);
+  a.startsx = static_cast<int32_t*>(startsx);
+  a.posA = static_cast<int32_t*>(posA);
+  a.sA = static_cast<int32_t*>(sA);
+  a.oA = static_cast<int32_t*>(oA);
+  a.posB = static_cast<int32_t*>(posB);
+  a.sB = static_cast<int32_t*>(sB);
+  a.oB = static_cast<int32_t*>(oB);
+  a.contrib = static_cast<float*>(contrib);
+  a.scores = static_cast<float*>(scores);
+  a.mdo = static_cast<const uint8_t*>(mdo);
+  a.mop = static_cast<const int32_t*>(mop);
+  a.mi = static_cast<const int32_t*>(mi);
+  a.mj = static_cast<const int32_t*>(mj);
+  a.mt = static_cast<const int32_t*>(mt);
+  a.la = static_cast<const int32_t*>(la);
+  a.lb = static_cast<const int32_t*>(lb);
+  a.d = static_cast<const float*>(d);
+  a.w = static_cast<const float*>(w);
+  a.accept = static_cast<const uint8_t*>(accept);
+  a.delta = static_cast<float*>(delta);
+  a.acc = static_cast<uint8_t*>(acc);
+  a.P = P;
+  a.k = k;
+  a.R = R;
+  a.per = ((R + DG_CLUSTER - 1) / DG_CLUSTER + 3) / 4 * 4;
+  a.min_gain = min_gain;
+  a.span_gain = span_gain;
+  a.vec = vec;
+
+  const size_t smem = sizeof(Smem);
+  static bool smem_attr_set = false;
+  cudaError_t e;
+  if (!smem_attr_set) {
+    e = cudaFuncSetAttribute(delta_generation_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_attr_set = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = DG_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows * DG_CLUSTER), 1, 1);
+  cfg.blockDim = dim3(DG_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = reinterpret_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, delta_generation_kernel, a);
   if (e != cudaSuccess) return (int)e;
-  const int64_t n = (int64_t)G * P;
-  delta_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(delta), n,
-      nchunks);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int delta_commit_launch(
-    const void* moves, const void* accept, const void* touched, void* posA,
-    void* sA, void* oA, void* posB, void* sB, void* oB, void* contrib,
-    const void* la, const void* lb, const void* d, const void* w, int G,
-    int P, int64_t R, int64_t chunk, int nchunks, int vec, void* stream) {
-  if (G < 1 || P < 1 || nchunks < 1 || chunk < 1 || (vec && chunk % 4))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const Ptrs q = make_ptrs(posA, sA, oA, posB, sB, oB, contrib, la, lb, d, w);
-  dim3 grid((unsigned)nchunks, (unsigned)P, (unsigned)G);
-  delta_commit_kernel<<<grid, DELTA_THREADS, 0, st>>>(
-      static_cast<const int32_t*>(moves),
-      static_cast<const uint8_t*>(accept),
-      static_cast<const uint8_t*>(touched), q, P, R, chunk, nchunks, vec);
   return (int)cudaGetLastError();
 }

@@ -1,28 +1,34 @@
-"""Delta generation of the device GA: the per-record work of one greedy
-generation, as the CUDA kernel's wrapper and its plain torch version.
+"""Delta generation of the device GA: one greedy generation after its
+moves are drawn, as the CUDA kernel's wrapper and its plain torch
+version.
 
-Counterpart of ``dgen`` in ``_evolve_delta_impl``
-(haphic_tpu/order/optimize.py:824), which is jitted XLA, not Pallas.
-One generation proposes one move per (group, individual); this module
-scores every move as an explicit delta over the CLM records and commits
-the accepted ones. Move sampling, the move scalars and the slot tables
-(order, ori, L_slot, startsx) stay in ``order/optimize.py``: they are
-(G, P) or (G, P, k) work. Shapes, batched over groups G:
+Counterpart of the body of ``dgen`` in ``_evolve_delta_impl``
+(haphic_tpu/order/optimize.py:824-894), which is jitted XLA, not
+Pallas. One generation proposes one move per (group, individual) row;
+this module reads the move's slot scalars, scores the move as an
+explicit delta over the CLM records, accepts it against the
+span-proportional threshold, commits the accepted rows' caches and
+contributions, and applies their moves to the slot tables. Shapes,
+batched over groups G (the GA state, in ``optimize``'s order):
 
+    order, ori, L_slot  int32 (G, P, k)    tours and slot lengths
+    startsx  int32 (G, P, k+1) exact slot starts (total-length sentinel)
     caches   int32 (G, P, R) x6  posA, sA, oA, posB, sB, oB: slot, exact
                                  start offset and orientation of each
                                  record's two contigs in each tour
     contrib  f32   (G, P, R)     carried per-record score contributions
-    move     int32 (G, P) x10    do, op, i, j, t, Sx, Sy, Lx, Ly, Et
-    thr      f32   (G, P)        acceptance threshold of each move
+    scores   f32   (G, P)        carried tour scores
+    move     (G, P) x5           do (bool), op, i, j, t (int32)
     la, lb   int32 (G, R)        record endpoint lengths
     d        f32   (G, 4, R)     orientation-combination distances
     w        f32   (G, R)        record weights (0 for padding)
-    -> delta f32 (G, P), acc bool (G, P); the caches and ``contrib``
-       of accepted rows are updated in place.
+    -> delta f32 (G, P), acc bool (G, P); the state is updated in
+       place (accepted rows only), which saves a copy of every (G, P, R)
+       array per generation.
 
-``delta_generation`` runs the kernel for CUDA tensors and the plain
-version for CPU tensors; nothing else picks the plain version.
+``delta_generation`` runs the kernel for CUDA tensors (one launch per
+generation) and the plain version for CPU tensors; nothing else picks
+the plain version.
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ import torch
 
 from haphic_tpu_torch.kernels import build as kbuild
 
-# records one block of the kernel streams (see csrc/delta_generation.cu)
-RECORDS_PER_BLOCK = 8192
+STATE_FIELDS = ('order', 'ori', 'L_slot', 'startsx', 'posA', 'sA', 'oA',
+                'posB', 'sB', 'oB', 'contrib', 'scores')
 
 
 def contrib_from_cache(posA, sA, oA, posB, sB, oB, la, lb, d, w):
@@ -117,103 +123,193 @@ def endpoint_update(pos, s, o, le, do, op, i, j, t, Sx, Sy, Lx, Ly, Et):
             torch.where(keep, o, o_n))
 
 
-def delta_generation_plain(caches, contrib, move, thr, la, lb, d, w,
-                           accept=None):
-    """The same function in plain torch ops: both endpoints of every
-    record updated, the new contributions, delta = sum(new - old) per
-    row (unaffected records give exactly 0.0: the same arithmetic on
-    the same bits), acceptance ``delta > thr`` (or the given mask), and
-    the accepted rows written back in place."""
-    posA, sA, oA, posB, sB, oB = caches
-    new = (endpoint_update(posA, sA, oA, la, *move)
-           + endpoint_update(posB, sB, oB, lb, *move))
-    new_c = contrib_from_cache(*new, la, lb, d, w)
+def move_scalars(startsx, i, j, t):
+    """(Sx, Sy, Lx, Ly, Et) per individual, gathered from the int32
+    slot-start table (G, P, k+1)."""
+    v = torch.gather(startsx, 2, torch.stack(
+        [i, i + 1, j, j + 1, t], dim=-1).long())
+    Sx, Sxe, Sy, Sye, Et = v.unbind(-1)
+    return Sx, Sy, Sxe - Sx, Sye - Sy, Et
+
+
+def move_src(do, op, i, j, t, k: int):
+    """Slot-level source indices of one move: new[idx] = old[src[idx]],
+    plus the orientation-flip mask (inversion and op 3 flip the
+    span)."""
+    idx = torch.arange(k, dtype=torch.int32, device=do.device)
+    ii, jj, tt = i[..., None], j[..., None], t[..., None]
+    opx = op[..., None]
+    src_swap = torch.where(idx == ii, jj, torch.where(idx == jj, ii, idx))
+    in_span = (idx >= ii) & (idx <= jj)
+    src_inv = torch.where(in_span, ii + jj - idx, idx)
+    span = torch.clamp(tt - ii, min=1)
+    in_rot = (idx >= ii) & (idx < tt)
+    src_rot = torch.where(in_rot, ii + (idx - ii + (jj - ii)) % span, idx)
+    src = torch.where(opx == 0, src_swap,
+                      torch.where(opx == 1, src_inv,
+                                  torch.where(opx == 2, src_rot, idx)))
+    src = torch.where(do[..., None], src, idx)
+    flip = do[..., None] & in_span & ((opx == 1) | (opx == 3))
+    return src, flip
+
+
+def apply_move(order, ori, src, flip):
+    new_order = torch.gather(order, -1, src.long())
+    new_ori = torch.gather(ori, -1, src.long())
+    return new_order, torch.where(flip, 1 - new_ori, new_ori)
+
+
+def touched_records(posA, posB, move):
+    """bool (G, P, R): the records whose endpoint state ``move`` may
+    change (an endpoint on a slot of [i, j], or [i, t) for a rotation):
+    the records an accepted row writes. The rest give exactly 0.0."""
+    do, op, i, j, t = [x[..., None] for x in move]
+    hi = torch.where(op == 2, t - 1, j)
+    return do & (((posA >= i) & (posA <= hi)) |
+                 ((posB >= i) & (posB <= hi)))
+
+
+def changed_records(posA, posB, move):
+    """bool (G, P, R): the touched records whose contribution ``move``
+    may change, the ones the kernel computes for the delta. The other
+    touched records have both endpoints in one block that moves whole
+    (the middle of a swap, the span of an inversion, either block of a
+    rotation): the same gap, the same orientation combination seen from
+    the first contig, so a bit-identical contribution. A flip changes
+    every touched record."""
+    do, op, i, j, t = [x[..., None] for x in move]
+    hi = torch.where(op == 2, t - 1, j)
+
+    def block(pos):
+        b = torch.where(op == 0, torch.where(pos == i, 3, torch.where(
+            pos == j, 4, 1)), torch.where((op == 2) & (pos >= j), 2, 1))
+        return torch.where(do & (pos >= i) & (pos <= hi), b, 0)
+    ca, cb = block(posA), block(posB)
+    return ((ca | cb) != 0) & ((op == 3) | (ca != cb))
+
+
+def record_update(state, move, la, lb, d, w):
+    """(new caches posA, sA, oA, posB, sB, oB; new contributions) of
+    every record under ``move``; ``state`` is not changed. The delta of
+    a row sums new - old over its records."""
+    posA, sA, oA, posB, sB, oB = state[4:10]
+    scal = move_scalars(state[3], *move[2:])
+    new = (endpoint_update(posA, sA, oA, la, *move, *scal)
+           + endpoint_update(posB, sB, oB, lb, *move, *scal))
+    return new, contrib_from_cache(*new, la, lb, d, w)
+
+
+def delta_generation_plain(state, move, la, lb, d, w, min_gain: float,
+                           span_gain: float, accept=None):
+    """The same function in plain torch ops, operation for operation
+    what the JAX package's dgen body computes after its draw: the move
+    scalars, the threshold scores * (min_gain + span_gain * span), both
+    endpoints of every record updated, the new contributions, delta =
+    sum(new - old) per row (unaffected records give exactly 0.0: the
+    same arithmetic on the same bits), acceptance ``delta > thr`` (or
+    the given mask), and the accepted rows' caches, contributions, slot
+    tables and scores written back in place."""
+    (order, ori, L_slot, startsx, posA, sA, oA, posB, sB, oB, contrib,
+     scores) = state
+    do, op, i, j, t = move
+    # span-proportional acceptance threshold (rejects score-neutral
+    # macro moves that ride on an epsilon boundary gain)
+    spanv = torch.where(op == 2, t - i, j - i).to(torch.float32)
+    thr = scores * (min_gain + span_gain * spanv)
+    new, new_c = record_update(state, move, la, lb, d, w)
     delta = (new_c - contrib).sum(dim=2)
     acc = delta > thr if accept is None else accept
     a_ = acc[..., None]
-    for old, upd in zip(tuple(caches) + (contrib,), new + (new_c,)):
+    for old, upd in zip((posA, sA, oA, posB, sB, oB, contrib),
+                        new + (new_c,)):
         torch.where(a_, upd, old, out=old)
+    src, flip = move_src(do, op, i, j, t, order.shape[-1])
+    order2, ori2 = apply_move(order, ori, src, flip)
+    torch.where(a_, order2, order, out=order)
+    torch.where(a_, ori2, ori, out=ori)
+    torch.where(a_, torch.gather(L_slot, -1, src.long()), L_slot,
+                out=L_slot)
+    startsx[..., 1:] = torch.cumsum(L_slot, dim=2, dtype=torch.int32)
+    torch.where(acc, scores + delta, scores, out=scores)
     return delta, acc
 
 
 @functools.lru_cache(maxsize=None)
-def _fns():
+def _launcher():
     lib = kbuild.load('delta_generation')
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.delta_scores_launch.argtypes = [vp] * 15 + [i32, i32, i64, i64,
-                                                    i32, i32, vp]
-    lib.delta_scores_launch.restype = ctypes.c_int
-    lib.delta_commit_launch.argtypes = [vp] * 14 + [i32, i32, i64, i64,
-                                                    i32, i32, vp]
-    lib.delta_commit_launch.restype = ctypes.c_int
-    return lib.delta_scores_launch, lib.delta_commit_launch
+    vp = ctypes.c_void_p
+    fn = lib.delta_generation_launch
+    fn.argtypes = [vp] * 24 + [ctypes.c_int] * 3 + [
+        ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_int, vp]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def _check(caches, contrib, move, thr, la, lb, d, w, accept):
-    G, P, R = contrib.shape
-    want = [(c, torch.int32, (G, P, R)) for c in caches]
-    want += [(contrib, torch.float32, (G, P, R))]
-    want += [(m, torch.int32, (G, P)) for m in move[1:]]
-    want += [(move[0], torch.bool, (G, P)), (thr, torch.float32, (G, P)),
-             (la, torch.int32, (G, R)), (lb, torch.int32, (G, R)),
-             (d, torch.float32, (G, 4, R)), (w, torch.float32, (G, R))]
+def _check(state, move, la, lb, d, w, accept):
+    if len(state) != 12 or len(move) != 5:
+        raise ValueError('want the 12 state tensors ({}) and 5 move '
+                         'fields'.format(', '.join(STATE_FIELDS)))
+    if state[0].dim() != 3 or state[4].dim() != 3:
+        raise ValueError('order and the caches must be (G, P, *)')
+    G, P, k = state[0].shape
+    R = state[4].shape[2]
+    i32, f32 = torch.int32, torch.float32
+    want = [(n, x, i32, (G, P, k)) for n, x in zip(STATE_FIELDS, state[:3])]
+    want += [('startsx', state[3], i32, (G, P, k + 1))]
+    want += [(n, x, i32, (G, P, R))
+             for n, x in zip(STATE_FIELDS[4:10], state[4:10])]
+    want += [('contrib', state[10], f32, (G, P, R)),
+             ('scores', state[11], f32, (G, P)),
+             ('do', move[0], torch.bool, (G, P))]
+    want += [(n, x, i32, (G, P))
+             for n, x in zip(('op', 'i', 'j', 't'), move[1:])]
+    want += [('la', la, i32, (G, R)), ('lb', lb, i32, (G, R)),
+             ('d', d, f32, (G, 4, R)), ('w', w, f32, (G, R))]
     if accept is not None:
-        want.append((accept, torch.bool, (G, P)))
-    if len(caches) != 6 or len(move) != 10:
-        raise ValueError('want 6 caches and 10 move fields')
-    for n, (t, dtype, shape) in enumerate(want):
-        if t.device != contrib.device:
-            raise ValueError('input {} is on {}, contrib on {}'.format(
-                n, t.device, contrib.device))
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError('input {}: want {} {}, got {} {}'.format(
-                n, dtype, shape, t.dtype, tuple(t.shape)))
-    for n, t in enumerate(tuple(caches) + (contrib, la, lb, d, w)):
-        if not t.is_contiguous():
-            raise ValueError('input {} must be contiguous'.format(n))
+        want.append(('accept', accept, torch.bool, (G, P)))
+    dev = state[0].device
+    for name, x, dtype, shape in want:
+        if x.device != dev:
+            raise ValueError('{} is on {}, order on {}'.format(
+                name, x.device, dev))
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError('{}: want {} {}, got {} {}'.format(
+                name, dtype, shape, x.dtype, tuple(x.shape)))
+        if not x.is_contiguous():
+            raise ValueError('{} must be contiguous'.format(name))
 
 
-def delta_generation(caches, contrib, move, thr, la, lb, d, w,
-                     accept=None):
-    """(delta, acc) of one delta generation; accepted rows' caches and
-    contributions are updated in place. The CUDA kernel on CUDA tensors,
+def delta_generation(state, move, la, lb, d, w, min_gain: float,
+                     span_gain: float, accept=None):
+    """(delta, acc) of one delta generation; the state's accepted rows
+    are updated in place. The CUDA kernel on CUDA tensors (one launch),
     the plain version on CPU tensors. ``accept`` replaces the threshold
-    test with a given mask (``thr`` is then unused)."""
-    _check(caches, contrib, move, thr, la, lb, d, w, accept)
-    dev = contrib.device
+    test with a given mask."""
+    _check(state, move, la, lb, d, w, accept)
+    dev = state[0].device
     if dev.type == 'cpu':
-        return delta_generation_plain(caches, contrib, move, thr, la, lb,
-                                      d, w, accept)
+        return delta_generation_plain(state, move, la, lb, d, w, min_gain,
+                                      span_gain, accept)
     if dev.type != 'cuda':
         raise ValueError('unsupported device {}'.format(dev))
-    G, P, R = contrib.shape
-    packed = torch.stack([move[0].to(torch.int32)] + list(move[1:]),
-                         dim=-1).contiguous()
-    nchunks = max(1, -(-R // RECORDS_PER_BLOCK))
-    vec = int(R % 4 == 0 and all(c.data_ptr() % 16 == 0
-                                 for c in (caches[0], caches[3])))
-    partial = torch.empty((G, P, nchunks), dtype=torch.float32, device=dev)
-    touched = torch.empty((G, P, nchunks), dtype=torch.uint8, device=dev)
+    G, P, k = state[0].shape
+    R = state[4].shape[2]
     delta = torch.empty((G, P), dtype=torch.float32, device=dev)
-    scores_fn, commit_fn = _fns()
-    ptrs = [c.data_ptr() for c in caches] + [
-        contrib.data_ptr(), la.data_ptr(), lb.data_ptr(), d.data_ptr(),
-        w.data_ptr()]
+    acc = torch.empty((G, P), dtype=torch.bool, device=dev)
+    # 16-byte slot loads need 16-byte aligned rows
+    vec = int(R % 4 == 0 and state[4].data_ptr() % 16 == 0
+              and state[7].data_ptr() % 16 == 0)
+    ptrs = [x.data_ptr() for x in tuple(state) + tuple(move)
+            + (la, lb, d, w)]
+    ptrs += [None if accept is None else accept.data_ptr(),
+             delta.data_ptr(), acc.data_ptr()]
+    launch = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = scores_fn(packed.data_ptr(), *ptrs, partial.data_ptr(),
-                        touched.data_ptr(), delta.data_ptr(), G, P, R,
-                        RECORDS_PER_BLOCK, nchunks, vec, stream)
-        if err != 0:
-            raise RuntimeError('delta_generation scores kernel launch '
-                               'failed: CUDA error {}'.format(err))
-        acc = (delta > thr if accept is None else accept).contiguous()
-        err = commit_fn(packed.data_ptr(), acc.data_ptr(),
-                        touched.data_ptr(), *ptrs, G, P, R,
-                        RECORDS_PER_BLOCK, nchunks, vec, stream)
-        if err != 0:
-            raise RuntimeError('delta_generation commit kernel launch '
-                               'failed: CUDA error {}'.format(err))
+        err = launch(*ptrs, G, P, k, R, min_gain, span_gain, vec, stream)
+    if err != 0:
+        raise RuntimeError('delta_generation kernel launch failed: CUDA '
+                           'error {}'.format(err))
     delta_generation.launches += 1
     return delta, acc
 

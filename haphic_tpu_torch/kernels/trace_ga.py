@@ -2,23 +2,35 @@
 
     python -m haphic_tpu_torch.kernels.trace_ga [--G 7] [--P 100]
         [--k 1024] [--R 196608] [--gens 10] [--out DIR]
+        [--pipeline OUTDIR --fasta ASM.FA]
 
 Builds one GA batch of G groups at the given shape (random records that
 link near contigs, sorted by contig as build_problem sorts them, and a
-random population), warms up, then:
+random population). With ``--pipeline``, also the largest GA batch of a
+finished ``haphic pipeline`` run (its groups, split CLM files and fast
+sort tours, read back from OUTDIR, hot-started as the pipeline starts
+its GA), evolved WARM_GENS (100) generations by the GA's own windows
+first.
+On each batch, from the same starting state:
 
 1. times ``--gens`` delta generations (``optimize._dgen``) with the host
    clock around a synchronised run;
 2. runs the same number of generations under ``torch.profiler`` and
    reports the device time by operation (the top 15), the number of
-   kernels and host syncs per generation, and the device's idle share
-   of the profiled window (the gaps between device activity);
-3. repeats both with the plain torch version of the per-record work
+   device operations and host syncs per generation, and the device's
+   idle share of the profiled window (the gaps between device
+   activity);
+3. runs ``--gens`` more and reports, per generation, the share of
+   (individual, record) pairs the moves touch and the rows that accept;
+4. repeats all three with the plain torch version of the step
    (``delta_generation_plain``) in place of the kernel
-   (``delta_generation``);
-4. scores the population ``--gens`` times with ``score_population``
-   under the profiler: CUDA-event ms per call and the device time of
-   each of its kernels (table, partial sums, reduction).
+   (``delta_generation``).
+
+On each batch it also times one kernel launch alone (kernel_breakdown:
+the delta pass, a generation, every row's commit, no move). It scores
+the random population ``--gens`` times with
+``score_population`` under the profiler: CUDA-event ms per call and the
+device time of each of its kernels (table, partial sums, reduction).
 
 Each result is one JSON line naming the card (`nvidia-smi` name and
 power limit). With ``--out`` the Chrome traces are written there.
@@ -27,6 +39,7 @@ power limit). With ``--out`` the Chrome traces are written there.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import subprocess
@@ -36,6 +49,8 @@ import time
 import numpy as np
 import torch
 
+# generations the pipeline's batch evolves before it is traced
+WARM_GENS = 100
 
 def _nvidia_smi() -> str:
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -67,6 +82,55 @@ def make_batch(G: int, P: int, k: int, R: int, seed: int, device):
     return rec, (o, r) + rec.caches(o, r)
 
 
+def pipeline_batch(out_dir: str, fasta: str, npop: int, seed: int, device):
+    """(_Records, GA state, shape) of the largest GA batch of a finished
+    pipeline run in ``out_dir``: each group's problem and hot start as
+    sort_stage makes them (optimize.group_problem on
+    01.cluster/HT_links.pkl, 02.reassign/final_groups and split_clms,
+    and its fast sort tour 03.sort/*.tour.sav), started as
+    optimize_tours starts it, then WARM_GENS generations of the GA's
+    delta windows (mutation probability 0.2, the pipeline's default)."""
+    from haphic_tpu_torch.io.artifacts import (load_ht_pickle,
+                                               parse_clm_file,
+                                               parse_group_file,
+                                               parse_tour_file)
+    from haphic_tpu_torch.io.fasta import read_fasta
+    from haphic_tpu_torch.order import optimize as opt
+    from haphic_tpu_torch.order.fast_sort import make_group_data
+    asm = read_fasta(fasta, keep_seqs=False)
+    ht = load_ht_pickle(os.path.join(out_dir, '01.cluster', 'HT_links.pkl'),
+                        asm.name2id)
+    problems, hots = [], []
+    for path in sorted(glob.glob(os.path.join(
+            out_dir, '02.reassign', 'final_groups', '*.txt'))):
+        name = os.path.basename(path)[:-len('.txt')]
+        if name == 'final_clusters':
+            continue
+        members = [asm.name2id[c] for c, _, _ in parse_group_file(path)]
+        if len(members) < 2:
+            continue
+        gd = make_group_data(members, asm.lengths, ht)
+        clm = parse_clm_file(os.path.join(out_dir, '02.reassign',
+                                          'split_clms', name + '.clm'),
+                             asm.name2id)
+        tour = parse_tour_file(os.path.join(out_dir, '03.sort',
+                                            name + '.tour.sav'))
+        problem, hot = opt.group_problem(gd.ctg_ids, asm.lengths, clm, tour,
+                                         asm.name2id)
+        problems.append(problem)
+        hots.append(hot)
+    (k_pad, Rp, c_eff), idxs = max(
+        opt._batches(problems, npop, opt.CHUNK),
+        key=lambda b: len(b[1]) * b[0][1])
+    rec, order, ori, gen = opt._make_batch(
+        [problems[i] for i in idxs], [hots[i] for i in idxs], k_pad, Rp,
+        c_eff, npop, seed, device)
+    order, ori, _ = opt._evolve_delta_impl(gen, rec, order, ori, 0.2,
+                                           WARM_GENS)
+    shape = {'G': len(idxs), 'P': npop, 'k': k_pad, 'R': Rp}
+    return rec, (order, ori) + rec.caches(order, ori), shape
+
+
 def _device_intervals(prof):
     out = []
     for e in prof.events():
@@ -94,14 +158,46 @@ def _busy_and_gaps(iv):
     return busy, gaps
 
 
-def trace(label: str, step, state, gens: int, out_dir=None) -> dict:
+def _moves_stats(rec, state, gen, step, gens: int) -> dict:
+    """Per generation, the share of (individual, record) pairs the moves
+    touch and the rows that accept, over ``gens`` generations drawn and
+    stepped as _dgen draws and steps them."""
+    from haphic_tpu_torch.kernels import delta as kdelta
+    from haphic_tpu_torch.order import optimize as opt
+    G, P, k = state[0].shape
+    R = state[4].shape[2]
+    touched, accepted = [], []
+    for _ in range(gens):
+        move = opt._sample_moves(gen, (G, P), k, 1.1,
+                                 local_frac=opt._DELTA_LOCAL_FRAC,
+                                 device=state[0].device)
+        touched.append(kdelta.touched_records(state[4], state[7],
+                                              move).sum())
+        _, acc = step(state, move, rec.la, rec.lb, rec.d, rec.w,
+                      opt._DELTA_MIN_GAIN, opt._DELTA_SPAN_GAIN)
+        accepted.append(acc.sum())
+    touched = [int(x) / float(G * P * max(R, 1)) for x in touched]
+    accepted = [int(x) for x in accepted]
+    return {'touched_share_per_gen': float(np.mean(touched)),
+            'touched_share_by_gen': touched,
+            'accepted_rows_per_gen': float(np.mean(accepted)),
+            'accepted_rows_by_gen': accepted}
+
+
+def trace(label: str, rec, state, gen, step, gens: int,
+          out_dir=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
+
+    from haphic_tpu_torch.order import optimize as opt
+
+    def one(s):
+        return opt._dgen(gen, rec, s, step)
     for _ in range(3):
-        state = step(state)
+        state = one(state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(gens):
-        state = step(state)
+        state = one(state)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / gens
 
@@ -110,7 +206,7 @@ def trace(label: str, step, state, gens: int, out_dir=None) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(gens):
-            state = step(state)
+            state = one(state)
         torch.cuda.synchronize()
         prof_wall_us = (time.perf_counter() - t0) * 1e6
     if out_dir:
@@ -145,7 +241,66 @@ def trace(label: str, step, state, gens: int, out_dir=None) -> dict:
         'top_device_ms_per_gen': [
             {'op': key[:80], 'ms': us / 1e3 / gens, 'calls_per_gen':
              n / gens} for us, key, n in rows[:15]],
+        **_moves_stats(rec, state, gen, step, gens),
     }
+
+
+def _event_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_breakdown(rec, state, gen, reps: int) -> dict:
+    """CUDA-event ms of one delta_generation launch on one set of moves
+    drawn as _dgen draws them, applied again and again to one copy of
+    the state (the moves permute slots inside their own range, so each
+    repetition touches the same records): with every row rejected (the
+    delta pass alone), with the acceptance the kernel makes on the first
+    run (a generation), with every row accepted (every row's commit),
+    and with no move (the launch and the cluster's fixed cost). Also
+    the pairs the moves touch and the pairs whose contribution they may
+    change."""
+    from haphic_tpu_torch.kernels import delta as kdelta
+    from haphic_tpu_torch.order import optimize as opt
+    G, P, k = state[0].shape
+    move = opt._sample_moves(gen, (G, P), k, 1.1,
+                             local_frac=opt._DELTA_LOCAL_FRAC,
+                             device=state[0].device)
+    st = tuple(x.clone() for x in state)
+
+    def run(mv, accept=None):
+        return kdelta.delta_generation(st, mv, rec.la, rec.lb, rec.d, rec.w,
+                                       opt._DELTA_MIN_GAIN,
+                                       opt._DELTA_SPAN_GAIN, accept=accept)
+    own = kdelta.delta_generation(tuple(x.clone() for x in state), move,
+                                  rec.la, rec.lb, rec.d, rec.w,
+                                  opt._DELTA_MIN_GAIN,
+                                  opt._DELTA_SPAN_GAIN)[1]
+    still = (torch.zeros_like(move[0]),) + tuple(move[1:])
+    out = {'path': 'delta_generation_breakdown',
+           'touched_pairs': int(kdelta.touched_records(
+               state[4], state[7], move).sum()),
+           'changed_pairs': int(kdelta.changed_records(
+               state[4], state[7], move).sum()),
+           'pairs': G * P * state[4].shape[2],
+           'accepted_rows': int(own.sum()),
+           'reject_all_ms': _event_ms(
+               lambda: run(move, torch.zeros_like(own)), reps),
+           'generation_ms': _event_ms(lambda: run(move, own), reps),
+           'accept_all_ms': _event_ms(
+               lambda: run(move, torch.ones_like(own)), reps),
+           'no_move_ms': _event_ms(
+               lambda: run(still, torch.zeros_like(own)), reps)}
+    del st
+    return out
 
 
 def trace_score(rec, order, ori, calls: int) -> dict:
@@ -185,29 +340,52 @@ def main(argv=None) -> int:
     ap.add_argument('--gens', type=int, default=10)
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--out', default=None)
+    ap.add_argument('--pipeline', default=None,
+                    help='output directory of a finished pipeline run')
+    ap.add_argument('--fasta', default=None,
+                    help="that run's assembly FASTA")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write('trace_ga: CUDA is not available\n')
         return 1
-    from haphic_tpu_torch.order import optimize as opt
-    rec, state = make_batch(args.G, args.P, args.k, args.R, args.seed,
-                            'cuda')
-    gen = torch.Generator(device='cuda')
-    gen.manual_seed(args.seed)
+    if args.pipeline and not args.fasta:
+        ap.error('--pipeline needs --fasta')
+    from haphic_tpu_torch.kernels import delta as kdelta
     card = _nvidia_smi()
     shape = {'G': args.G, 'P': args.P, 'k': args.k, 'R': args.R}
-    from haphic_tpu_torch.kernels import delta as kdelta
-    paths = [('kernel', lambda s: opt._dgen(gen, rec, s)),
-             ('plain', lambda s: opt._dgen(
-                 gen, rec, s, kdelta.delta_generation_plain))]
-    for label, step in paths:
-        torch.cuda.reset_peak_memory_stats()
-        row = trace(label, step, state, args.gens, args.out)
-        row['max_memory_allocated'] = torch.cuda.max_memory_allocated()
-        print(json.dumps(dict(row, nvidia_smi=card, shape=shape)),
-              flush=True)
-    row = trace_score(rec, state[0], state[1], args.gens)
-    print(json.dumps(dict(row, nvidia_smi=card, shape=shape)), flush=True)
+    batches = [('random', lambda: make_batch(
+        args.G, args.P, args.k, args.R, args.seed, 'cuda') + (shape,))]
+    if args.pipeline:
+        batches.append(('pipeline', lambda: pipeline_batch(
+            args.pipeline, args.fasta, args.P, args.seed, 'cuda')))
+    for population, build in batches:
+        # one batch on the card at a time: peak memory is the step's own
+        rec, state, bshape = build()
+        for label, step in (('kernel', kdelta.delta_generation),
+                            ('plain', kdelta.delta_generation_plain)):
+            gen = torch.Generator(device='cuda')
+            gen.manual_seed(args.seed)
+            st = tuple(x.clone() for x in state)
+            torch.cuda.reset_peak_memory_stats()
+            row = trace('{}_{}'.format(population, label), rec, st, gen,
+                        step, args.gens, args.out)
+            row['max_memory_allocated'] = torch.cuda.max_memory_allocated()
+            print(json.dumps(dict(row, population=population,
+                                  nvidia_smi=card, shape=bshape)),
+                  flush=True)
+            del st
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(args.seed)
+        row = kernel_breakdown(rec, state, gen, 20)
+        print(json.dumps(dict(row, population=population, nvidia_smi=card,
+                              shape=bshape)), flush=True)
+        if population == 'random':
+            row = trace_score(rec, state[0], state[1], args.gens)
+            print(json.dumps(dict(row, nvidia_smi=card, shape=bshape)),
+                  flush=True)
+        del rec, state
+        torch.cuda.empty_cache()
     return 0
 
 

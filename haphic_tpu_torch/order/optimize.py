@@ -25,8 +25,9 @@ generations whose moves are scored as explicit deltas from per-record
 endpoint caches updated in closed form (exact int32 coordinates). Two
 hand-written CUDA kernels in haphic_tpu_torch.kernels carry it: the
 population scorer (initial scores, skip_ga, the full-rescore window)
-and the per-record work of each delta generation (delta_generation,
-which updates the caches in place).
+and each delta generation after its draw (delta_generation: one launch
+scores, accepts and commits the moves, caches and slot tables in
+place).
 
 Differences from the JAX package: gathers and the permutation inverse
 are plain torch indexing and scatters (no one-hot matmuls, no 12-bit
@@ -47,8 +48,9 @@ import numpy as np
 import torch
 
 from haphic_tpu_torch.kernels.delta import (  # noqa: F401 (tests)
-    contrib_from_cache as _contrib_from_cache, delta_generation,
-    endpoint_update as _endpoint_update)
+    apply_move as _apply_move, contrib_from_cache as _contrib_from_cache,
+    delta_generation, endpoint_update as _endpoint_update,
+    move_scalars as _move_scalars, move_src as _move_src)
 from haphic_tpu_torch.kernels.score import score_population
 from haphic_tpu_torch.runtime import resolve_device
 
@@ -200,6 +202,22 @@ def build_problem(ctg_ids: Sequence[int], lengths_all: np.ndarray,
         w=cnt.astype(np.float32))
 
 
+def group_problem(ctg_ids: Sequence[int], lengths_all: np.ndarray, clm,
+                  tour, name2id) -> Tuple[TourProblem, Optional[Tuple]]:
+    """(TourProblem, hot start) of one group for the GA: its records
+    from ``clm`` (pair_i, pair_j, d) by build_problem, and its fast sort
+    ``tour`` [(contig name, '+' or '-')] as (order, ori) int32 in the
+    group's local contig ids (None without a tour)."""
+    problem = build_problem(ctg_ids, lengths_all, clm.pair_i, clm.pair_j,
+                            clm.d)
+    if tour is None:
+        return problem, None
+    local_of = {int(c): i for i, c in enumerate(ctg_ids)}
+    return problem, (
+        np.asarray([local_of[name2id[c]] for c, _ in tour], np.int32),
+        np.asarray([1 if o == '-' else 0 for _, o in tour], np.int32))
+
+
 def _bucket(n: int, base: int) -> int:
     """Round up to base * 2^k."""
     out = base
@@ -307,33 +325,6 @@ def _sample_moves(gen, shape, k: int, mutprob: float, local_frac=0.5,
                              mutprob, local_frac)
 
 
-def _move_src(do, op, i, j, t, k: int):
-    """Slot-level source indices of one move: new[idx] = old[src[idx]],
-    plus the orientation-flip mask (inversion and op 3 flip the
-    span)."""
-    idx = torch.arange(k, dtype=torch.int32, device=do.device)
-    ii, jj, tt = i[..., None], j[..., None], t[..., None]
-    opx = op[..., None]
-    src_swap = torch.where(idx == ii, jj, torch.where(idx == jj, ii, idx))
-    in_span = (idx >= ii) & (idx <= jj)
-    src_inv = torch.where(in_span, ii + jj - idx, idx)
-    span = torch.clamp(tt - ii, min=1)
-    in_rot = (idx >= ii) & (idx < tt)
-    src_rot = torch.where(in_rot, ii + (idx - ii + (jj - ii)) % span, idx)
-    src = torch.where(opx == 0, src_swap,
-                      torch.where(opx == 1, src_inv,
-                                  torch.where(opx == 2, src_rot, idx)))
-    src = torch.where(do[..., None], src, idx)
-    flip = do[..., None] & in_span & ((opx == 1) | (opx == 3))
-    return src, flip
-
-
-def _apply_move(order, ori, src, flip):
-    new_order = _take(order, src)
-    new_ori = _take(ori, src)
-    return new_order, torch.where(flip, 1 - new_ori, new_ori)
-
-
 def _mutate(gen, order, ori, mutprob: float):
     """One mutation per individual, applied with probability
     ``mutprob`` (else identity)."""
@@ -427,15 +418,6 @@ def _build_caches(order, ori, lengths, pa, pb):
     return (L_slot, startsx) + tuple(caches)
 
 
-def _move_scalars(startsx, i, j, t):
-    """(Sx, Sy, Lx, Ly, Et) per individual, gathered from the int32
-    slot-start table (G, P, k+1)."""
-    v = torch.gather(startsx, 2, torch.stack(
-        [i, i + 1, j, j + 1, t], dim=-1).long())
-    Sx, Sxe, Sy, Sye, Et = v.unbind(-1)
-    return Sx, Sy, Sxe - Sx, Sye - Sy, Et
-
-
 # one full-scored (mu+lambda) + OX-crossover generation every
 # GA_SYNC_EVERY generations; the rest are delta-scored greedy moves
 GA_SYNC_EVERY = int(os.environ.get('HAPHIC_GA_SYNC_EVERY', 25))
@@ -491,31 +473,18 @@ def _dgen(gen, rec: _Records, state, step=delta_generation):
 
 def _delta_step(rec: _Records, state, move, step=delta_generation):
     """The generation of ``move`` = (do, op, i, j, t): ``step`` (the
-    kernel's wrapper, or its plain version) scores each move as an
-    explicit delta over the records and commits the accepted rows'
-    caches and contributions in place; the slot tables follow here."""
-    (order, ori, L_slot, startsx, posA, sA, oA, posB, sB, oB, contrib,
-     scores) = state
-    do, op, i, j, t = move
-    # span-proportional acceptance threshold (rejects score-neutral
-    # macro moves that ride on an epsilon boundary gain)
-    spanv = torch.where(op == 2, t - i, j - i).to(torch.float32)
-    thr = scores * (_DELTA_MIN_GAIN + _DELTA_SPAN_GAIN * spanv)
-    caches = (posA, sA, oA, posB, sB, oB)
-    delta, acc = step(caches, contrib,
-                      move + _move_scalars(startsx, i, j, t), thr,
-                      rec.la, rec.lb, rec.d, rec.w)
-    a_ = acc[..., None]
-    src, flip = _move_src(do, op, i, j, t, order.shape[-1])
-    order2, ori2 = _apply_move(order, ori, src, flip)
-    order = torch.where(a_, order2, order)
-    ori = torch.where(a_, ori2, ori)
-    L_slot = torch.where(a_, _take(L_slot, src), L_slot)
-    startsx = torch.cat([startsx[..., :1],
-                         torch.cumsum(L_slot, dim=2, dtype=torch.int32)],
-                        dim=2)
-    return ((order, ori, L_slot, startsx) + caches
-            + (contrib, torch.where(acc, scores + delta, scores)))
+    kernel's wrapper, one launch on the card, or its plain version)
+    reads the move scalars, scores each move as an explicit delta over
+    the records, accepts it against the span-proportional threshold and
+    commits the accepted rows' caches, contributions, slot tables and
+    scores in place."""
+    step(state, move, rec.la, rec.lb, rec.d, rec.w, _DELTA_MIN_GAIN,
+         _DELTA_SPAN_GAIN)
+    _delta_step.generations += 1
+    return state
+
+
+_delta_step.generations = 0
 
 
 def _reseed(order, ori):
@@ -642,6 +611,54 @@ def _initial_population(problem: TourProblem, k_pad: int, npop: int,
     return order, ori
 
 
+def _batches(problems: Sequence[TourProblem], npop: int, chunk: int):
+    """[((k_pad, R_pad, chunk), group indices)] of the multi-contig
+    groups: buckets of one padded shape, split so that a batch's delta
+    caches fit in device memory (~56 bytes per (individual, record),
+    HAPHIC_GA_MEM_BUDGET bytes in all)."""
+    buckets: dict = {}
+    for gi, p in enumerate(problems):
+        if p.k <= 1:
+            continue
+        c_eff = _effective_chunk(p.n_records, chunk)
+        Rp = _record_bucket(max(p.n_records, 1), c_eff)
+        buckets.setdefault((_bucket(p.k, 8), Rp, c_eff), []).append(gi)
+    mem_budget = float(os.environ.get('HAPHIC_GA_MEM_BUDGET', 8e9))
+    split = []
+    for key3, idxs in sorted(buckets.items()):
+        g_max = max(1, int(mem_budget / (56.0 * npop * max(key3[1], 1))))
+        for s0 in range(0, len(idxs), g_max):
+            split.append((key3, idxs[s0:s0 + g_max]))
+    return split
+
+
+def _make_batch(problems: Sequence[TourProblem], hot_starts, k_pad: int,
+                Rp: int, c_eff: int, npop: int, seed: int, dev):
+    """(_Records, order, ori, generator) of one batch on ``dev``: the
+    groups' padded records and their initial populations."""
+    G = len(problems)
+    lengths = np.zeros((G, k_pad), dtype=np.int64)
+    pa = np.zeros((G, Rp), dtype=np.int32)
+    pb = np.zeros((G, Rp), dtype=np.int32)
+    d = np.zeros((G, 4, Rp), dtype=np.float32)
+    w = np.zeros((G, Rp), dtype=np.float32)
+    order = np.zeros((G, npop, k_pad), dtype=np.int32)
+    ori = np.zeros((G, npop, k_pad), dtype=np.int32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for t, p in enumerate(problems):
+        lengths[t, :p.k] = p.lengths
+        pa[t], pb[t], d[t], w[t], _ = _pad_records(p, c_eff)
+        order[t], ori[t] = _initial_population(
+            p, k_pad, npop, hot_starts[t], gen, dev)
+
+    def put(x):
+        return torch.as_tensor(x, device=dev)
+
+    rec = _Records(put(lengths), put(pa), put(pb), put(d), put(w))
+    return rec, put(order), put(ori), gen
+
+
 def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
                    ngen: int = 5000, mutprob: float = 0.2, seed: int = 42,
                    hot_starts: Optional[Sequence] = None,
@@ -678,56 +695,21 @@ def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
                 hot_starts[gi], log_every)
         return results
 
-    buckets: dict = {}
     for gi, p in enumerate(problems):
         if p.k <= 1:
             results[gi] = _trivial(p)
-            continue
-        k_pad = _bucket(p.k, 8)
-        c_eff = _effective_chunk(p.n_records, chunk)
-        _, _, _, _, Rp = _pad_records(p, c_eff)
-        buckets.setdefault((k_pad, Rp, c_eff), []).append(gi)
-
-    # split buckets so the delta caches fit in device memory: ~56 bytes
-    # per (individual, record) of a batch
-    mem_budget = float(os.environ.get('HAPHIC_GA_MEM_BUDGET', 8e9))
-    split = []
-    for key3, idxs in sorted(buckets.items()):
-        _, Rp_, _ = key3
-        g_max = max(1, int(mem_budget / (56.0 * npop * max(Rp_, 1))))
-        for s0 in range(0, len(idxs), g_max):
-            split.append((key3, idxs[s0:s0 + g_max]))
-
     evolve = _evolve_delta_impl if _delta_applicable(problems) \
         else _evolve_impl
-    for (k_pad, Rp, c_eff), idxs in split:
+    for (k_pad, Rp, c_eff), idxs in _batches(problems, npop, chunk):
         G = len(idxs)
-        lengths = np.zeros((G, k_pad), dtype=np.int64)
-        pa = np.zeros((G, Rp), dtype=np.int32)
-        pb = np.zeros((G, Rp), dtype=np.int32)
-        d = np.zeros((G, 4, Rp), dtype=np.float32)
-        w = np.zeros((G, Rp), dtype=np.float32)
-        order = np.zeros((G, npop, k_pad), dtype=np.int32)
-        ori = np.zeros((G, npop, k_pad), dtype=np.int32)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        for t, gi in enumerate(idxs):
-            p = problems[gi]
-            lengths[t, :p.k] = p.lengths
-            pa[t], pb[t], d[t], w[t], _ = _pad_records(p, c_eff)
-            order[t], ori[t] = _initial_population(
-                p, k_pad, npop, hot_starts[gi], gen, dev)
         logger.info('GA batch: %d groups, k_pad=%d, R_pad=%d on %s', G,
                     k_pad, Rp, dev,
                     extra={'metrics': {'ga_batch': {'G': G, 'P': npop,
                                                     'k_pad': k_pad,
                                                     'R_pad': Rp}}})
-
-        def put(x):
-            return torch.as_tensor(x, device=dev)
-
-        rec = _Records(put(lengths), put(pa), put(pb), put(d), put(w))
-        order_t, ori_t = put(order), put(ori)
+        rec, order_t, ori_t, gen = _make_batch(
+            [problems[gi] for gi in idxs], [hot_starts[gi] for gi in idxs],
+            k_pad, Rp, c_eff, npop, seed, dev)
         scores = rec.score(order_t, ori_t)
         best0 = scores.max(dim=1).values.cpu().numpy()
         histories: List[List[Tuple[int, float]]] = \
@@ -746,6 +728,7 @@ def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
             continue
 
         done = 0
+        n_delta = _delta_step.generations
         # windows run back to back; each window's best stays on the
         # device until the last one has been queued
         window_best = []
@@ -755,6 +738,9 @@ def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
                                             mutprob, step)
             done += step
             window_best.append((done, scores[:, 0]))
+        n_delta = _delta_step.generations - n_delta
+        logger.info('GA batch: %d delta generations', n_delta,
+                    extra={'metrics': {'ga_delta_gens': n_delta}})
         for gen_done, best_t in window_best:
             best = best_t.cpu().numpy()
             for t in range(G):

@@ -419,14 +419,12 @@ def sort_stage(cres: ClusterStageResult, groups: 'ReassignResult',
     # shape bucket below.
     t_stage = time.time()
     fast_tours: List[Optional[List[Tuple[str, str]]]] = []
-    hots: List[Optional[Tuple[np.ndarray, np.ndarray]]] = []
     group_datas = []
     for gname, members in zip(g.names, g.members):
         t0 = time.time()
         gd = make_group_data(members, asm.lengths, cres.links.ht)
         group_datas.append(gd)
         fast_tour = None
-        hot = None
         if not cfg.skip_fast_sort and len(members) > 0:
             paths = fast_sort(gd, confidence_cutoff=cfg.confidence_cutoff,
                               density_cal_method=cfg.density_cal_method,
@@ -435,30 +433,23 @@ def sort_stage(cres: ClusterStageResult, groups: 'ReassignResult',
             fast_tour = paths_to_tour(paths, gd.ctg_ids, asm.names)
             write_tour(os.path.join(outdir, '{}.tour.sav'.format(gname)),
                        fast_tour)
-            # hot start for the GA: local order/orientation
-            local_of = {int(c): i for i, c in enumerate(gd.ctg_ids)}
-            hot_order = np.asarray([local_of[asm.name2id[c]]
-                                    for c, _ in fast_tour], np.int32)
-            hot_ori = np.asarray([1 if o == '-' else 0
-                                  for _, o in fast_tour], np.int32)
-            hot = (hot_order, hot_ori)
             logger.info('[%s] fast sort: %d contigs in %.1fs', gname,
                         len(members), time.time() - t0)
         fast_tours.append(fast_tour)
-        hots.append(hot)
 
-    # Pass 2 (device): batched GA over all multi-contig groups.
+    # Pass 2 (device): batched GA over all multi-contig groups, each
+    # hot-started from its fast sort tour.
     ga_idx = [i for i, members in enumerate(g.members)
               if not cfg.skip_allhic and len(members) > 1]
     ga_results: Dict[int, 'opt.GAResult'] = {}
     if ga_idx:
         t0 = time.time()
-        problems = [opt.build_problem(group_datas[i].ctg_ids, asm.lengths,
-                                      clm.pair_i, clm.pair_j, clm.d)
-                    for i in ga_idx]
+        problems, hots = zip(*[opt.group_problem(
+            group_datas[i].ctg_ids, asm.lengths, clm, fast_tours[i],
+            asm.name2id) for i in ga_idx])
         results = opt.optimize_tours(
             problems, npop=cfg.npop, ngen=cfg.ngen, mutprob=cfg.mutprob,
-            seed=cfg.seed, hot_starts=[hots[i] for i in ga_idx],
+            seed=cfg.seed, hot_starts=hots,
             skip_ga=cfg.skipGA, backend=cfg.ga_backend,
             device=cfg.device)
         ga_results = dict(zip(ga_idx, results))

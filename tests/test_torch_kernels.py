@@ -111,44 +111,101 @@ def _delta_case(seed, G, P, k, R, op=None):
 
 
 def _delta_inputs(case, dev, mutprob=1.1):
-    """(caches, contrib, move, thr, la, lb, d, w, scores) on ``dev``,
-    the state built by _Records.caches as the GA builds it."""
+    """(rec, state, move) on ``dev``: the state built by _Records.caches
+    as the GA builds it, the moves by _moves_from_draws."""
     lengths, pa, pb, d, w, order, ori, draws = case
     k = order.shape[-1]
     put = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     rec = topt._Records(put(lengths), put(pa), put(pb), put(d), put(w))
-    state = rec.caches(put(order), put(ori))
-    do, op, i, j, t = topt._moves_from_draws(*[put(x) for x in draws], k,
-                                             mutprob)
-    move = (do, op, i, j, t) + topt._move_scalars(state[1], i, j, t)
-    spanv = torch.where(op == 2, t - i, j - i).to(torch.float32)
-    scores = state[-1]
-    thr = scores * (topt._DELTA_MIN_GAIN + topt._DELTA_SPAN_GAIN * spanv)
-    return (state[2:8], state[8], move, thr, rec.la, rec.lb, rec.d, rec.w,
-            scores)
+    state = (put(order), put(ori)) + rec.caches(put(order), put(ori))
+    move = topt._moves_from_draws(*[put(x) for x in draws], k, mutprob)
+    return rec, state, move
 
 
-def _both(inputs, accept=None):
-    """Kernel and plain version on clones of the same state; returns
-    ((delta, acc, caches, contrib) of each)."""
-    caches, contrib, move, thr, la, lb, d, w, _ = inputs
+def _whole_span(move, op, k):
+    """The same rows with one move kind spanning the whole tour."""
+    do = torch.ones_like(move[0])
+    full = lambda v: torch.full_like(move[1], v)  # noqa: E731
+    return (do, full(op), full(0), full(k - 1 if op != 2 else k // 3),
+            full(k - 1))
+
+
+def _both(inputs, accept=None, fns=None):
+    """Kernel and plain version (or ``fns``) on clones of the same
+    state; returns [(delta, acc, state after)] of each."""
+    rec, state, move = inputs
     out = []
-    for fn in (kdelta.delta_generation, kdelta.delta_generation_plain):
-        cc = [c.clone() for c in caches]
-        ct = contrib.clone()
-        delta, acc = fn(cc, ct, move, thr, la, lb, d, w, accept=accept)
-        out.append((delta, acc, cc, ct))
+    for fn in fns or (kdelta.delta_generation,
+                      kdelta.delta_generation_plain):
+        st = tuple(x.clone() for x in state)
+        delta, acc = fn(st, move, rec.la, rec.lb, rec.d, rec.w,
+                        topt._DELTA_MIN_GAIN, topt._DELTA_SPAN_GAIN,
+                        accept=accept)
+        out.append((delta, acc, st))
     torch.cuda.synchronize()
     return out
 
 
+def _threshold(state, move):
+    do, op, i, j, t = move
+    spanv = torch.where(op == 2, t - i, j - i).to(torch.float32)
+    return state[-1] * (topt._DELTA_MIN_GAIN
+                        + topt._DELTA_SPAN_GAIN * spanv)
+
+
+def _exact_delta(inputs):
+    """Per row, the f64 sum of the plain version's f32 per-record terms
+    (new - old contribution) and the sum of their magnitudes."""
+    rec, state, move = inputs
+    new_c = kdelta.record_update(state, move, rec.la, rec.lb, rec.d,
+                                 rec.w)[1]
+    terms = (new_c - state[10]).double()
+    return terms.sum(dim=2), terms.abs().sum(dim=2)
+
+
 def _check_delta(inputs, kern, plain):
-    scores = inputs[-1]
-    thr = inputs[3]
+    """Every row: the kernel sums its f32 terms in f64 and rounds once,
+    so its delta lies within half an f32 ulp of the exact sum of the
+    plain version's terms, plus the two f64 sums' own error (R * 2^-53
+    of the terms' magnitudes each). Rows whose |delta| is at most their
+    |score|: the deltas within 1e-6 * |score| of the plain version's
+    (its f32 sum runs in another order), and equal acceptance wherever
+    |delta - thr| exceeds that. Rows with a larger delta, where one f32
+    ulp of the delta can exceed 1e-6 * |score|: equal acceptance
+    wherever |delta - thr| exceeds the most the two deltas can differ
+    by the bounds above."""
+    _, state, move = inputs
+    scores, R = state[-1], state[4].shape[2]
+    exact, mag = _exact_delta(inputs)
+    kd = kern[0].abs()
+    half_ulp = 0.5 * (torch.nextafter(kd, torch.full_like(kd, np.inf))
+                      - kd).double()
+    bound = half_ulp + 2.0 * R * 2.0 ** -53 * mag
+    assert bool(((kern[0].double() - exact).abs() <= bound).all())
+    big = plain[0].abs() > scores.abs()
     tol = 1e-6 * scores.abs()
-    assert bool(((kern[0] - plain[0]).abs() <= tol).all())
-    sure = (plain[0] - thr).abs() > tol
+    assert bool(((kern[0] - plain[0]).abs() <= tol)[~big].all())
+    thr = _threshold(state, move)
+    big_tol = (plain[0].double() - exact).abs() + bound
+    sure = torch.where(
+        big, (plain[0].double() - thr.double()).abs() > big_tol,
+        (plain[0] - thr).abs() > tol)
     assert torch.equal(kern[1][sure], plain[1][sure])
+
+
+def _check_commit(inputs, kern, plain):
+    """Under one acceptance mask every state field but the scores is
+    bit-equal. The kernel's scores are exactly score + its delta on the
+    accepted rows, and within 1e-6 * |score| of the plain version's
+    where |delta| is at most |score|."""
+    for n, (a, b) in enumerate(zip(kern[2][:-1], plain[2][:-1])):
+        assert torch.equal(a, b), kdelta.STATE_FIELDS[n]
+    scores = inputs[1][-1]
+    assert torch.equal(kern[2][-1],
+                       torch.where(kern[1], scores + kern[0], scores))
+    small = plain[0].abs() <= scores.abs()
+    tol = 1e-6 * scores.abs()
+    assert bool(((kern[2][-1] - plain[2][-1]).abs() <= tol)[small].all())
 
 
 @pytest.mark.cuda
@@ -157,7 +214,10 @@ def _check_delta(inputs, kern, plain):
     (3, 7, 40, 1001),        # ragged R: scalar slot loads
     (1, 5, 2, 300),          # two contigs
     (2, 6, 16, 0),           # no records
-], ids=['main-k', 'ragged', 'k2', 'no-records'])
+    (2, 24, 1000, 70001),    # several tiles a CTA, ragged, scalar loads
+    (1, 16, 333, 65540),     # 16-byte loads, R not a multiple of 8 x 4
+], ids=['main-k', 'ragged', 'k2', 'no-records', 'tiles-ragged',
+        'vec-ragged'])
 def test_delta_kernel_matches_plain(card, G, P, k, R):
     inputs = _delta_inputs(_delta_case(G * k + R, G, P, k, R), card)
     n0 = kdelta.delta_generation.launches
@@ -166,8 +226,7 @@ def test_delta_kernel_matches_plain(card, G, P, k, R):
     _check_delta(inputs, kern, plain)
     # one acceptance mask for both: the commits are exactly equal
     kern, plain = _both(inputs, accept=plain[1])
-    for a, b in zip(kern[2] + [kern[3]], plain[2] + [plain[3]]):
-        assert torch.equal(a, b)
+    _check_commit(inputs, kern, plain)
 
 
 @pytest.mark.cuda
@@ -179,8 +238,28 @@ def test_delta_kernel_each_move_kind(card, op):
     _check_delta(inputs, kern, plain)
     mask = torch.ones_like(plain[1])
     kern, plain = _both(inputs, accept=mask)
-    for a, b in zip(kern[2] + [kern[3]], plain[2] + [plain[3]]):
-        assert torch.equal(a, b)
+    _check_commit(inputs, kern, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('op', [0, 1, 2, 3],
+                         ids=['swap', 'inversion', 'rotation', 'flip'])
+def test_delta_kernel_whole_span_overflows_shared_memory(card, op):
+    """Moves over the whole tour touch every record, 5,000 a CTA. A
+    flip changes all their contributions: more new states than a CTA
+    keeps in shared memory, so the commit computes the rest again. An
+    inversion changes none (delta exactly 0.0) and a swap or a rotation
+    only those that cross its edges: the commit computes the others."""
+    k = 64
+    rec, state, move = _delta_inputs(_delta_case(7 + op, 1, 8, k, 40000),
+                                     card)
+    inputs = (rec, state, _whole_span(move, op, k))
+    kern, plain = _both(inputs)
+    _check_delta(inputs, kern, plain)
+    if op == 1:
+        assert bool((kern[0] == 0.0).all())
+    kern, plain = _both(inputs, accept=torch.ones_like(plain[1]))
+    _check_commit(inputs, kern, plain)
 
 
 @pytest.mark.cuda
@@ -188,10 +267,10 @@ def test_delta_kernel_no_move_is_exactly_zero(card):
     inputs = _delta_inputs(_delta_case(5, 2, 16, 128, 5000), card,
                            mutprob=-1.0)
     assert not bool(inputs[2][0].any())
-    kern, plain = _both(inputs, accept=torch.ones_like(inputs[-1],
+    kern, plain = _both(inputs, accept=torch.ones_like(inputs[1][-1],
                                                        dtype=torch.bool))
     assert bool((kern[0] == 0.0).all()) and bool((plain[0] == 0.0).all())
-    for a, b in zip(kern[2] + [kern[3]], list(inputs[0]) + [inputs[1]]):
+    for a, b in zip(kern[2], inputs[1]):
         assert torch.equal(a, b)
 
 
@@ -202,7 +281,18 @@ def test_delta_kernel_commit_under_given_mask(card):
                            device=card)
     kern, plain = _both(inputs, accept=mask)
     assert torch.equal(kern[1], mask) and torch.equal(plain[1], mask)
-    for a, b in zip(kern[2] + [kern[3]], plain[2] + [plain[3]]):
+    _check_commit(inputs, kern, plain)
+
+
+@pytest.mark.cuda
+def test_delta_kernel_is_repeatable(card):
+    """Two runs on the same input give the same bits: the cluster adds
+    its partial sums in rank order, with no float atomics."""
+    inputs = _delta_inputs(_delta_case(8, 7, 100, 1024, 49152), card)
+    kern = kdelta.delta_generation
+    one, two = _both(inputs, fns=(kern, kern))
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+    for a, b in zip(one[2], two[2]):
         assert torch.equal(a, b)
 
 

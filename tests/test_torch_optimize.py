@@ -8,6 +8,7 @@ port; end to end, the device GA is held to the JAX package's quality
 tests (tests/test_optimize.py)."""
 
 import importlib
+import logging
 import os
 
 import numpy as np
@@ -325,11 +326,77 @@ def test_cpu_delta_generation_takes_the_plain_version():
         assert torch.equal(a, b)
 
 
+def test_delta_step_settings_are_arguments():
+    """The step takes the acceptance settings as arguments and reads no
+    environment: a minimum gain of 10x the score accepts nothing, and a
+    minimum gain of -10x accepts every move, and both leave the state
+    consistent with a rebuild from the tours."""
+    lengths, pa, pb, order, ori, d, w = _cache_setup(8, 24, 200)
+    rec = topt._Records(_t(lengths[None], torch.int64), _t(pa[None]),
+                        _t(pb[None]), _t(d[None]), _t(w[None]))
+    gen = torch.Generator()
+    gen.manual_seed(4)
+    move = topt._sample_moves(gen, (1, 8), 24, 1.1)
+    for min_gain, want in ((10.0, False), (-10.0, True)):
+        state = (_t(order[None]), _t(ori[None])) + rec.caches(
+            _t(order[None]), _t(ori[None]))
+        delta, acc = tdelta.delta_generation_plain(
+            state, move, rec.la, rec.lb, rec.d, rec.w, min_gain, 0.0)
+        assert bool((acc == want).all())
+        rebuilt = rec.caches(state[0], state[1])
+        for a, b in zip(state[2:-1], rebuilt[:-1]):
+            assert torch.equal(a, b)
+        np.testing.assert_allclose(state[-1].numpy(), rebuilt[-1].numpy(),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize('op', [0, 1, 2, 3],
+                         ids=['swap', 'inversion', 'rotation', 'flip'])
+def test_untouched_records_keep_their_state(op):
+    """The kernel visits only the records touched_records marks: every
+    other record keeps its endpoint state and contribution bit for bit
+    under every move kind, so its (new - old) is exactly 0.0. For the
+    delta it computes only the records changed_records marks: the other
+    touched records keep their contribution bit for bit too."""
+    P, k = 64, 32
+    lengths, pa, pb, order, ori, d, w = _cache_setup(P, k, 400)
+    rec = topt._Records(_t(lengths[None], torch.int64), _t(pa[None]),
+                        _t(pb[None]), _t(d[None]), _t(w[None]))
+    state = (_t(order[None]), _t(ori[None])) + rec.caches(
+        _t(order[None]), _t(ori[None]))
+    gen = torch.Generator()
+    gen.manual_seed(op)
+    do, _, i, j, t = topt._sample_moves(gen, (1, P), k, 0.8)
+    move = (do, torch.full_like(i, op), i, j, t)
+    scal = topt._move_scalars(state[3], i, j, t)
+    new = (topt._endpoint_update(*state[4:7], rec.la, *move, *scal)
+           + topt._endpoint_update(*state[7:10], rec.lb, *move, *scal))
+    new_c = topt._contrib_from_cache(*new, rec.la, rec.lb, rec.d, rec.w)
+    touched = tdelta.touched_records(state[4], state[7], move)
+    assert not bool(touched[~do].any())
+    assert 0 < int(touched.sum()) < touched.numel()
+    for a, b in zip(new + (new_c,), state[4:11]):
+        assert torch.equal(a[~touched], b[~touched])
+    assert bool(((new_c - state[10])[~touched] == 0.0).all())
+    changed = tdelta.changed_records(state[4], state[7], move)
+    assert not bool((changed & ~touched).any())
+    same = touched & ~changed
+    assert bool(same.any()) == (op != 3)
+    assert torch.equal(new_c[same], state[10][same])
+
+
 _GA_SETTINGS = [('HAPHIC_GA_DELTA_LOCAL', '0.9'),
                 ('HAPHIC_GA_DELTA_MIN_GAIN', '1e-3'),
                 ('HAPHIC_GA_DELTA_SPAN_GAIN', '1e-4'),
                 ('HAPHIC_GA_RESET', 'all'),
-                ('HAPHIC_GA_RESET', 'none')]
+                ('HAPHIC_GA_RESET', 'none'),
+                ('HAPHIC_GA_DELTA_MIN_GAIN', '-1e-3'),
+                ('HAPHIC_GA_DELTA_SPAN_GAIN', '0')]
+_GA_SETTING_IDS = ['haphic_ga_delta_local', 'haphic_ga_delta_min_gain',
+                   'haphic_ga_delta_span_gain', 'haphic_ga_reset_all',
+                   'haphic_ga_reset_none',
+                   'haphic_ga_delta_min_gain_negative',
+                   'haphic_ga_delta_span_gain_zero']
 
 
 @pytest.fixture
@@ -346,10 +413,7 @@ def ga_env(monkeypatch):
     importlib.reload(topt)
 
 
-@pytest.mark.parametrize('var,value', _GA_SETTINGS,
-                         ids=[v.lower() if v != 'HAPHIC_GA_RESET' else
-                              'haphic_ga_reset_' + x
-                              for v, x in _GA_SETTINGS])
+@pytest.mark.parametrize('var,value', _GA_SETTINGS, ids=_GA_SETTING_IDS)
 def test_ga_settings_follow_the_environment(ga_env, var, value):
     """Each GA variable that the JAX package reads changes the port the
     same way: thresholds and the reset rule, and the acceptance of
@@ -495,6 +559,32 @@ def test_device_ga_recovers_true_order(delta, monkeypatch):
     assert res.score >= 0.95 * true_score
     assert _canonical_tour(res.order, res.ori) == \
         _canonical_tour(true_order, true_ori[true_order])
+
+
+@pytest.mark.parametrize('delta', [True, False],
+                         ids=['delta-window', 'full-rescore'])
+def test_ga_logs_its_delta_generations(delta, monkeypatch, caplog):
+    """optimize_tours logs, per batch, the delta generations it ran
+    (`ga_delta_gens`): one step each, as counted at the step itself."""
+    if not delta:
+        monkeypatch.setenv('HAPHIC_GA_NO_DELTA', '1')
+    calls = []
+    plain = tdelta.delta_generation_plain
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return plain(*args, **kw)
+    monkeypatch.setattr(tdelta, 'delta_generation_plain', counted)
+    caplog.set_level(logging.INFO, logger='haphic_tpu_torch')
+    problems = [convert.problem_from_jax(_sim_chromosome_problem(s, k=k)[0])
+                for s, k in ((3, 8), (4, 5))]
+    topt.optimize_tours(problems, npop=8, ngen=45, seed=1, log_every=20,
+                        backend='device', device='cpu')
+    metrics = [getattr(r, 'metrics', {}) for r in caplog.records]
+    logged = [m['ga_delta_gens'] for m in metrics if 'ga_delta_gens' in m]
+    assert len(logged) == sum('ga_batch' in m for m in metrics) > 0
+    assert sum(logged) == len(calls)
+    assert (len(calls) > 0) == delta
 
 
 def test_device_hot_start_and_skip_ga():

@@ -158,3 +158,44 @@ def test_cli_entry_point_matches_run_pipeline(sim):
         expected.setdefault(c, set()).add(name)
     assert _agp_partition(tout / '04.build' / 'scaffolds.agp') == \
         {frozenset(v) for v in expected.values()}
+
+
+@pytest.fixture(scope='module')
+def sort_src(sim):
+    tmp, fa, pairs, _ = sim
+    src = tmp / 'sort_src'
+    run_pipeline(fa, pairs, nchrs=3, cfg=_config(), outdir=str(src))
+    return src
+
+
+@pytest.mark.parametrize('flags', [[], ['--skipGA']], ids=['ga', 'skip-ga'])
+def test_cli_sort_matches_jax_sort(sim, sort_src, flags):
+    """The `sort` command alone, on the JAX package's 01.cluster and
+    02.reassign artifacts: the port writes the same fast sort, GA and
+    final tours as the JAX package's `sort`. The GA starts from the fast
+    sort tour; with --skipGA its result is that hot start itself."""
+    import glob
+
+    from haphic_tpu.cli import main as jmain
+    tmp, fa, _, _ = sim
+    src = sort_src
+    name = 'sort_{}'.format(len(flags))
+    groups = sorted(glob.glob(str(src / '02.reassign' / 'final_groups' /
+                                  'group*.txt')))
+    assert groups
+    args = [fa, str(src / '01.cluster' / 'HT_links.pkl'),
+            str(src / '02.reassign' / 'split_clms'), *groups,
+            '--ngen', '200', '--npop', '16', *flags]
+    jout, tout = tmp / (name + '_jax'), tmp / (name + '_torch')
+    assert jmain(['sort', *args, '--outdir', str(jout)]) == 0
+    assert tmain(['sort', *args, '--outdir', str(tout),
+                  '--device', 'cpu']) == 0
+    jf, _ = _tree(tmp, name + '_jax')
+    tf, _ = _tree(tmp, name + '_torch')
+    jf = {os.path.relpath(p, jout): p for p in jf.values()}
+    tf = {os.path.relpath(p, tout): p for p in tf.values()}
+    assert sorted(tf) == sorted(jf)
+    assert any(n.endswith('.tour.sav') for n in jf)
+    for rel, p in jf.items():
+        with open(p, 'rb') as a, open(tf[rel], 'rb') as b:
+            assert a.read() == b.read(), rel
