@@ -40,7 +40,27 @@ Phases, each printing one JSON line:
              (changed pairs; bound_touched_ms reads every touched
              pair); the figure that also reads the two slots of every
              pair stays beside it as bound_scan_ms.
-4. kernels   one line listing every kernel (the line before the last).
+4. sparse_pipeline
+             the same pipeline through the default `auto` route on 24
+             chromosomes x 1000 contigs x 20 kb (480 Mb, n = 24,000
+             fragments, past SPARSE_MIN_N) with 6,000,000 pairs, seed
+             17, the same flags and cut: the MCL sweep must run on the
+             sparse top-K engine on the card, the GA and its kernels on
+             the card (launch counts set to 0 just before and read just
+             after), and the scaffolds must recover the 24 chromosomes.
+             Prints n, K, the input columns over K, iterations per
+             inflation, the K of each shrink per inflation batch, the
+             sweep seconds, stage and wall seconds, peak card memory.
+5. sparse_step
+             the sparse engine on the card against the same engine on
+             the CPU on a 96-fragment block matrix (equal partitions and
+             iterations); then the sparse pipeline's first sweep step
+             (B=4, n+1, K=128, from the first-iteration state), rerun
+             with the arguments the pipeline gave it, timed with CUDA
+             events, its peak card memory, and its device time from
+             torch.profiler split by op and by kernel, each with its
+             share.
+6. kernels   one line listing every kernel (the line before the last).
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
@@ -62,7 +82,12 @@ DEVICE = 'cuda'
 
 SIM = dict(nchrs=8, ctgs_per_chr=1000, ctg_len=20000, n_pairs=2_000_000,
            seed=17)
+# 24,000 one-fragment contigs, past SPARSE_MIN_N: the sparse MCL route
+SPARSE_SIM = dict(nchrs=24, ctgs_per_chr=1000, ctg_len=20000,
+                  n_pairs=6_000_000, seed=17)
 NGEN = 500
+STEP_REPS = 3            # timed sparse sweep steps
+TOP_OPS = 12             # ops and kernels listed for the sparse step
 SIM_FLAGS = ['--Nx', '100', '--RE_site_cutoff', '0',
              '--density_lower', '0', '--density_upper', '1',
              '--rank_sum_upper', '1', '--flank', '0',
@@ -193,18 +218,26 @@ def phase_env(torch, kbuild):
                         for n, p in paths.items()}})
 
 
-def phase_pipeline(torch, cli, kscore, kdelta):
+def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
+                    engine):
+    """make_sim, then `cli.main(["pipeline", ...])` on the card with the
+    kernel launch counts set to 0 just before and read just after. The
+    MCL sweep must run on the card on ``engine``, the GA on the card
+    with both kernels, one delta_generation launch per delta generation
+    the GA reports, and the scaffolds must recover the simulated
+    chromosomes. Returns (sim seconds, wall seconds, metrics, launches,
+    partition summary)."""
     t0 = time.time()
-    fa, pairs = make_sim(os.path.join(WORK, 'sim'), **SIM)
+    fa, pairs = make_sim(os.path.join(WORK, sim_dir), **sim)
     sim_s = time.time() - t0
-    out = os.path.join(WORK, 'out')
+    out = os.path.join(WORK, out_dir)
     log = MetricsLog()
     logging.getLogger('haphic_tpu_torch').addHandler(log)
     torch.cuda.reset_peak_memory_stats()
     kscore.score_population.launches = 0
     kdelta.delta_generation.launches = 0
     t0 = time.time()
-    rc = cli.main(['pipeline', fa, pairs, str(SIM['nchrs']), '--outdir',
+    rc = cli.main(['pipeline', fa, pairs, str(sim['nchrs']), '--outdir',
                    out, '--ngen', str(NGEN)] + SIM_FLAGS)
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -213,14 +246,15 @@ def phase_pipeline(torch, cli, kscore, kdelta):
     logging.getLogger('haphic_tpu_torch').removeHandler(log)
     check(rc == 0, 'pipeline exit code {}'.format(rc))
     m = log.metrics
+    check(m['mcl_engine'][-1] == engine, 'the MCL sweep ran on the {} '
+          'engine, not the {} one'.format(m['mcl_engine'][-1], engine))
     mcl = m['mcl_route'][-1]
     check(mcl == 'cuda', 'the MCL sweep ran on {}, not the card'.format(mcl))
     check(m['ga_route'][-1] == 'cuda',
           'the GA ran on {}, not the card'.format(m['ga_route'][-1]))
-    for name, n in launches.items():
+    for kname, n in launches.items():
         check(n > 0, 'kernel {} was not launched on the main path'.format(
-            name))
-    batches = m['ga_batch']
+            kname))
     # the delta generations the GA says it ran, one launch each
     want = sum(m['ga_delta_gens'])
     check(launches['delta_generation'] == want,
@@ -228,14 +262,21 @@ def phase_pipeline(torch, cli, kscore, kdelta):
           .format(launches['delta_generation'], want))
     agp = os.path.join(out, '04.build', 'scaffolds.agp')
     check(os.path.exists(agp), 'no {}'.format(agp))
-    part = check_partition(agp, SIM['nchrs'])
+    part = check_partition(agp, sim['nchrs'])
+    return sim_s, wall, m, launches, part
+
+
+def phase_pipeline(torch, cli, kscore, kdelta):
+    sim_s, wall, m, launches, part = _drive_pipeline(
+        torch, cli, kscore, kdelta, SIM, 'sim', 'out', 'dense')
+    batches = m['ga_batch']
     emit({'phase': 'pipeline', 'sim': SIM, 'sim_s': sim_s,
           'cut': {'ngen': [5000, NGEN]}, 'n': m['n'][-1],
-          'mcl_route': mcl, 'mcl_batches': m['batches'][-1],
+          'mcl_route': m['mcl_route'][-1], 'mcl_batches': m['batches'][-1],
           'mcl_iters_per_inflation': m['n_iters'][-1],
           'records_per_group': m['records'][-1],
           'ga_work': m['ga_work'][-1], 'ga_route': m['ga_route'][-1],
-          'ga_batches': batches, 'ga_delta_gens': want,
+          'ga_batches': batches, 'ga_delta_gens': sum(m['ga_delta_gens']),
           'stage_s': m['stage_secs'][-1],
           'cluster_s': m['cluster_secs'][-1], 'ga_s': m['ga_secs'][-1],
           'wall_s': wall,
@@ -243,6 +284,146 @@ def phase_pipeline(torch, cli, kscore, kdelta):
           'launches': launches, **part})
     big = max(batches, key=lambda b: b['G'] * b['R_pad'])
     return launches, big
+
+
+def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
+    """The default route past SPARSE_MIN_N: the same pipeline on a
+    genome of SPARSE_SIM['nchrs'] * SPARSE_SIM['ctgs_per_chr'] one-
+    fragment contigs runs the sparse top-K MCL engine. Returns the
+    arguments of the engine's first sweep step, as the pipeline passed
+    them, for phase_sparse_step."""
+    first = []
+    step = sp._sweep_step
+
+    def recording(*args):
+        if not first:
+            # the host loop updates `active` in place after each step
+            first.append(args[:3] + (args[3].copy(),) + args[4:])
+        return step(*args)
+
+    sp._sweep_step = recording
+    try:
+        sim_s, wall, m, launches, part = _drive_pipeline(
+            torch, cli, kscore, kdelta, SPARSE_SIM, 'sparse_sim',
+            'sparse_out', 'sparse')
+    finally:
+        sp._sweep_step = step
+    check(first, 'the sparse engine ran no sweep step')
+    check(m['n'][-1] >= sparse_min_n, 'n={} is below SPARSE_MIN_N={}'
+          .format(m['n'][-1], sparse_min_n))
+    emit({'phase': 'sparse_pipeline', 'sim': SPARSE_SIM, 'sim_s': sim_s,
+          'cut': {'ngen': [5000, NGEN]}, 'n': m['n'][-1],
+          'mcl_engine': m['mcl_engine'][-1],
+          'mcl_route': m['mcl_route'][-1], 'K': m['K'][-1],
+          'overflow_cols': m['overflow_cols'][-1],
+          'mcl_batches': m['batches'][-1],
+          'mcl_iters_per_inflation': m['n_iters'][-1],
+          'k_steps_per_batch': m['k_steps'][-1],
+          'sweep_s': m['sweep_s'][-1], 'interpret_s': m['interpret_s'][-1],
+          'cluster_map_s': m['cluster_map_s'][-1],
+          'cluster_files_s': m['cluster_files_s'][-1],
+          'clusters_per_inflation': m['clusters_per_inflation'][-1],
+          'ga_route': m['ga_route'][-1],
+          'ga_delta_gens': sum(m['ga_delta_gens']),
+          'stage_s': m['stage_secs'][-1],
+          'cluster_s': m['cluster_secs'][-1], 'ga_s': m['ga_secs'][-1],
+          'wall_s': wall,
+          'max_memory_allocated': torch.cuda.max_memory_allocated(),
+          'launches': launches, **part})
+    return first[0]
+
+
+def _block_coo(n, n_blocks, seed):
+    """Upper-triangle COO of a symmetric matrix of dense random blocks
+    plus sparse noise links."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros((n, n))
+    per = n // n_blocks
+    for b in range(n_blocks):
+        w = rng.integers(5, 60, (per, per)) * (rng.random((per, per)) < 0.5)
+        blk = np.triu(w, 1)
+        m[b * per:(b + 1) * per, b * per:(b + 1) * per] += blk + blk.T
+    a, c = rng.integers(0, n, (2, 4 * n))
+    np.add.at(m, (a, c), 1.0)
+    np.add.at(m, (c, a), 1.0)
+    i, j = np.nonzero(np.triu(m, 1))
+    return i, j, m[i, j]
+
+
+def _device_ops(torch, prof, top):
+    """Device time of a profile, by op and by kernel. Each kernel's time
+    counts once, in the innermost torch op that launched it (the ops'
+    self device times) and under its own name (the kernels'). Returns
+    (device ms, the ``top`` ops, the ``top`` kernels), each with its
+    share of the device ms."""
+    def dev_us(e):
+        for attr in ('self_device_time_total', 'self_cuda_time_total'):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+    ops, kernels = [], []
+    for e in prof.key_averages():
+        us = dev_us(e)
+        if us > 0:
+            on_card = e.device_type == torch.autograd.DeviceType.CUDA
+            (kernels if on_card else ops).append((e.key, us, e.count))
+    total = sum(r[1] for r in kernels)
+
+    def rows(lst):
+        lst.sort(key=lambda r: -r[1])
+        return [{'name': k[:120], 'ms': us / 1e3, 'calls': c,
+                 'share': us / total} for k, us, c in lst[:top]]
+    return total / 1e3, rows(ops), rows(kernels)
+
+
+def phase_sparse_step(torch, sp, first_step):
+    """The sparse pipeline's first sweep step (its first inflation
+    batch, from its first-iteration state), again with the arguments
+    the pipeline gave it, timed with CUDA events and profiled by op.
+    Before it, the engine on the card against the engine on the
+    CPU on a small block matrix: equal partitions and iterations."""
+    i, j, w = _block_coo(96, 4, 2)
+    infl = [1.2, 1.5, 2.0, 2.8]
+    got = sp.run_mcl_sparse(i, j, w, 96, infl, K=48, max_iter=80,
+                            device=DEVICE)
+    want = sp.run_mcl_sparse(i, j, w, 96, infl, K=48, max_iter=80,
+                             device='cpu')
+    check(np.array_equal(got.n_iters, want.n_iters),
+          'sparse MCL iterations on the card {} vs the CPU {}'.format(
+              got.n_iters.tolist(), want.n_iters.tolist()))
+    parts = [got.interpret(b) for b in range(len(infl))]
+    check(parts == [want.interpret(b) for b in range(len(infl))]
+          and None not in parts,
+          'sparse MCL partitions differ between the card and the CPU')
+
+    si, sv, f, active, n, K, chunk, pruning, expansion = first_step
+    B = si.shape[0]
+
+    def step():
+        return sp._sweep_step(si, sv, f, active, n, K, chunk, pruning,
+                              expansion)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(torch, step, STEP_REPS)
+    peak = torch.cuda.max_memory_allocated()
+    ni, nv, stat, max_nnz = step()
+    check(bool(torch.isfinite(nv).all()) and int(max_nnz) <= K
+          and bool((ni[:, n] == n).all()),
+          'sparse step output: not finite, too wide or sentinel set')
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy_ms, ops, kernels = _device_ops(torch, prof, TOP_OPS)
+    emit({'phase': 'sparse_step', 'B': B, 'n_plus_1': n + 1, 'K': K,
+          'chunk': chunk, 'chunks': -(-(n + 1) // chunk),
+          'candidates': B * (n + 1) * K * K, 'ms': ms, 'reps': STEP_REPS,
+          'profiled_device_ms': busy_ms, 'max_nnz': int(max_nnz),
+          'max_memory_allocated': peak, 'top_device_ops': ops,
+          'top_device_kernels': kernels,
+          'small_n_iters': got.n_iters.tolist()})
 
 
 def _score_inputs(torch, G, P, k, R, seed, sort=True):
@@ -552,6 +733,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from haphic_tpu_torch import cli
+    from haphic_tpu_torch.cluster import sparse_mcl as sp
+    from haphic_tpu_torch.cluster.sweep import SPARSE_MIN_N
     from haphic_tpu_torch.kernels import build as kbuild
     from haphic_tpu_torch.kernels import delta as kdelta
     from haphic_tpu_torch.kernels import score as kscore
@@ -564,6 +747,10 @@ def main() -> int:
         'score_population': phase_kernel(torch, kscore, big, launches)[-1],
         'delta_generation': phase_delta(torch, kdelta, topt, trace_ga,
                                         big, launches)[-1]}
+    torch.cuda.empty_cache()
+    first_step = phase_sparse_pipeline(torch, cli, kscore, kdelta, sp,
+                                       SPARSE_MIN_N)
+    phase_sparse_step(torch, sp, first_step)
     kernels = []
     for k in KERNELS:
         row = main_rows[k['name']]

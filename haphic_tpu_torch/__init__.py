@@ -6,7 +6,8 @@ package beside it) and runs the same four stages:
 
 io        FASTA/pairs/BAM parsing and on-disk format writers
 core      fragment statistics, link aggregation, filtering
-cluster   dense Markov clustering sweep on the card (torch)
+cluster   Markov clustering sweeps on the card (torch): dense, and
+          sparse top-K past SPARSE_MIN_N fragments
 assign    reassignment/rescue + average-linkage group merge (scipy)
 order     fast sort + tour optimizer (torch GA, CUDA tour-score kernel)
 build     final scaffold FASTA/AGP emission

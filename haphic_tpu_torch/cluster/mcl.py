@@ -274,7 +274,8 @@ def run_mcl_partitions(adjacency: Optional[np.ndarray],
         parts = [interpret_result(res.matrices[b])
                  for b in range(len(res.n_iters))]
         logger.info('MCL sweep on the host (numpy, n=%d < %d)', m, min_n,
-                    extra={'metrics': {'mcl_route': 'host', 'n': m,
+                    extra={'metrics': {'mcl_route': 'host',
+                                       'mcl_engine': 'dense', 'n': m,
                                        'n_iters': res.n_iters.tolist()}})
         return parts, res.n_iters, res.converged
     if coo is not None:
@@ -297,7 +298,8 @@ def run_mcl_partitions(adjacency: Optional[np.ndarray],
             parts.append(interpret_result(nz[b]))
     logger.info('MCL sweep on %s (n=%d, %d inflations in batches %s)',
                 dev, m, B, batches,
-                extra={'metrics': {'mcl_route': dev.type, 'n': m,
+                extra={'metrics': {'mcl_route': dev.type,
+                                   'mcl_engine': 'dense', 'n': m,
                                    'batches': batches,
                                    'n_iters': iters.tolist()}})
     return parts, iters, conv

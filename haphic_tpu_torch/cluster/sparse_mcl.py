@@ -1,0 +1,527 @@
+"""Sparse Markov clustering on the card (torch): the scale path past
+dense n².
+
+Port of haphic_tpu/cluster/sparse_mcl.py. The reference clusters up to
+~262k fragments (Ginkgo, reference README.md:317) with scipy CSC + MKL
+SpGEMM (scripts/HapHiC_cluster.py:2017-2062); a dense (B, n, n)
+formulation is ~274 GB per matrix at that n. This module keeps a *fixed
+top-K per column* ELL layout — the "selection pruning" strategy of
+HipMCL (Azad et al., "HipMCL: a high-performance parallel implementation
+of the Markov clustering algorithm") — which bounds every shape:
+
+    idx: int32 (n+1, K)   row ids of the ≤K entries of each column,
+                          sorted ascending, sentinel n for padding
+    val: f32   (n+1, K)   matching values (0 at sentinels)
+
+Row and column n are always empty, so gathers through sentinel ids
+land on an empty column. Memory is O(n·K) — 262k fragments at K=128 is
+~270 MB per inflation instead of ~274 GB dense.
+
+One MCL iteration per column j, written over tensors (B, chunk, L) —
+inflations, columns, candidates (L = K² after expansion, K in the first
+iteration, 2K in the convergence merge):
+  expand   gather the K columns referenced by column j -> K² candidate
+           (row, val·val) products
+  dedupe   stable sort by row id + segmented run-sum (cumsum/cummax)
+  inflate  val^inflation, exact column L1 normalization (pre-cap, so
+           the normalizer sees the full expanded column)
+  cap      the K largest entries — the only approximation vs the
+           reference; exact when K ≥ the column's true support
+  prune    threshold + keep-column-max + renormalize
+           (reference prune semantics, scripts/HapHiC_cluster.py:1987)
+  converge numpy.allclose semantics via a 2K sorted merge of old/new
+
+Where JAX vmaps the per-column functions and streams columns through a
+lax.scan, the port loops over fixed column chunks on the host, writing
+into preallocated (B, n+1, K) outputs; nothing in that loop syncs with
+the card. Converged inflations leave the computed batch (as in the
+port's dense sweep) but stay in the K-shrink statistic. The
+column-sharded multi-card step is ROADMAP queue item 3.
+
+Where the port would differ from JAX unless careful:
+  * lax.sort with num_keys=1 is stable: every sort by row id is
+    torch.sort(stable=True), payloads gathered by its indices;
+  * lax.top_k puts the lower position first among equal values;
+    torch.topk makes no promise about ties on CUDA, so the cap is a
+    stable descending sort sliced at K;
+  * run sums keep JAX's cumsum/cummax formulas (a scatter-add segment
+    sum would round differently, and the convergence statistic is held
+    to 1e-8), with the prefix sums in f64: XLA's f32 prefixes carry
+    ~1e-7 of absolute error into every run, and PyTorch's would too, in
+    another order on the CPU (f64 accumulation, rounded per prefix) than
+    on the card (f32 parallel scan). In f64 each run is rounded once, on
+    both, so the port agrees with XLA to XLA's own rounding.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from haphic_tpu_torch.runtime import resolve_device
+
+logger = logging.getLogger(__name__)
+
+DEFAULT_K = 128
+
+
+# ---------------------------------------------------------------------------
+# per-column functions, over the last axis of (..., L) tensors
+# ---------------------------------------------------------------------------
+
+
+def _shift_left(x: torch.Tensor, fill) -> torch.Tensor:
+    """x[..., 1:] followed by ``fill``."""
+    return torch.cat([x[..., 1:], x.new_full(x.shape[:-1] + (1,), fill)],
+                     dim=-1)
+
+
+def _shift_right(x: torch.Tensor, fill) -> torch.Tensor:
+    """``fill`` followed by x[..., :-1]."""
+    return torch.cat([x.new_full(x.shape[:-1] + (1,), fill), x[..., :-1]],
+                     dim=-1)
+
+
+def _sort_by_id(ids: torch.Tensor, *payloads: torch.Tensor):
+    """Stable sort by id along the last axis, payloads following
+    (lax.sort with num_keys=1 is stable: equal ids keep their order, so
+    the run sums below add in JAX's order)."""
+    ids, order = torch.sort(ids, dim=-1, stable=True)
+    return (ids,) + tuple(torch.gather(p, -1, order) for p in payloads)
+
+
+def _dedupe_sorted(ci: torch.Tensor, cv: torch.Tensor, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment-sum runs of equal ids in an id-sorted candidate list.
+    Non-last members of each run become sentinels (id n, value 0).
+
+    The running sum is kept in f64 and each run rounded to f32 once: a
+    run is the difference of two prefix sums of the whole column (up to
+    ~1), so f32 prefixes (XLA's, or PyTorch's on CUDA) put ~1e-7 of
+    absolute error on every entry, a tenth of a 1e-3 entry's value."""
+    s = torch.cumsum(cv, dim=-1, dtype=torch.float64)
+    is_last = ci != _shift_left(ci, n + 1)
+    z = torch.where(is_last, s, 0.0)
+    # s is nondecreasing (cv >= 0), so the last run end before each
+    # position is a running max
+    prev_end = torch.cummax(_shift_right(z, 0.0), dim=-1).values
+    run = (s - prev_end).to(cv.dtype)
+    real = is_last & (ci < n)
+    return torch.where(real, ci, n), torch.where(real, run, 0.0)
+
+
+def _inflate_cap_prune(didx: torch.Tensor, dval: torch.Tensor, infl,
+                       pruning: float, n: int, K: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """inflate -> exact colnorm -> top-K cap -> threshold+keep-max ->
+    renormalize -> sort by row id. Works on any deduped candidate list
+    (K² after expansion, K for the no-expand first iteration).
+    ``infl`` is a float or a tensor that broadcasts against (..., 1)."""
+    pos = dval > 0
+    p = torch.where(pos, torch.exp(infl * torch.log(
+        torch.where(pos, dval, 1.0))), 0.0)
+    tot = p.sum(dim=-1, keepdim=True)
+    p = p * torch.where(tot > 0, 1.0 / tot, 0.0)
+    if p.shape[-1] > K:
+        # lax.top_k order: descending, lower position first among ties
+        tv, tpos = torch.sort(p, dim=-1, descending=True, stable=True)
+        tv = tv[..., :K]
+        ti = torch.gather(didx, -1, tpos[..., :K])
+    else:
+        tv, ti = p, didx
+    mx = tv.amax(dim=-1, keepdim=True)
+    keep = (tv >= pruning) | ((tv == mx) & (tv > 0))
+    tv = torch.where(keep, tv, 0.0)
+    t2 = tv.sum(dim=-1, keepdim=True)
+    tv = tv * torch.where(t2 > 0, 1.0 / t2, 0.0)
+    ti = torch.where(tv > 0, ti, n).to(torch.int32)
+    return _sort_by_id(ti, tv)
+
+
+def _expand(A_i: torch.Tensor, A_v: torch.Tensor, col_i: torch.Tensor,
+            col_v: torch.Tensor, n: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidates of (A @ A)[:, j] for every column j of the block: the
+    K referenced columns of A scaled by the column's values, flattened
+    and deduped. A_i/A_v: (B, N, K); col_i/col_v: (B, C, K) ->
+    (B, C, K²)."""
+    B, C, Kc = col_i.shape
+    K = A_i.shape[-1]
+    b = torch.arange(B, device=A_i.device).view(B, 1, 1)
+    cols = col_i.long()
+    gi = A_i[b, cols].reshape(B, C, Kc * K)
+    gv = (A_v[b, cols] * col_v[..., None]).reshape(B, C, Kc * K)
+    gi, gv = _sort_by_id(gi, gv)
+    return _dedupe_sorted(gi, gv, n)
+
+
+def _col_allclose_stat(old_idx, old_val, new_idx, new_val, n: int,
+                       rtol: float = 1e-5) -> torch.Tensor:
+    """max over rows of |new - old| - rtol·|old| for each column pair
+    (numpy.allclose semantics of the dense path, b = old). Inputs
+    (..., K); returns (...)."""
+    ci = torch.cat([old_idx, new_idx], dim=-1)
+    dv = torch.cat([-old_val, new_val], dim=-1)
+    ov = torch.cat([old_val, torch.zeros_like(new_val)], dim=-1)
+    ci, dv, ov = _sort_by_id(ci, dv, ov)
+    # f64 prefixes, as in _dedupe_sorted: a run of an unchanged entry
+    # then differences to exactly 0 on the CPU and the card alike
+    s_d = torch.cumsum(dv, dim=-1, dtype=torch.float64)
+    s_o = torch.cumsum(ov, dim=-1, dtype=torch.float64)
+    is_last = ci != _shift_left(ci, n + 1)
+    # cumsum of ov is nondecreasing; dv's is not -> recover run sums by
+    # differencing consecutive last positions
+    zo = torch.where(is_last, s_o, 0.0)
+    o_run = s_o - torch.cummax(_shift_right(zo, 0.0), dim=-1).values
+    pos = torch.arange(ci.shape[-1], device=ci.device).expand_as(ci)
+    idx_pos = torch.where(is_last, pos, -1)
+    prev_last = _shift_right(torch.cummax(idx_pos, dim=-1).values, -1)
+    d_prev = torch.where(prev_last >= 0, torch.gather(
+        s_d, -1, prev_last.clamp(min=0)), 0.0)
+    stat = torch.abs(s_d - d_prev) - rtol * o_run
+    return torch.where(is_last & (ci < n), stat, -torch.inf).amax(
+        dim=-1).to(old_val.dtype)
+
+
+# ---------------------------------------------------------------------------
+# batched sweep
+# ---------------------------------------------------------------------------
+
+
+def _first_iteration(idx0: torch.Tensor, val0: torch.Tensor,
+                     inflations: torch.Tensor, n: int, K: int,
+                     pruning: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Iteration 0: inflate + prune only, per inflation (the sweep
+    pre-expands once, reference scripts/HapHiC_cluster.py:2144-2149).
+    idx0/val0: (N, K), N = n+1; returns (B, N, K) idx/val."""
+    B = inflations.shape[0]
+    shape = (B,) + tuple(idx0.shape)
+    i0, v0 = _inflate_cap_prune(idx0.expand(shape), val0.expand(shape),
+                                inflations.view(B, 1, 1), pruning, n, K)
+    # sentinel column n stays empty
+    i0[:, n] = n
+    v0[:, n] = 0.0
+    return i0, v0
+
+
+def _sweep_cols(A_i, A_v, infl, n: int, K: int, chunk: int,
+                pruning: float, expansion: int):
+    """Expand→inflate→cap→prune for every column of A, in fixed column
+    chunks. A_i/A_v: (B, N, K) per-inflation matrices; infl (B,).
+    Returns (new_i, new_v, stat) with stat (B,) the per-inflation max
+    allclose statistic, left on the card. The math is per column, so
+    the chunk size does not change the results."""
+    B, N = A_i.shape[0], A_i.shape[1]
+    new_i = torch.empty_like(A_i)
+    new_v = torch.empty_like(A_v)
+    maxstat = torch.full((B,), -torch.inf, device=A_v.device)
+    f = infl.view(B, 1, 1)
+    for s in range(0, N, chunk):
+        ci, cv = A_i[:, s:s + chunk], A_v[:, s:s + chunk]
+        di, dv = _expand(A_i, A_v, ci, cv, n)
+        for _ in range(expansion - 2):
+            # higher expansion powers: re-expand the deduped column
+            # (entries beyond K² fold through the cap)
+            di, dv = _inflate_cap_prune(di, dv, 1.0, 0.0, n, K)
+            di, dv = _expand(A_i, A_v, di, dv, n)
+        ni, nv = _inflate_cap_prune(di, dv, f, pruning, n, K)
+        del di, dv
+        stat = _col_allclose_stat(ci, cv, ni, nv, n)
+        maxstat = torch.maximum(maxstat, stat.amax(dim=-1))
+        new_i[:, s:s + chunk] = ni
+        new_v[:, s:s + chunk] = nv
+    return new_i, new_v, maxstat
+
+
+def _sweep_step(idx: torch.Tensor, val: torch.Tensor,
+                inflations: torch.Tensor, active: np.ndarray, n: int,
+                K: int, chunk: int, pruning: float, expansion: int):
+    """One MCL iteration for the whole inflation batch on one card.
+    Returns (new_idx, new_val, stat, max_nnz), all on the card, where
+    stat is the per-inflation allclose statistic vs the input (≤1e-8 ⇒
+    converged; -inf for frozen inflations, which the caller never
+    reads). Frozen inflations (active=False, a host bool array) are not
+    computed and pass through unchanged; the inputs are not modified."""
+    sel = torch.as_tensor(np.flatnonzero(active), device=idx.device)
+    ni, nv, st = _sweep_cols(idx[sel], val[sel], inflations[sel], n, K,
+                             chunk, pruning, expansion)
+    ni[:, n] = n
+    nv[:, n] = 0.0
+    new_idx, new_val = idx.clone(), val.clone()
+    new_idx[sel] = ni
+    new_val[sel] = nv
+    stat = torch.full((idx.shape[0],), -torch.inf, device=val.device)
+    stat[sel] = st
+    # widest column support across the WHOLE batch, frozen inflations
+    # included: the host loop shrinks K to it, and a max over the active
+    # ones only would cut a frozen inflation's support
+    max_nnz = (new_val > 0).sum(dim=-1).amax()
+    return new_idx, new_val, stat, max_nnz
+
+
+def _run_sweep_batch(idx0: torch.Tensor, val0: torch.Tensor,
+                     infl: torch.Tensor, n: int, K: int, chunk: int,
+                     max_iter: int, pruning: float, expansion: int):
+    """Host convergence loop for one inflation batch.
+
+    The working K shrinks to the next power of two over the actual
+    widest column support whenever that halves — iteration cost is
+    O(K²), and supports collapse rapidly as MCL concentrates, so the
+    long convergence tail runs at a fraction of the initial width
+    (entries are idx-sorted with sentinels last, so shrinking is a pure
+    slice). At most three shrinks run, to a floor of K=16, as in the
+    JAX package (where each is a fresh compile).
+
+    Returns (idx, val, n_iters, converged, k_steps): numpy (B, n+1,
+    K_full) idx/val padded back to the caller's K, and the K of each
+    shrink level, starting with K_full."""
+    B = infl.shape[0]
+    K_full = K
+    k_steps = [K]
+    idx, val = _first_iteration(idx0, val0, infl, n, K, float(pruning))
+    active = np.ones(B, dtype=bool)
+    conv_at = np.full(B, max_iter, dtype=np.int32)
+    n_shrinks = 0
+    t0 = time.time()
+    for it in range(1, max_iter):
+        cur_chunk = min(chunk, _auto_chunk(B, K, n))
+        idx, val, stat, max_nnz = _sweep_step(
+            idx, val, infl, active, n, K, cur_chunk, float(pruning),
+            expansion)
+        # the one host sync of an iteration: stat and max_nnz together
+        # (max_nnz <= K is exact in f64)
+        got = torch.cat([stat.double(), max_nnz.double().view(1)]).cpu()
+        stat_h, nz = got[:B].numpy(), int(got[B])
+        if it >= 2:
+            newly = active & (stat_h <= 1e-8)
+            conv_at[newly] = it + 1
+            active &= ~newly
+        if not active.any():
+            break
+        if K > 16 and n_shrinks < 3:
+            newK = max(16, 1 << max(nz - 1, 1).bit_length())
+            if newK <= K // 2:
+                logger.info('sparse MCL: support collapsed to %d, '
+                            'shrinking K %d -> %d', nz, K, newK)
+                K = newK
+                k_steps.append(K)
+                n_shrinks += 1
+                idx = idx[:, :, :K].contiguous()
+                val = val[:, :, :K].contiguous()
+    logger.info('sparse MCL batch inflations=%s: %s iterations in %.1fs',
+                infl.cpu().numpy().round(2).tolist(), conv_at.tolist(),
+                time.time() - t0)
+    # pad back to the caller's K so batches stack uniformly
+    if K < K_full:
+        pad = K_full - K
+        idx = torch.nn.functional.pad(idx, (0, pad), value=n)
+        val = torch.nn.functional.pad(val, (0, pad))
+    return (idx.cpu().numpy(), val.cpu().numpy(), conv_at,
+            np.logical_not(active), k_steps)
+
+
+def _pre_expand(base_i: torch.Tensor, base_v: torch.Tensor,
+                cur_i: torch.Tensor, cur_v: torch.Tensor, n: int, K: int,
+                chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One exact-normalization left-multiply by the base matrix:
+    C ← A @ C capped at top-K (inflation 1, no threshold). Iterating
+    this from C = A yields A^e for any expansion e — squaring the
+    iterate would instead give A^(2^(e-1)). All (N, K)."""
+    out_i = torch.empty_like(cur_i)
+    out_v = torch.empty_like(cur_v)
+    for s in range(0, cur_i.shape[0], chunk):
+        di, dv = _expand(base_i[None], base_v[None],
+                         cur_i[None, s:s + chunk], cur_v[None, s:s + chunk],
+                         n)
+        ni, nv = _inflate_cap_prune(di, dv, 1.0, 0.0, n, K)
+        out_i[s:s + chunk] = ni[0]
+        out_v[s:s + chunk] = nv[0]
+    out_i[n] = n
+    out_v[n] = 0.0
+    return out_i, out_v
+
+
+# ---------------------------------------------------------------------------
+# host wrappers
+# ---------------------------------------------------------------------------
+
+
+def coo_to_ell(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
+               K: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Symmetric COO (upper or mixed triangle) -> column-normalized ELL
+    (n+1, K). Columns with more than K entries keep the K largest
+    (logged). Mirrors dict_to_matrix(add_self_loops=True) + the sweep's
+    initial L1 normalization (scripts/HapHiC_cluster.py:310-373,2143).
+
+    Returns (idx, val, overflow) where overflow is the number of input
+    columns wider than K (0 ⇒ the ELL layout is exact)."""
+    i = np.asarray(i, dtype=np.int64)
+    j = np.asarray(j, dtype=np.int64)
+    w = np.asarray(w, dtype=np.float64)
+    off = (i != j)
+    rows = np.concatenate([i, j[off], np.arange(n)])
+    cols = np.concatenate([j, i[off], np.arange(n)])
+    vals = np.concatenate([w, w[off], np.ones(n)])
+    # collapse duplicates
+    key = cols * (n + 1) + rows
+    order = np.argsort(key, kind='stable')
+    key, rows, vals = key[order], rows[order], vals[order]
+    uk, start = np.unique(key, return_index=True)
+    seg = np.add.reduceat(vals, start) if len(vals) else vals[:0]
+    rows = rows[start]
+    cols = (uk // (n + 1)).astype(np.int64)
+
+    # column L1 normalization
+    colsum = np.zeros(n, dtype=np.float64)
+    np.add.at(colsum, cols, seg)
+    seg = seg / np.where(colsum[cols] > 0, colsum[cols], 1.0)
+
+    counts = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(counts, cols, 1)
+    overflow = int((counts > K).sum())
+    if overflow:
+        logger.info('sparse MCL: %d/%d columns exceed K=%d entries; '
+                    'keeping the K largest per column', overflow, n, K)
+    col_start = np.zeros(n + 2, dtype=np.int64)
+    np.cumsum(counts, out=col_start[1:])
+
+    # per-column top-K (vectorized): rank entries by value within column
+    order2 = np.lexsort((-seg, cols))
+    c2, r2, v2 = cols[order2], rows[order2], seg[order2]
+    rank = np.arange(len(c2)) - col_start[c2]
+    keep = rank < K
+    c2, r2, v2 = c2[keep], r2[keep], v2[keep]
+    if overflow:
+        ksum = np.zeros(n, dtype=np.float64)
+        np.add.at(ksum, c2, v2)
+        ov = counts[c2] > K
+        v2 = np.where(ov, v2 / np.where(ksum[c2] > 0, ksum[c2], 1.0), v2)
+
+    # place in ascending row order per column
+    order3 = np.lexsort((r2, c2))
+    c3, r3, v3 = c2[order3], r2[order3], v2[order3]
+    kept_counts = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(kept_counts, c3, 1)
+    kept_start = np.zeros(n + 2, dtype=np.int64)
+    np.cumsum(kept_counts, out=kept_start[1:])
+    slot = np.arange(len(c3)) - kept_start[c3]
+
+    idx = np.full((n + 1, K), n, dtype=np.int32)
+    val = np.zeros((n + 1, K), dtype=np.float32)
+    idx[c3, slot] = r3
+    val[c3, slot] = v3
+    return idx, val, overflow
+
+
+@dataclass
+class SparseMCLResult:
+    idx: np.ndarray          # (B, n+1, K)
+    val: np.ndarray
+    n: int
+    n_iters: np.ndarray      # (B,)
+    converged: np.ndarray    # (B,)
+    K: int = 0               # top-K cap used (selection pruning width)
+    overflow_cols: int = 0   # columns of the INPUT matrix wider than K
+    # per inflation batch: its size and the K of each shrink level
+    batches: List[int] = field(default_factory=list)
+    k_steps: List[List[int]] = field(default_factory=list)
+    sweep_s: float = 0.0     # wall seconds on the card, results fetched
+
+    def csr(self, b: int):
+        """Final matrix of inflation b as scipy CSR (rows x cols)."""
+        from scipy.sparse import coo_matrix
+        idx = self.idx[b, :self.n].ravel()
+        cols = np.repeat(np.arange(self.n), self.idx.shape[-1])
+        vals = self.val[b, :self.n].ravel()
+        keep = (idx < self.n) & (vals > 0)
+        return coo_matrix((vals[keep], (idx[keep], cols[keep])),
+                          shape=(self.n, self.n)).tocsr()
+
+    def interpret(self, b: int) -> Optional[list]:
+        """Cluster extraction, parity with the dense interpret_result
+        (scripts/HapHiC_cluster.py:2065-2095)."""
+        csr = self.csr(b)
+        m = self.n
+        diag = csr.diagonal() != 0
+        attractors = np.nonzero(diag)[0]
+        clusters = set()
+        for a in attractors:
+            row = csr.getrow(a)
+            clusters.add(tuple(np.sort(row.indices[row.data != 0]).tolist()))
+        seen = set()
+        for cluster in clusters:
+            for node in cluster:
+                if node in seen:
+                    return None
+                seen.add(node)
+        if len(seen) != m:
+            return None
+        return sorted(clusters)
+
+
+def _auto_chunk(B: int, K: int, n: int, budget_bytes: int = 2 << 30) -> int:
+    # candidate idx+val per column; the port's sorts add int64 indices,
+    # so a candidate costs it 2-3x this (PERF.md): chunking does not
+    # change results, and the budget changes only on a card measurement
+    per_col = B * K * K * 8
+    c = max(1, budget_bytes // max(per_col, 1))
+    # never pad columns beyond the next power of two over the real count
+    n_cap = 1 << max(3, (n + 1 - 1).bit_length())
+    return int(min(2048, n_cap, max(8, 1 << (int(c).bit_length() - 1))))
+
+
+def run_mcl_sparse(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
+                   inflations: Sequence[float], K: int = DEFAULT_K,
+                   expansion: int = 2, max_iter: int = 200,
+                   pruning: float = 1e-4, device=None) -> SparseMCLResult:
+    """Sparse MCL inflation sweep over a symmetric COO link matrix, on
+    ``device`` ("cuda" by default; raises without a card).
+
+    ``K`` bounds the per-column support (selection pruning). With
+    K ≥ max column support of every iterate the result is exact; smaller
+    K approximates (validated against the dense path in tests)."""
+    dev = resolve_device(device)
+    t0 = time.time()
+    if K > n:
+        K = max(1, n)
+    infl = np.asarray(inflations, dtype=np.float32)
+    B = len(infl)
+    idx0, val0, overflow_cols = coo_to_ell(i, j, w, n, K)
+
+    # Small independent inflation batches beat one lockstep batch:
+    # every iteration costs O(batch · n · K²), and a batch stops as
+    # soon as ITS inflations converge. The K shrink is taken over a
+    # batch, so the grouping is the JAX package's.
+    per = 4 * (n + 1) * K * 8
+    inflation_batch = max(1, min(B, 4, int((6 << 30) // max(per, 1))))
+    chunk = _auto_chunk(inflation_batch, K, n)
+
+    base_i = torch.as_tensor(idx0, device=dev)
+    base_v = torch.as_tensor(val0, device=dev)
+    cur_i, cur_v = base_i, base_v
+    for _ in range(expansion - 1):
+        cur_i, cur_v = _pre_expand(base_i, base_v, cur_i, cur_v, n, K,
+                                   chunk)
+    infl_t = torch.as_tensor(infl, device=dev)
+
+    out_idx = np.empty((B, n + 1, K), dtype=np.int32)
+    out_val = np.empty((B, n + 1, K), dtype=np.float32)
+    iters = np.empty((B,), dtype=np.int32)
+    conv = np.empty((B,), dtype=bool)
+    batches, k_steps = [], []
+    for s in range(0, B, inflation_batch):
+        e = min(B, s + inflation_batch)
+        (out_idx[s:e], out_val[s:e], iters[s:e], conv[s:e],
+         ks) = _run_sweep_batch(cur_i, cur_v, infl_t[s:e], n, K, chunk,
+                                max_iter, pruning, expansion)
+        batches.append(e - s)
+        k_steps.append(ks)
+    return SparseMCLResult(idx=out_idx, val=out_val, n=n, n_iters=iters,
+                           converged=conv, K=K,
+                           overflow_cols=overflow_cols, batches=batches,
+                           k_steps=k_steps, sweep_s=time.time() - t0)

@@ -3,8 +3,9 @@
 Port of haphic_tpu/cluster/sweep.py. Mirrors run_mcl_clustering /
 get_main_groups / recommend_inflation
 (scripts/HapHiC_cluster.py:2098-2242) but:
-  * all inflations execute batched on the card
-    (haphic_tpu_torch.cluster.mcl);
+  * all inflations execute batched on the card, on the dense engine
+    (haphic_tpu_torch.cluster.mcl) or, from SPARSE_MIN_N fragments on,
+    the sparse top-K engine (haphic_tpu_torch.cluster.sparse_mcl);
   * the recommended inflation is *returned as a value* instead of being
     regex-scraped from a log file (reference design wart,
     scripts/HapHiC_pipeline.py:382-401) — the log line is still emitted
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from dataclasses import dataclass
 from decimal import Decimal
 from typing import Dict, List, Optional, Tuple
@@ -22,8 +24,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from haphic_tpu_torch.cluster import mcl as mcl_mod
+from haphic_tpu_torch.cluster import sparse_mcl as sp
 from haphic_tpu_torch.core.contacts import COO
 from haphic_tpu_torch.core.fragments import Fragments
+from haphic_tpu_torch.runtime import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -203,12 +207,69 @@ def build_adjacency_coo(flank: COO, filtered_ids: np.ndarray, n_frag: int
     return lo, hi, w, filtered_ids
 
 
-# Above this fragment count the JAX package switches to its sparse
-# top-K ELL engine. The value and its environment variable follow the
-# JAX package so that the port routes work the same way; the sparse
-# engine itself is not ported yet (ROADMAP.md, queue item "sparse ELL
-# MCL"), so such inputs raise.
+# From this fragment count on, the sweep runs on the sparse top-K ELL
+# engine (cluster/sparse_mcl.py), whose memory is O(n·K) where the
+# dense sweep's is O(n²). The value and its environment variable follow
+# the JAX package so that the port routes work the same way; they change
+# only on H100 measurements (PERF.md).
 SPARSE_MIN_N = int(os.environ.get('HAPHIC_SPARSE_MCL_MIN_N', 20000))
+
+
+def _write_sparse_info(path: str, m: int, res, inflations) -> None:
+    """sparse_mcl_info.txt: the engine's parameters next to the cluster
+    files (byte format of the JAX package)."""
+    with open(path, 'w') as f:
+        f.write('# sparse top-K MCL engine parameters\n')
+        f.write('n_fragments\t{}\n'.format(m))
+        f.write('K\t{}\n'.format(res.K))
+        f.write('input_columns_over_K\t{}\n'.format(res.overflow_cols))
+        f.write('exact\t{}\n'.format(
+            'no (selection pruning active)' if res.overflow_cols
+            else 'yes'))
+        for b, inf_ in enumerate(inflations):
+            f.write('inflation_{}\titerations={}\tconverged={}\n'.format(
+                inf_, int(res.n_iters[b]), bool(res.converged[b])))
+
+
+def _sparse_partitions(flank: COO, filtered_ids: np.ndarray,
+                       frags: Fragments, inflations, expansion: int,
+                       max_iter: int, pruning: float, sparse_K: int,
+                       outdir: str, write_files: bool, device):
+    """The sweep on the sparse top-K engine: per-inflation partitions
+    and the fragment ids of their rows."""
+    dev = resolve_device(device)
+    m = len(np.asarray(filtered_ids))
+    ci, cj, cw, frag_ids = build_adjacency_coo(flank, filtered_ids,
+                                               len(frags))
+    res = sp.run_mcl_sparse(ci, cj, cw, m, [float(i) for i in inflations],
+                            K=sparse_K or sp.DEFAULT_K, expansion=expansion,
+                            max_iter=max_iter, pruning=pruning, device=dev)
+    t0 = time.time()
+    partitions = [res.interpret(b) for b in range(len(inflations))]
+    interpret_s = time.time() - t0
+    # selection pruning caps every column at K entries: surface the
+    # approximation (exact iff no input column exceeded K) in the log
+    # AND as a durable artifact next to the cluster files
+    logger.info('Sparse MCL: top-K selection pruning with K=%d '
+                '(%d/%d input columns wider than K -> %s); '
+                '%d/%d inflations converged in %s iterations',
+                res.K, res.overflow_cols, m,
+                'approximate' if res.overflow_cols else 'exact',
+                int(res.converged.sum()), len(inflations),
+                res.n_iters.tolist(),
+                extra={'metrics': {'mcl_route': dev.type,
+                                   'mcl_engine': 'sparse', 'n': m,
+                                   'K': res.K,
+                                   'overflow_cols': res.overflow_cols,
+                                   'batches': res.batches,
+                                   'n_iters': res.n_iters.tolist(),
+                                   'k_steps': res.k_steps,
+                                   'sweep_s': res.sweep_s,
+                                   'interpret_s': interpret_s}})
+    if write_files:
+        _write_sparse_info(os.path.join(outdir, 'sparse_mcl_info.txt'), m,
+                           res, inflations)
+    return partitions, frag_ids
 
 
 def run_clustering(flank: COO, filtered_ids: np.ndarray, frags: Fragments,
@@ -221,28 +282,30 @@ def run_clustering(flank: COO, filtered_ids: np.ndarray, frags: Fragments,
     """Full clustering stage: adjacency → batched MCL sweep → cluster
     files + inflation recommendation.
 
-    ``mcl_backend``: 'dense' | 'auto'. The sparse engine ('sparse', or
-    'auto' from SPARSE_MIN_N fragments) is not ported yet and raises
-    NotImplementedError."""
+    ``mcl_backend``: 'dense' | 'sparse' | 'auto' (sparse from
+    SPARSE_MIN_N / HAPHIC_SPARSE_MCL_MIN_N fragments on). Both engines
+    run on ``device``."""
     inflations = inflation_values(min_inflation, max_inflation, inflation_step)
     m = len(np.asarray(filtered_ids))
     use_sparse = mcl_backend == 'sparse' or (
         mcl_backend == 'auto' and m >= SPARSE_MIN_N)
-    if use_sparse:
-        raise NotImplementedError(
-            'the sparse top-K MCL engine (n={} fragments, SPARSE_MIN_N={}) '
-            'is not ported yet: ROADMAP.md queue item "sparse ELL MCL '
-            '(sparse_mcl.py)"'.format(m, SPARSE_MIN_N))
     logger.info('Performing Markov clustering (n=%d fragments, %d '
-                'inflations, batched, dense)...', m, len(inflations))
-    # links go to the device as an O(nnz) COO list and are densified
-    # there; only the nonzero pattern of each result comes back
-    ci, cj, cw, frag_ids = build_adjacency_coo(flank, filtered_ids,
-                                               len(frags))
-    partitions, _, _ = mcl_mod.run_mcl_partitions(
-        None, [float(i) for i in inflations], expansion=expansion,
-        max_iter=max_iter, pruning=pruning,
-        coo=(ci, cj, cw, len(frag_ids)), device=device)
+                'inflations, batched, %s)...', m, len(inflations),
+                'sparse top-K' if use_sparse else 'dense')
+    if use_sparse:
+        partitions, frag_ids = _sparse_partitions(
+            flank, filtered_ids, frags, inflations, expansion, max_iter,
+            pruning, sparse_K, outdir, write_files, device)
+    else:
+        # links go to the device as an O(nnz) COO list and are densified
+        # there; only the nonzero pattern of each result comes back
+        ci, cj, cw, frag_ids = build_adjacency_coo(flank, filtered_ids,
+                                                   len(frags))
+        partitions, _, _ = mcl_mod.run_mcl_partitions(
+            None, [float(i) for i in inflations], expansion=expansion,
+            max_iter=max_iter, pruning=pruning,
+            coo=(ci, cj, cw, len(frag_ids)), device=device)
+    map_s = files_s = 0.0
     cluster_sets: List[ClusterSet] = []
     for b, inflation in enumerate(inflations):
         idx_clusters = partitions[b]
@@ -250,12 +313,22 @@ def run_clustering(flank: COO, filtered_ids: np.ndarray, frags: Fragments,
             logger.info('Some fragments are missing / redundant, result of '
                         'inflation %s will NOT be output', inflation)
             continue
+        t0 = time.time()
         clusters = _clusters_to_ctgs(idx_clusters, frag_ids, frags)
         cs = ClusterSet(inflation=inflation, clusters=clusters)
         cluster_sets.append(cs)
+        t1 = time.time()
         if write_files:
             write_cluster_files(cs, frags.asm, outdir)
-
+        map_s += t1 - t0
+        files_s += time.time() - t1
+    # host seconds after the sweep: fragments to contigs, cluster files
+    logger.info('Cluster sets of %d inflations in %.1fs, their files in '
+                '%.1fs', len(cluster_sets), map_s, files_s,
+                extra={'metrics': {
+                    'cluster_map_s': map_s, 'cluster_files_s': files_s,
+                    'clusters_per_inflation': [len(cs.clusters)
+                                               for cs in cluster_sets]}})
     rcm, ratio = recommend_inflation(cluster_sets, nchrs)
     return SweepResult(cluster_sets=cluster_sets, mcl_nrounds=len(inflations),
                        recommended_inflation=rcm, recommendation_len_ratio=ratio)

@@ -1,8 +1,9 @@
 """End-to-end pipeline driver: cluster → reassign → sort → build.
 
-Port of haphic_tpu/pipeline.py. The MCL sweep and the GA run on
+Port of haphic_tpu/pipeline.py. The MCL sweep (dense, or sparse top-K
+from SPARSE_MIN_N fragments on) and the GA run on
 ``PipelineConfig.device`` ("cuda" by default); the other stages are the
-same host code. Not in this slice, and raising NotImplementedError with
+same host code. Not ported yet, and raising NotImplementedError with
 the ROADMAP.md item that ports them: assembly correction, allelic and
 concentrated link pruning, UL reads, GFA input, and mesh sharding.
 
@@ -239,10 +240,13 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
     clm_err: List[BaseException] = []
 
     def _write_clm_bg():
+        t_clm = time.time()
         try:
             write_clm(links.clm, asm.names, clm_path, min_read_pairs=2)
         except BaseException as e:     # re-raised at join
             clm_err.append(e)
+        # its seconds overlap the filters and the MCL phase below
+        timings['clm_write'] = time.time() - t_clm
 
     import threading
     clm_thread = threading.Thread(target=_write_clm_bg, daemon=True)
