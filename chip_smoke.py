@@ -60,7 +60,28 @@ Phases, each printing one JSON line:
              events, its peak card memory, and its device time from
              torch.profiler split by op and by kernel, each with its
              share.
-6. kernels   one line listing every kernel (the line before the last).
+6. polyploid_pipeline
+             the pipeline phase's genome made tetraploid
+             (make_polyploid_sim: chr1-4 and chr5-8 are the haplotypes
+             of two chromosomes, allelic Hi-C pairs between them, four
+             GFAs, a UL BAM) with --remove_allelic_links 4
+             --remove_concentrated_links --gfa --ul and the same flags
+             and cut: allelic pairs removed (through the clique search
+             at ploidy 4), UL paths found, the MCL and the GA with both
+             kernels on the card (launch counts as above), the 8
+             chromosomes recovered. Prints the allelic and non-max
+             pairs, allele groups, UL paths, stage and wall seconds,
+             peak card memory.
+7. correct_pipeline
+             the pipeline phase's genome with 40 chimeric contigs
+             (make_chimera_sim) and --correct_nrounds 2: at least 36
+             chimeras broken (corrected_ctgs.txt), the MCL and the GA
+             on the card as above, the 8 chromosomes recovered with
+             each corrected fragment counted with the contig most of it
+             lies in. Prints the chimeras broken, correct_s (the
+             correction pass, inside cluster_s.parse), stage and wall
+             seconds, peak card memory.
+8. kernels   one line listing every kernel (the line before the last).
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
@@ -70,9 +91,11 @@ package is missing, or when any phase fails.
 import json
 import logging
 import os
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 
@@ -86,6 +109,19 @@ SIM = dict(nchrs=8, ctgs_per_chr=1000, ctg_len=20000, n_pairs=2_000_000,
 SPARSE_SIM = dict(nchrs=24, ctgs_per_chr=1000, ctg_len=20000,
                   n_pairs=6_000_000, seed=17)
 NGEN = 500
+# polyploid_pipeline: the tetraploid genome's own draws (make_polyploid_sim)
+POLY_SEED = 18
+POLY_ALLELIC = 25        # Hi-C pairs per allelic contig pair
+POLY_OFFSET = 100        # allelic pairs at (x, x + [0, POLY_OFFSET))
+POLY_FIFTH = 100         # every 100th index: a clique of five
+UL_EVERY = 10            # UL reads span one in ten junctions
+UL_READS = 3             # reads per junction
+UL_ALN = 12000           # aligned bases on each side of a junction
+# correct_pipeline
+CHIMERA_SEED = 19
+CHIMERAS = 40
+CORRECT_NROUNDS = 2
+MIN_BROKEN = 36          # chimeras that must be broken
 STEP_REPS = 3            # timed sparse sweep steps
 TOP_OPS = 12             # ops and kernels listed for the sparse step
 SIM_FLAGS = ['--Nx', '100', '--RE_site_cutoff', '0',
@@ -129,23 +165,17 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_sim(outdir, nchrs, ctgs_per_chr, ctg_len, n_pairs, seed):
-    """Simulated assembly + pairs file: bench.py's make_sim generator
-    (same draws in the same order), written with plain string joins."""
-    os.makedirs(outdir, exist_ok=True)
+def sim_draws(nchrs, ctgs_per_chr, ctg_len, n_pairs, seed):
+    """bench.py's make_sim draws, in its order: the contig names and
+    sequences, then each pair's two contigs (0-based ids) and 1-based
+    positions."""
     rng = np.random.default_rng(seed)
     cpc, L = ctgs_per_chr, ctg_len
     n = nchrs * cpc
     names = ['chr{}_ctg{}'.format(c + 1, i + 1)
              for c in range(nchrs) for i in range(cpc)]
-    fa = os.path.join(outdir, 'asm.fa')
     bases = np.frombuffer(b'ACGT', dtype=np.uint8)
-    with open(fa, 'wb') as f:
-        for name in names:
-            seq = bases[rng.integers(0, 4, L)].tobytes()
-            f.write(b'>' + name.encode() + b'\n')
-            f.write(b'\n'.join(seq[s:s + 70] for s in range(0, L, 70)))
-            f.write(b'\n')
+    seqs = [bases[rng.integers(0, 4, L)].tobytes() for _ in names]
     chrom = rng.integers(0, nchrs, n_pairs)
     i1 = rng.integers(0, cpc, n_pairs)
     off = np.rint(rng.normal(0, 1.2, n_pairs)).astype(np.int64)
@@ -155,6 +185,18 @@ def make_sim(outdir, nchrs, ctgs_per_chr, ctg_len, n_pairs, seed):
     b = np.where(noise, rng.integers(0, n, n_pairs), chrom * cpc + i2)
     pa = rng.integers(1, L + 1, n_pairs)
     pb = rng.integers(1, L + 1, n_pairs)
+    return names, seqs, a, pa, b, pb
+
+
+def write_sim(outdir, names, seqs, a, pa, b, pb):
+    """asm.fa and hic.pairs, written with plain string joins."""
+    os.makedirs(outdir, exist_ok=True)
+    fa = os.path.join(outdir, 'asm.fa')
+    with open(fa, 'wb') as f:
+        for name, seq in zip(names, seqs):
+            f.write(b'>' + name.encode() + b'\n')
+            f.write(b'\n'.join(seq[s:s + 70] for s in range(0, len(seq), 70)))
+            f.write(b'\n')
     pairs = os.path.join(outdir, 'hic.pairs')
     with open(pairs, 'w') as f:
         f.write('## pairs format v1.0\n')
@@ -164,21 +206,169 @@ def make_sim(outdir, nchrs, ctgs_per_chr, ctg_len, n_pairs, seed):
     return fa, pairs
 
 
-def check_partition(agp: str, nchrs: int) -> dict:
+def make_sim(outdir, **sim):
+    """The simulated assembly and pairs file of bench.py's make_sim (same
+    draws in the same order); no extra flags."""
+    return write_sim(outdir, *sim_draws(**sim)) + ([],)
+
+
+def make_polyploid_sim(outdir, **sim):
+    """A tetraploid version of make_sim's genome: chr1-4 are the four
+    haplotypes of one chromosome and chr5-8 those of another. Drawn from
+    POLY_SEED after the base draws: at every contig index the contigs of
+    a haplotype set share POLY_ALLELIC Hi-C pairs at concordant
+    positions (x, x + [0, POLY_OFFSET)), and at every POLY_FIFTH-th
+    index chr5's contig shares them with chr1-4's as well (a clique of
+    five, which the allelic step splits). Beside it one GFA per
+    haplotype (haplotype h holds chr h and chr h+4) with read depths
+    (none high enough for the depth filter to drop), and a UL
+    BAM whose reads span every UL_EVERY-th junction of adjacent contigs.
+    Returns the files and the pipeline flags that use them."""
+    names, seqs, a, pa, b, pb = sim_draws(**sim)
+    nchrs, cpc, L = sim['nchrs'], sim['ctgs_per_chr'], sim['ctg_len']
+    rng = np.random.default_rng(POLY_SEED)
+    idx = np.arange(cpc)
+    sets = (range(0, nchrs // 2), range(nchrs // 2, nchrs))
+    ca = [h1 * cpc + idx for s in sets for h1 in s for h2 in s if h1 < h2]
+    cb = [h2 * cpc + idx for s in sets for h1 in s for h2 in s if h1 < h2]
+    fifth = np.arange(POLY_FIFTH // 2, cpc, POLY_FIFTH)
+    ca += [h * cpc + fifth for h in sets[0]]
+    cb += [sets[1][0] * cpc + fifth for _ in sets[0]]
+    xa = np.repeat(np.concatenate(ca), POLY_ALLELIC)
+    xb = np.repeat(np.concatenate(cb), POLY_ALLELIC)
+    x = rng.integers(1, L - POLY_OFFSET + 1, len(xa))
+    y = x + rng.integers(0, POLY_OFFSET, len(xa))
+    fa, pairs = write_sim(outdir, names, seqs, np.concatenate((a, xa)),
+                          np.concatenate((pa, x)), np.concatenate((b, xb)),
+                          np.concatenate((pb, y)))
+    depth = rng.integers(25, 36, len(names))
+    gfas = []
+    for h in sets[0]:
+        gfas.append(os.path.join(outdir, 'h{}.gfa'.format(h + 1)))
+        with open(gfas[-1], 'w') as f:
+            for c in range(len(names)):
+                if c // cpc in (h, h + nchrs // 2):
+                    f.write('S\t{}\t*\tLN:i:{}\trd:i:{}\n'.format(
+                        names[c], L, depth[c]))
+    ul = os.path.join(outdir, 'ul.bam')
+    junctions = [(c * cpc + i, c * cpc + i + 1) for c in range(nchrs)
+                 for i in range(0, cpc - 1, UL_EVERY)]
+    write_ul_bam(ul, names, L, junctions)
+    return fa, pairs, ['--remove_allelic_links', str(len(sets[0])),
+                       '--remove_concentrated_links', '--gfa',
+                       ','.join(gfas), '--ul', ul]
+
+
+def _bgzf_block(payload: bytes) -> bytes:
+    comp = zlib.compressobj(6, zlib.DEFLATED, -15)
+    cdata = comp.compress(payload) + comp.flush()
+    return (b'\x1f\x8b\x08\x04' + b'\x00' * 6 + struct.pack('<H', 6)
+            + b'BC' + struct.pack('<HH', 2, len(cdata) + 25) + cdata
+            + struct.pack('<II', zlib.crc32(payload), len(payload)))
+
+
+def _bam_record(refid, pos, flag, name, cigar, score):
+    """One mapped BAM record (MAPQ 60, no mate, no sequence) with an AS
+    tag; ``cigar`` is [(op index, length)] in BAM's op numbering."""
+    cig = b''.join(struct.pack('<I', (ln << 4) | op) for op, ln in cigar)
+    body = struct.pack('<iiBBHHHIiii', refid, pos, len(name) + 1, 60, 0,
+                       len(cigar), flag, 0, -1, -1, 0)
+    body += name + b'\x00' + cig + b'ASi' + struct.pack('<i', score)
+    return struct.pack('<I', len(body)) + body
+
+
+def write_ul_bam(path, names, ctg_len, junctions):
+    """A BAM of UL_READS reads for each junction (a, b): a primary
+    record on a's tail (UL_ALN bases, then a soft clip) and a
+    supplementary on b's head, both forward."""
+    M, S = 0, 4
+    recs = []
+    for a, b in junctions:
+        for r in range(UL_READS):
+            name = 'ul_{}_{}_{}'.format(a, b, r).encode()
+            recs.append(_bam_record(a, ctg_len - UL_ALN, 0, name,
+                                    [(M, UL_ALN), (S, UL_ALN)], 1000))
+            recs.append(_bam_record(b, 0, 0x800, name,
+                                    [(S, UL_ALN), (M, UL_ALN)], 900))
+    text = b'@HD\tVN:1.6\tSO:unknown\n'
+    hdr = b'BAM\x01' + struct.pack('<I', len(text)) + text
+    hdr += struct.pack('<I', len(names))
+    for n in names:
+        hdr += struct.pack('<I', len(n) + 1) + n.encode() + b'\x00'
+        hdr += struct.pack('<I', ctg_len)
+    payload = hdr + b''.join(recs)
+    with open(path, 'wb') as f:
+        for i in range(0, len(payload), 60000):
+            f.write(_bgzf_block(payload[i:i + 60000]))
+        f.write(_bgzf_block(b''))         # the BGZF end-of-file block
+
+
+def make_chimera_sim(outdir, **sim):
+    """make_sim's genome with CHIMERAS chimeric contigs: each joins a
+    contig of one chromosome to one of another (picked from
+    CHIMERA_SEED after the base draws) under the name chimK. The pairs
+    are drawn on the original contigs, then their coordinates are
+    shifted into the chimera. Returns the files, the pipeline flags, and
+    the chimeras as {name: (left contig, right contig)}."""
+    names, seqs, a, pa, b, pb = sim_draws(**sim)
+    cpc, L = sim['ctgs_per_chr'], sim['ctg_len']
+    rng = np.random.default_rng(CHIMERA_SEED)
+    chims, pending = [], None
+    for c in rng.permutation(len(names)).tolist():
+        if pending is None:
+            pending = c
+        elif pending // cpc != c // cpc:
+            chims.append((pending, c))
+            pending = None
+        if len(chims) == CHIMERAS:
+            break
+    left = {l: k for k, (l, _) in enumerate(chims)}
+    right = {r for _, r in chims}
+    new_of = np.zeros(len(names), np.int64)
+    shift = np.zeros(len(names), np.int64)
+    new_names, new_seqs, table = [], [], {}
+    for c in range(len(names)):
+        if c in right:
+            continue
+        new_of[c] = len(new_names)
+        if c in left:
+            r = chims[left[c]][1]
+            new_of[r], shift[r] = len(new_names), L
+            new_names.append('chim{}'.format(left[c] + 1))
+            new_seqs.append(seqs[c] + seqs[r])
+            table[new_names[-1]] = (names[c], names[r])
+        else:
+            new_names.append(names[c])
+            new_seqs.append(seqs[c])
+    fa, pairs = write_sim(outdir, new_names, new_seqs, new_of[a],
+                          pa + shift[a], new_of[b], pb + shift[b])
+    return fa, pairs, ['--correct_nrounds', str(CORRECT_NROUNDS)], table
+
+
+def chrom_of_name(name):
+    """The simulated chromosome of a contig name (chrX_ctgI)."""
+    return name.split('_')[0]
+
+
+def check_partition(agp: str, nchrs: int, chrom_of=chrom_of_name) -> dict:
     """The scaffolds recover the simulated chromosomes as a partition:
     every scaffold holds contigs of one chromosome, and each chromosome
-    lies in exactly one scaffold."""
+    lies in exactly one scaffold. Components whose ``chrom_of`` is None
+    (unbroken chimeras) are left out and counted."""
     scaffolds = {}
     with open(agp) as f:
         for line in f:
             cols = line.rstrip('\n').split('\t')
             if len(cols) >= 9 and cols[4] == 'W':
                 scaffolds.setdefault(cols[0], []).append(cols[5])
-    chrom_of_scaffold = {}
+    chrom_of_scaffold, unknown = {}, 0
     for s, ctgs in scaffolds.items():
-        chroms = {c.split('_')[0] for c in ctgs}
-        check(len(chroms) == 1, 'scaffold {} mixes {}'.format(s, chroms))
-        chrom_of_scaffold[s] = chroms.pop()
+        chroms = {chrom_of(c) for c in ctgs}
+        unknown += sum(chrom_of(c) is None for c in ctgs)
+        chroms.discard(None)
+        check(len(chroms) <= 1, 'scaffold {} mixes {}'.format(s, chroms))
+        if chroms:
+            chrom_of_scaffold[s] = chroms.pop()
     per_chrom = {}
     for s, c in chrom_of_scaffold.items():
         per_chrom.setdefault(c, []).append(s)
@@ -186,8 +376,11 @@ def check_partition(agp: str, nchrs: int) -> dict:
           'chromosomes found: {}'.format(sorted(per_chrom)))
     split = {c: v for c, v in per_chrom.items() if len(v) != 1}
     check(not split, 'chromosomes split over scaffolds: {}'.format(split))
-    return {'scaffolds': len(scaffolds),
-            'contigs_placed': sum(len(v) for v in scaffolds.values())}
+    out = {'scaffolds': len(scaffolds),
+           'contigs_placed': sum(len(v) for v in scaffolds.values())}
+    if unknown:
+        out['components_left_out'] = unknown
+    return out
 
 
 class MetricsLog(logging.Handler):
@@ -219,16 +412,17 @@ def phase_env(torch, kbuild):
 
 
 def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
-                    engine):
-    """make_sim, then `cli.main(["pipeline", ...])` on the card with the
-    kernel launch counts set to 0 just before and read just after. The
-    MCL sweep must run on the card on ``engine``, the GA on the card
-    with both kernels, one delta_generation launch per delta generation
-    the GA reports, and the scaffolds must recover the simulated
-    chromosomes. Returns (sim seconds, wall seconds, metrics, launches,
-    partition summary)."""
+                    engine, genome=make_sim, chrom_of=chrom_of_name):
+    """``genome`` (make_sim), then `cli.main(["pipeline", ...])` on the
+    card with the flags it returns and the kernel launch counts set to 0
+    just before and read just after. The MCL sweep must run on the card
+    on ``engine``, the GA on the card with both kernels, one
+    delta_generation launch per delta generation the GA reports, and the
+    scaffolds must recover the simulated chromosomes. Returns (sim
+    seconds, wall seconds, metrics, launches, partition summary, output
+    directory)."""
     t0 = time.time()
-    fa, pairs = make_sim(os.path.join(WORK, sim_dir), **sim)
+    fa, pairs, flags = genome(os.path.join(WORK, sim_dir), **sim)
     sim_s = time.time() - t0
     out = os.path.join(WORK, out_dir)
     log = MetricsLog()
@@ -238,7 +432,7 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     kdelta.delta_generation.launches = 0
     t0 = time.time()
     rc = cli.main(['pipeline', fa, pairs, str(sim['nchrs']), '--outdir',
-                   out, '--ngen', str(NGEN)] + SIM_FLAGS)
+                   out, '--ngen', str(NGEN)] + SIM_FLAGS + flags)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {'score_population': kscore.score_population.launches,
@@ -262,28 +456,104 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
           .format(launches['delta_generation'], want))
     agp = os.path.join(out, '04.build', 'scaffolds.agp')
     check(os.path.exists(agp), 'no {}'.format(agp))
-    part = check_partition(agp, sim['nchrs'])
-    return sim_s, wall, m, launches, part
+    part = check_partition(agp, sim['nchrs'], chrom_of)
+    return sim_s, wall, m, launches, part, out
+
+
+def _run_line(torch, m, sim_s, wall, launches, part):
+    """The keys every pipeline phase line ends with."""
+    return {'sim_s': sim_s, 'cut': {'ngen': [5000, NGEN]}, 'n': m['n'][-1],
+            'mcl_engine': m['mcl_engine'][-1],
+            'mcl_route': m['mcl_route'][-1],
+            'cluster_map_s': m['cluster_map_s'][-1],
+            'cluster_files_s': m['cluster_files_s'][-1],
+            'ga_route': m['ga_route'][-1],
+            'ga_delta_gens': sum(m['ga_delta_gens']),
+            'stage_s': m['stage_secs'][-1],
+            'cluster_s': m['cluster_secs'][-1], 'ga_s': m['ga_secs'][-1],
+            'wall_s': wall,
+            'max_memory_allocated': torch.cuda.max_memory_allocated(),
+            'launches': launches, **part}
 
 
 def phase_pipeline(torch, cli, kscore, kdelta):
-    sim_s, wall, m, launches, part = _drive_pipeline(
+    sim_s, wall, m, launches, part, _ = _drive_pipeline(
         torch, cli, kscore, kdelta, SIM, 'sim', 'out', 'dense')
     batches = m['ga_batch']
-    emit({'phase': 'pipeline', 'sim': SIM, 'sim_s': sim_s,
-          'cut': {'ngen': [5000, NGEN]}, 'n': m['n'][-1],
-          'mcl_route': m['mcl_route'][-1], 'mcl_batches': m['batches'][-1],
+    emit({'phase': 'pipeline', 'sim': SIM, 'mcl_batches': m['batches'][-1],
           'mcl_iters_per_inflation': m['n_iters'][-1],
           'records_per_group': m['records'][-1],
-          'ga_work': m['ga_work'][-1], 'ga_route': m['ga_route'][-1],
-          'ga_batches': batches, 'ga_delta_gens': sum(m['ga_delta_gens']),
-          'stage_s': m['stage_secs'][-1],
-          'cluster_s': m['cluster_secs'][-1], 'ga_s': m['ga_secs'][-1],
-          'wall_s': wall,
-          'max_memory_allocated': torch.cuda.max_memory_allocated(),
-          'launches': launches, **part})
+          'ga_work': m['ga_work'][-1], 'ga_batches': batches,
+          **_run_line(torch, m, sim_s, wall, launches, part)})
     big = max(batches, key=lambda b: b['G'] * b['R_pad'])
     return launches, big
+
+
+def phase_polyploid_pipeline(torch, cli, kscore, kdelta):
+    """The tetraploid genome (make_polyploid_sim) with
+    --remove_allelic_links 4 --remove_concentrated_links --gfa (four
+    haplotypes) --ul: allelic pairs found and removed through the clique
+    search, the UL paths found, and the 8 chromosomes recovered with
+    the MCL and the GA on the card."""
+    sim_s, wall, m, launches, part, _ = _drive_pipeline(
+        torch, cli, kscore, kdelta, SIM, 'poly_sim', 'poly_out', 'dense',
+        genome=make_polyploid_sim)
+    allelic = m['allelic'][-1]
+    check(allelic['n_allelic_pairs'] > 0, 'no allelic pair was removed')
+    check(allelic['largest_allele_group'] == 4, 'allele groups of {} '
+          'contigs at ploidy 4'.format(allelic['largest_allele_group']))
+    check(m['ul_paths'][-1] > 0, 'no UL path was found')
+    emit({'phase': 'polyploid_pipeline', 'sim': SIM,
+          'genome': {'ploidy': 4, 'allelic_pairs_per_contig_pair':
+                     POLY_ALLELIC, 'fifth_every': POLY_FIFTH,
+                     'ul_every': UL_EVERY, 'ul_reads': UL_READS},
+          **allelic, 'ul_paths': m['ul_paths'][-1],
+          **_run_line(torch, m, sim_s, wall, launches, part)})
+
+
+def _chimera_chrom_of(table, ctg_len):
+    """chrom_of for the chimera genome's components: a corrected
+    fragment (name:start-end) takes the chromosome of the contig most of
+    it lies in; an unbroken chimera has none."""
+    def chrom_of(name):
+        raw, _, span = name.partition(':')
+        if raw not in table:
+            return chrom_of_name(raw)
+        if not span:
+            return None
+        s, e = (int(v) for v in span.split('-'))
+        in_left = max(0, min(e, ctg_len) - s + 1)
+        return chrom_of_name(table[raw][in_left * 2 < e - s + 1])
+    return chrom_of
+
+
+def phase_correct_pipeline(torch, cli, kscore, kdelta):
+    """make_sim's genome with CHIMERAS chimeric contigs and
+    --correct_nrounds 2: at least MIN_BROKEN chimeras broken (from
+    corrected_ctgs.txt), and the 8 chromosomes recovered with the MCL
+    and the GA on the card, each corrected fragment counted with the
+    contig most of it lies in."""
+    table = {}
+
+    def genome(outdir, **sim):
+        fa, pairs, flags, chims = make_chimera_sim(outdir, **sim)
+        table.update(chims)
+        return fa, pairs, flags
+
+    chrom_of = _chimera_chrom_of(table, SIM['ctg_len'])
+    sim_s, wall, m, launches, part, out = _drive_pipeline(
+        torch, cli, kscore, kdelta, SIM, 'chimera_sim', 'chimera_out',
+        'dense', genome=genome, chrom_of=chrom_of)
+    with open(os.path.join(out, '01.cluster', 'corrected_ctgs.txt')) as f:
+        broken = {line.split(':')[0] for line in f if line.strip()}
+    n_chims = len(broken & set(table))
+    check(n_chims >= MIN_BROKEN, '{} of {} chimeras broken'.format(
+        n_chims, len(table)))
+    emit({'phase': 'correct_pipeline', 'sim': SIM, 'chimeras': len(table),
+          'correct_nrounds': CORRECT_NROUNDS, 'chimeras_broken': n_chims,
+          'other_contigs_broken': len(broken) - n_chims,
+          'correct_s': m['cluster_secs'][-1]['correct'],
+          **_run_line(torch, m, sim_s, wall, launches, part)})
 
 
 def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
@@ -303,7 +573,7 @@ def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
 
     sp._sweep_step = recording
     try:
-        sim_s, wall, m, launches, part = _drive_pipeline(
+        sim_s, wall, m, launches, part, _ = _drive_pipeline(
             torch, cli, kscore, kdelta, SPARSE_SIM, 'sparse_sim',
             'sparse_out', 'sparse')
     finally:
@@ -311,25 +581,14 @@ def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
     check(first, 'the sparse engine ran no sweep step')
     check(m['n'][-1] >= sparse_min_n, 'n={} is below SPARSE_MIN_N={}'
           .format(m['n'][-1], sparse_min_n))
-    emit({'phase': 'sparse_pipeline', 'sim': SPARSE_SIM, 'sim_s': sim_s,
-          'cut': {'ngen': [5000, NGEN]}, 'n': m['n'][-1],
-          'mcl_engine': m['mcl_engine'][-1],
-          'mcl_route': m['mcl_route'][-1], 'K': m['K'][-1],
+    emit({'phase': 'sparse_pipeline', 'sim': SPARSE_SIM, 'K': m['K'][-1],
           'overflow_cols': m['overflow_cols'][-1],
           'mcl_batches': m['batches'][-1],
           'mcl_iters_per_inflation': m['n_iters'][-1],
           'k_steps_per_batch': m['k_steps'][-1],
           'sweep_s': m['sweep_s'][-1], 'interpret_s': m['interpret_s'][-1],
-          'cluster_map_s': m['cluster_map_s'][-1],
-          'cluster_files_s': m['cluster_files_s'][-1],
           'clusters_per_inflation': m['clusters_per_inflation'][-1],
-          'ga_route': m['ga_route'][-1],
-          'ga_delta_gens': sum(m['ga_delta_gens']),
-          'stage_s': m['stage_secs'][-1],
-          'cluster_s': m['cluster_secs'][-1], 'ga_s': m['ga_secs'][-1],
-          'wall_s': wall,
-          'max_memory_allocated': torch.cuda.max_memory_allocated(),
-          'launches': launches, **part})
+          **_run_line(torch, m, sim_s, wall, launches, part)})
     return first[0]
 
 
@@ -751,6 +1010,11 @@ def main() -> int:
     first_step = phase_sparse_pipeline(torch, cli, kscore, kdelta, sp,
                                        SPARSE_MIN_N)
     phase_sparse_step(torch, sp, first_step)
+    del first_step                # its tensors would count in the next peaks
+    torch.cuda.empty_cache()
+    phase_polyploid_pipeline(torch, cli, kscore, kdelta)
+    torch.cuda.empty_cache()
+    phase_correct_pipeline(torch, cli, kscore, kdelta)
     kernels = []
     for k in KERNELS:
         row = main_rows[k['name']]

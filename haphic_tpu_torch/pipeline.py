@@ -3,9 +3,10 @@
 Port of haphic_tpu/pipeline.py. The MCL sweep (dense, or sparse top-K
 from SPARSE_MIN_N fragments on) and the GA run on
 ``PipelineConfig.device`` ("cuda" by default); the other stages are the
-same host code. Not ported yet, and raising NotImplementedError with
-the ROADMAP.md item that ports them: assembly correction, allelic and
-concentrated link pruning, UL reads, GFA input, and mesh sharding.
+same host code, the flag-gated cluster steps included (assembly
+correction, GFA read depth and phasing, concentrated and allelic link
+pruning, UL reads), in haphic_tpu's order. Mesh sharding is not ported
+yet and raises NotImplementedError naming its ROADMAP.md item.
 
 The reference drives stages as subprocesses communicating through files
 and regexes the recommended inflation out of its own log
@@ -130,23 +131,9 @@ class PipelineConfig:
     steps: str = '1234'
 
 
-_NOT_PORTED = (
-    ('correct_nrounds', 'core/correct'),
-    ('remove_allelic_links', 'core/prune'),
-    ('remove_concentrated_links', 'core/prune'),
-    ('ul', 'core/ul'),
-    ('gfa', 'io/gfa'),
-)
-
-
 def check_slice(cfg: 'PipelineConfig') -> None:
-    """Raise NotImplementedError for options whose modules are not
-    ported yet (ROADMAP.md queue), before any work starts."""
-    for name, module in _NOT_PORTED:
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                '--{} needs {}, which is not ported yet: ROADMAP.md queue '
-                'item "flag-gated host modules"'.format(name, module))
+    """Raise NotImplementedError for mesh sharding, which is not ported
+    yet (ROADMAP.md queue), before any work starts."""
     if cfg.mesh is not None or cfg.use_mesh == 'on':
         raise NotImplementedError(
             'mesh sharding is not ported yet: ROADMAP.md queue item '
@@ -189,6 +176,15 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
         with open(cfg.whitelist) as f:
             whitelist = {l.split()[0] for l in f if l.strip()}
 
+    read_depth = None
+    hap_of = None
+    if cfg.gfa:
+        from haphic_tpu_torch.io.gfa import depth_arrays, read_gfas
+        depth = read_gfas(cfg.gfa.split(','), asm)
+        hap_of, read_depth = depth_arrays(depth, asm.names)
+
+    # assembly correction: extra alignment pass over the original
+    # contigs, then all later passes run against the broken fragments
     fmt = detect_format(alignments)
 
     def make_reader(names):
@@ -198,6 +194,39 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
         return BamReader(alignments, names)
 
     corrected_ctgs: List[str] = []
+    remapper = None
+    if cfg.correct_nrounds:
+        from haphic_tpu_torch.core.correct import correct_assembly
+        t_corr = time.time()
+        cres = correct_assembly(
+            asm, make_reader(asm.names), outdir,
+            correct_nrounds=cfg.correct_nrounds,
+            correct_resolution=cfg.correct_resolution,
+            median_cov_ratio=cfg.median_cov_ratio,
+            min_region_cutoff=cfg.min_region_cutoff,
+            region_len_ratio=cfg.region_len_ratio, RE=cfg.RE)
+        corrected_ctgs = cres.corrected_names
+        if cres.n_broken:
+            remapper = cres.remapper
+            asm = cres.asm
+        timings['correct'] = time.time() - t_corr
+
+    ul_paths: List = []
+    if cfg.ul:
+        from haphic_tpu_torch.core.ul import parse_ul_alignments, path_ctg_set
+        ul_paths = parse_ul_alignments(
+            cfg.ul, asm.names, asm.lengths,
+            min_ul_mapq=cfg.min_ul_mapq,
+            min_ul_alignment_length=cfg.min_ul_alignment_length,
+            max_distance_to_end=cfg.max_distance_to_end,
+            max_overlap_ratio=cfg.max_overlap_ratio,
+            max_gap_len=cfg.max_gap_len,
+            min_ul_support=cfg.min_ul_support)
+        ul_ctgs = path_ctg_set(ul_paths)
+        whitelist |= {asm.names[c] for c in ul_ctgs}
+        logger.info('%d UL paths over %d contigs', len(ul_paths),
+                    len(ul_ctgs), extra={'metrics': {
+                        'ul_paths': len(ul_paths)}})
 
     bin_size_kbp = 0 if cfg.quick_view else cfg.bin_size
     Nx = 100 if cfg.quick_view else cfg.Nx
@@ -209,16 +238,30 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
     timings['parse'] = time.time() - t0
 
     from haphic_tpu_torch.io.pairs import prefetch
-    reader = prefetch(make_reader(asm.names))
+    if remapper is not None:
+        base_reader = make_reader(remapper.old_names)
+        reader = prefetch(remapper.remap(c) for c in base_reader)
+    else:
+        reader = prefetch(make_reader(asm.names))
+    # quick view skips allelic/concentrated pruning
+    # (reference scripts/HapHiC_cluster.py:2779-2784)
+    remove_allelic = 0 if cfg.quick_view else cfg.remove_allelic_links
+    remove_concentrated = (False if cfg.quick_view
+                           else cfg.remove_concentrated_links)
     links = aggregate(reader, frags, flank_kbp=cfg.flank,
-                      need_coords=False,
+                      need_coords=bool(remove_allelic) or remove_concentrated,
                       max_read_pairs=cfg.max_read_pairs,
                       keep_clm=not cfg.quick_view,
-                      track_ctg_pair_to_frag=False)
+                      track_ctg_pair_to_frag=bool(remove_allelic)
+                      and frags.any_split)
     timings['ingest'] = time.time() - t0 - timings['parse']
     logger.info('Alignment pass done in %.1fs (%d contig pairs, %d '
                 'fragment pairs)', time.time() - t0, len(links.full.i),
                 len(links.flank.i))
+
+    if ul_paths:
+        from haphic_tpu_torch.core.ul import boost_ht_links
+        links.ht = boost_ht_links(ul_paths, links.ht, len(asm))
 
     # reference-format artifacts
     write_pickle(ht_link_dict(links, asm.names),
@@ -253,13 +296,18 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
     clm_thread.start()
 
     # ---- ordering parity with run() (scripts/HapHiC_cluster.py:2890-2935):
-    # normalize → filter → pickle (the concentrated, allelic and
-    # phasing steps are not in this slice, see check_slice)
+    # normalize → concentrated → filter → allelic → UL boost → phasing
+    # → pickle
     flank = links.flank
     full = links.full
     if cfg.normalize_by_nlinks:
         flank = normalize_by_nlinks(flank,
                                     links.frag_links.astype(np.float64))
+    if cfg.remove_concentrated_links:
+        from haphic_tpu_torch.core.prune import apply_concentration_adjustment
+        full = apply_concentration_adjustment(
+            full, links.coords, cfg.max_read_pairs,
+            concentration_ratio=cfg.concentration_ratio)
 
     filtered = filter_fragments(
         frags, flank, links.frag_links,
@@ -268,8 +316,30 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
         topN=cfg.topN, rank_sum_upper=cfg.rank_sum_upper,
         rank_sum_hard_cutoff=cfg.rank_sum_hard_cutoff,
         read_depth_upper=cfg.read_depth_upper,
-        read_depth=None, whitelist=whitelist)
+        read_depth=read_depth, whitelist=whitelist)
     kept_ids = filtered.kept_ids
+
+    if cfg.remove_allelic_links:
+        from haphic_tpu_torch.core.prune import remove_allelic_links
+        ares = remove_allelic_links(
+            asm, frags, full, flank, links.coords, kept_ids,
+            cfg.remove_allelic_links,
+            concordance_ratio_cutoff=cfg.concordance_ratio_cutoff,
+            nwindows=cfg.nwindows, min_read_pairs=cfg.min_read_pairs,
+            max_read_pairs=cfg.max_read_pairs,
+            ctg_pair_to_frag=links.ctg_pair_to_frag)
+        full, flank, kept_ids = ares.full, ares.flank, ares.filtered_ids
+
+    if ul_paths:
+        from haphic_tpu_torch.core.ul import boost_flank_and_full
+        flank, full = boost_flank_and_full(ul_paths, flank, full, frags)
+
+    if cfg.gfa and cfg.phasing_weight > 0 and hap_of is not None:
+        from haphic_tpu_torch.core.prune import (reduce_inter_hap_links_ctg,
+                                                 reduce_inter_hap_links_frag)
+        flank = reduce_inter_hap_links_frag(flank, frags, hap_of,
+                                            cfg.phasing_weight)
+        full = reduce_inter_hap_links_ctg(full, hap_of, cfg.phasing_weight)
 
     links.full = full
     write_pickle(full_link_dict(links, asm.names),
@@ -316,17 +386,28 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
                               timings=timings, stat_wait=stat_wait)
 
 
-def _mock_quick_view_groups(asm: Assembly, outdir: str) -> ReassignResult:
-    """Quick-view final_groups/: a single all-contigs group — with the
+def _mock_quick_view_groups(asm: Assembly, gfa: Optional[str],
+                            outdir: str) -> ReassignResult:
+    """Quick-view final_groups/: one group per haplotype when more than
+    one GFA is given, else a single all-contigs group — with the
     reference's mock file formats (contigs in input order, parity:
     scripts/HapHiC_reassign.py:625-641,787-818)."""
     final_dir = os.path.join(outdir, 'final_groups')
     os.makedirs(final_dir, exist_ok=True)
     order = sorted(range(len(asm)),
                    key=lambda c: asm.input_order.get(asm.names[c], c))
-    # one group per haplotype needs several GFAs, which check_slice
-    # refuses in this slice
-    hap_members = [order]
+    gfa_list = gfa.split(',') if gfa else []
+    if len(gfa_list) <= 1:
+        hap_members = [order]
+    else:
+        from haphic_tpu_torch.io.gfa import read_gfas
+        depth = read_gfas(gfa_list, asm)
+        hap_ctgs: Dict[int, List[int]] = {}
+        for c in order:
+            name = asm.names[c]
+            if name in depth:
+                hap_ctgs.setdefault(depth[name][0], []).append(c)
+        hap_members = [hap_ctgs[h] for h in sorted(hap_ctgs)]
 
     names, lengths = [], []
     ctg_group = np.full(len(asm), -1, dtype=np.int64)
@@ -361,7 +442,7 @@ def reassign_stage(cres: ClusterStageResult, nchrs: int,
     os.makedirs(outdir, exist_ok=True)
     asm = cres.asm
     if cfg.quick_view:
-        return _mock_quick_view_groups(asm, outdir)
+        return _mock_quick_view_groups(asm, cfg.gfa, outdir)
     inflation = inflation or cres.sweep.recommended_inflation
     if inflation is None:
         raise RuntimeError(

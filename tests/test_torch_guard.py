@@ -1,7 +1,7 @@
 """Guards of the PyTorch/CUDA port (haphic_tpu_torch): it imports
-nothing of JAX or the JAX package, its entry points refuse to fall back
-to the CPU, and its scipy group merge equals the JAX package's
-scikit-learn one."""
+nothing of JAX, the JAX package or networkx, its entry points refuse to
+fall back to the CPU, and its scipy group merge equals the JAX
+package's scikit-learn one."""
 
 import ast
 import os
@@ -28,8 +28,10 @@ def _port_sources():
 
 
 def _forbidden(name: str) -> bool:
+    """JAX and the JAX package; networkx, which the card machine lacks
+    (the port keeps its own clique search, core/prune.find_cliques)."""
     top = name.split('.')[0]
-    return top in ('jax', 'jaxlib', 'haphic_tpu')
+    return top in ('jax', 'jaxlib', 'haphic_tpu', 'networkx')
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -112,10 +114,7 @@ def test_entry_point_without_device_raises_on_cpu_host(entry, tmp_path):
     assert not (tmp_path / 'o').exists()
 
 
-@pytest.mark.parametrize('flag,value', [
-    ('correct_nrounds', 2), ('remove_allelic_links', 2),
-    ('remove_concentrated_links', True), ('ul', 'x.bam'),
-    ('gfa', 'x.gfa'), ('use_mesh', 'on')])
+@pytest.mark.parametrize('flag,value', [('use_mesh', 'on')])
 def test_unported_options_raise(flag, value, tmp_path):
     from haphic_tpu_torch.pipeline import PipelineConfig, run_pipeline
     cfg = PipelineConfig(device='cpu', **{flag: value})
