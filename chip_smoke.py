@@ -81,16 +81,46 @@ Phases, each printing one JSON line:
              lies in. Prints the chimeras broken, correct_s (the
              correction pass, inside cluster_s.parse), stage and wall
              seconds, peak card memory.
-8. kernels   one line listing every kernel (the line before the last).
+8. allhic    `cli.main(["allhic", group, clm, "--resume"])` on the card
+             at the users' defaults (--npop 100 --ngen 5000 --seed 42) on
+             the largest group of the pipeline phase (k = 1000 contigs,
+             its group file and split CLM from 02.reassign), hot-started
+             from that pipeline's own 03.sort tour: the GA must run on
+             the card (work above NATIVE_MAX_WORK) with both kernels
+             (launch counts set to 0 just before and read just after,
+             one delta launch per delta generation the GA reports), the
+             tour must be a permutation of the group, its >GA5000 score
+             at least the hot start's, and `--resume --skipGA` on it
+             must score it within 1e-5 relative of that line. Prints the
+             work, route, seconds, generations per second, launches and
+             peak card memory.
+9. post      on the pipeline phase's output: plot's contact map
+             (`post.plot.contact_map`, the part of `plot` before
+             drawing) of 04.build/scaffolds.agp and the 2M pairs at
+             20 kb bins (8,040 bins, a 65M-cell int64 matrix), on the
+             card and on the CPU in this process: raw and symmetrised
+             matrices equal cell for cell, the KR vectors, the
+             normalised matrix and vmax within 1e-9 relative; then the
+             same from the card's cache with --normalization log10.
+             Prints bins, seconds (accumulate, normalize) on each side,
+             KR iterations on each side and peak card memory. Then
+             `juicer pre` on scaffolds.raw.agp and the pairs and `juicer
+             post` of the unedited review: the input's scaffolds come
+             back (same contigs, order and orientation); and `refsort`
+             with a PAF of every contig aligned whole to its simulated
+             chromosome: each of the 8 scaffolds on its own chromosome.
+10. kernels  one line listing every kernel (the line before the last).
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
 package is missing, or when any phase fails.
 """
 
+import io
 import json
 import logging
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -129,6 +159,10 @@ SIM_FLAGS = ['--Nx', '100', '--RE_site_cutoff', '0',
              '--rank_sum_upper', '1', '--flank', '0',
              '--min_group_len', '0', '--min_RE_sites', '0',
              '--min_links', '1']
+PLOT_BIN_KBP = 20        # post: the contact map's bin size
+PLOT_TOL = 1e-9          # post: KR vectors and matrices, relative
+ALLHIC_NGEN = 5000       # allhic: `--ngen` default
+ALLHIC_TOL = 1e-5        # allhic: skip-GA rescoring, relative
 REL_TOL = 1e-5           # score_population, relative
 DELTA_TOL = 1e-6         # delta_generation, relative to the row's score
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor)
@@ -685,6 +719,254 @@ def phase_sparse_step(torch, sp, first_step):
           'small_n_iters': got.n_iters.tolist()})
 
 
+def _count_rows(path):
+    with open(path) as f:
+        return sum(1 for line in f if line.strip()
+                   and not line.startswith('#'))
+
+
+def phase_allhic(torch, cli, kscore, kdelta, topt, out):
+    """`allhic --resume` at its defaults on the card, on the largest
+    group of the pipeline run in ``out``, hot-started from its 03.sort
+    tour; then `--resume --skipGA` rescores the result."""
+    from haphic_tpu_torch.io.artifacts import (parse_group_file,
+                                               parse_tour_file)
+    gdir = os.path.join(out, '02.reassign', 'final_groups')
+    sizes = {f: _count_rows(os.path.join(gdir, f))
+             for f in sorted(os.listdir(gdir))
+             if f.startswith('group') and f.endswith('.txt')}
+    gfile = max(sizes, key=sizes.get)
+    prefix = os.path.splitext(gfile)[0]
+    group = os.path.join(gdir, gfile)
+    clm = os.path.join(out, '02.reassign', 'split_clms', prefix + '.clm')
+    run_dir = os.path.join(WORK, 'allhic')
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    tour = os.path.join(run_dir, prefix + '.tour')
+    shutil.copy(os.path.join(out, '03.sort', prefix + '.tour'), tour)
+    # the GA's own result of each call (cli.cmd_allhic writes only the
+    # tour file)
+    results = []
+    optimize_tour = topt.optimize_tour
+
+    def recording(*args, **kw):
+        results.append(optimize_tour(*args, **kw))
+        return results[-1]
+
+    log = MetricsLog()
+    logging.getLogger('haphic_tpu_torch').addHandler(log)
+    cwd = os.getcwd()
+    topt.optimize_tour = recording
+    os.chdir(run_dir)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kscore.score_population.launches = 0
+        kdelta.delta_generation.launches = 0
+        t0 = time.time()
+        rc = cli.main(['allhic', group, clm, '--resume'])
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = {'score_population': kscore.score_population.launches,
+                    'delta_generation': kdelta.delta_generation.launches}
+        peak = torch.cuda.max_memory_allocated()
+        check(rc == 0, 'allhic exit code {}'.format(rc))
+        m = {k: v[-1] for k, v in log.metrics.items()}
+        delta_gens = m.get('ga_delta_gens')
+        with open(tour, 'rb') as f:
+            ga_bytes = f.read()
+        rc = cli.main(['allhic', group, clm, '--resume', '--skipGA'])
+        check(rc == 0, 'allhic --skipGA exit code {}'.format(rc))
+        skip_route = log.metrics['ga_route'][-1]
+    finally:
+        os.chdir(cwd)
+        topt.optimize_tour = optimize_tour
+        logging.getLogger('haphic_tpu_torch').removeHandler(log)
+    check(m['ga_route'] == DEVICE,
+          'allhic ran its GA on {}, not the card'.format(m['ga_route']))
+    for kname, n in launches.items():
+        check(n > 0, 'kernel {} was not launched by allhic'.format(kname))
+    check(launches['delta_generation'] == delta_gens,
+          'delta_generation launched {} times for {} delta generations'
+          .format(launches['delta_generation'], delta_gens))
+    names = sorted(c for c, _, __ in parse_group_file(group))
+    final = parse_tour_file(os.path.join(run_dir, prefix + '.tour.sav'))
+    check(sorted(c for c, _ in final) == names
+          and {o for _, o in final} <= {'+', '-'},
+          'the allhic tour is not a permutation of the group')
+    with open(os.path.join(run_dir, prefix + '.tour.sav'), 'rb') as f:
+        check(f.read() == ga_bytes, '--resume did not keep the GA tour '
+              'as .tour.sav')
+    check(parse_tour_file(tour) == final,
+          '--resume --skipGA changed the tour')
+    last = [l for l in ga_bytes.decode().splitlines()
+            if l.startswith('>GA')][-1]
+    gen, ga_score = last[3:].split('-', 1)
+    ga_score = float(ga_score)
+    res, skip = results
+    hot_score = res.history[0][1]
+    check(int(gen) == ALLHIC_NGEN and res.history[-1][0] == ALLHIC_NGEN,
+          'the last GA line is {}'.format(last))
+    check(res.score >= hot_score, 'the >GA{} score {} is below the hot '
+          "start's {}".format(gen, res.score, hot_score))
+    rel = abs(skip.score - ga_score) / abs(ga_score)
+    check(rel <= ALLHIC_TOL, '--skipGA scores the tour {}, its GA line {} '
+          '(relative {})'.format(skip.score, ga_score, rel))
+    emit({'phase': 'allhic', 'group': prefix, 'k': len(names),
+          'records': m['records'][0], 'ga_work': m['ga_work'],
+          'ga_route': m['ga_route'], 'ga_batch': m['ga_batch'],
+          'ngen': ALLHIC_NGEN, 'ga_delta_gens': delta_gens,
+          'hot_score': hot_score, 'ga_score': ga_score,
+          'skip_ga_score': skip.score, 'skip_ga_rel_err': rel,
+          'skip_ga_route': skip_route, 'wall_s': secs,
+          'generations_per_s': ALLHIC_NGEN / secs, 'launches': launches,
+          'max_memory_allocated': peak})
+    return launches
+
+
+def _w_lines(agp):
+    """[[(contig, start, end, orientation), ...] per scaffold], in file
+    order."""
+    out, index = [], {}
+    with open(agp) as f:
+        for line in f:
+            cols = line.split()
+            if len(cols) >= 9 and cols[4] == 'W':
+                if cols[0] not in index:
+                    index[cols[0]] = len(out)
+                    out.append([])
+                out[index[cols[0]]].append(tuple(cols[5:9]))
+    return out
+
+
+def _contact_maps(torch, plot, agp, alignments, out, normalization):
+    """plot.contact_map on the card, then on the CPU, of the same
+    inputs; the card's peak memory."""
+    runs = {}
+    for dev in (DEVICE, 'cpu'):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs[dev] = plot.contact_map(
+            agp, alignments, outdir=os.path.join(out, dev),
+            bin_size_kbp=PLOT_BIN_KBP, normalization=normalization,
+            device=dev)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+    return runs[DEVICE], runs['cpu'], peak
+
+
+def _max_rel(torch, got, want):
+    """Largest |got - want| / |want| (0 where both are 0)."""
+    want = want.to(got.device)
+    err = (got - want).abs()
+    return float(torch.where(err == 0, torch.zeros_like(err),
+                             err / want.abs()).max())
+
+
+def phase_post(torch, out, sim_dir, sim):
+    """plot's contact map (card against CPU), juicer pre/post and
+    refsort on the pipeline run in ``out`` and its pairs."""
+    from haphic_tpu_torch.post import juicer, plot, refsort
+    agp = os.path.join(out, '04.build', 'scaffolds.agp')
+    raw_agp = os.path.join(out, '04.build', 'scaffolds.raw.agp')
+    pairs = os.path.join(sim_dir, 'hic.pairs')
+    pdir = os.path.join(WORK, 'plot')
+    shutil.rmtree(pdir, ignore_errors=True)
+    lines = []
+    for norm, source in (('KR', pairs), ('log10', os.path.join(
+            pdir, 'KR', DEVICE, 'contact_matrix.pkl'))):
+        got, want, peak = _contact_maps(torch, plot, agp, source,
+                                        os.path.join(pdir, norm), norm)
+        if got.raw is not None:
+            check(torch.equal(got.raw.cpu(), want.raw),
+                  'raw contact matrices differ between card and CPU')
+        check(torch.equal(got.matrix.cpu(), want.matrix),
+              'symmetrised contact matrices differ between card and CPU')
+        if got.raw is not None:
+            with open(os.path.join(pdir, norm, DEVICE,
+                                   'contact_matrix.pkl'), 'rb') as f, \
+                    open(os.path.join(pdir, norm, 'cpu',
+                                      'contact_matrix.pkl'), 'rb') as g:
+                check(f.read() == g.read(), 'the card and the CPU wrote '
+                      'different contact_matrix.pkl')
+        errs = {'norm': _max_rel(torch, got.norm, want.norm),
+                'vmax': 0.0 if got.vmax == want.vmax else
+                abs(got.vmax - want.vmax) / abs(want.vmax)}
+        check(len(got.kr_vectors) == len(want.kr_vectors),
+              'KR calls differ between card and CPU')
+        if got.kr_vectors:
+            errs['kr_vectors'] = max(_max_rel(torch, g, w) for g, w in
+                                     zip(got.kr_vectors, want.kr_vectors))
+        for what, err in errs.items():
+            check(err <= PLOT_TOL, '{} {}: card and CPU differ by {} '
+                  'relative'.format(norm, what, err))
+        lines.append({'normalization': norm,
+                      'source': os.path.basename(source),
+                      'bins': got.bi.total_bins,
+                      'cells': got.bi.total_bins ** 2,
+                      'contacts': int(got.matrix.sum()),
+                      'card_s': {'accumulate': got.accumulate_s,
+                                 'normalize': got.normalize_s},
+                      'cpu_s': {'accumulate': want.accumulate_s,
+                                'normalize': want.normalize_s},
+                      'kr_iters_card': got.kr_iters,
+                      'kr_iters_cpu': want.kr_iters,
+                      'kr_iters_equal': got.kr_iters == want.kr_iters,
+                      'max_rel_err': errs, 'vmax': got.vmax,
+                      'max_memory_allocated': peak})
+        del got, want
+        torch.cuda.empty_cache()
+
+    jdir = os.path.join(WORK, 'juicer')
+    shutil.rmtree(jdir, ignore_errors=True)
+    os.makedirs(jdir)
+    t0 = time.time()
+    txt = juicer.juicer_pre(raw_agp, pairs, outdir=jdir)
+    pre_s = time.time() - t0
+    n_written = _count_rows(txt)
+    t0 = time.time()
+    final = juicer.juicer_post(os.path.join(jdir, 'out_JBAT.assembly'),
+                               os.path.join(jdir, 'out_JBAT.liftover.agp'),
+                               outdir=jdir)
+    post_s = time.time() - t0
+    scaffolds = _w_lines(raw_agp)
+    check(_w_lines(final) == scaffolds, 'juicer post of the unedited '
+          'review does not give back the input scaffolds')
+    check(n_written > 0, 'juicer pre wrote no pairs')
+
+    # the simulated truth as a PAF: each contig aligned whole, forward,
+    # at its offset on its chromosome
+    cpc, L = sim['ctgs_per_chr'], sim['ctg_len']
+    paf = os.path.join(WORK, 'truth.paf')
+    with open(paf, 'w') as f:
+        for c in range(sim['nchrs']):
+            for i in range(cpc):
+                f.write('chr{0}_ctg{1}\t{2}\t0\t{2}\t+\tchr{0}\t{3}\t{4}\t'
+                        '{5}\t{2}\t{2}\t60\n'.format(
+                            c + 1, i + 1, L, cpc * L, i * L, (i + 1) * L))
+    buf = io.StringIO()
+    t0 = time.time()
+    refsort.run_refsort(agp, paf, out=buf)
+    refsort_s = time.time() - t0
+    placed = {}
+    for line in buf.getvalue().splitlines():
+        cols = line.split('\t')
+        if len(cols) >= 9 and cols[4] == 'W' and cols[0].count(':') == 2:
+            placed.setdefault(cols[0], set()).add(
+                chrom_of_name(cols[5]))
+    refs = {name.split(':')[1] for name in placed}
+    check(len(placed) == sim['nchrs'] and len(refs) == sim['nchrs']
+          and all(chroms == {name.split(':')[1]}
+                  for name, chroms in placed.items()),
+          'refsort placed {}'.format(sorted(placed)))
+    emit({'phase': 'post', 'bin_kbp': PLOT_BIN_KBP, 'plot': lines,
+          'juicer': {'pairs_written': n_written, 'pre_s': pre_s,
+                     'post_s': post_s, 'scaffolds': len(scaffolds)},
+          'refsort': {'scaffolds_placed': sorted(placed),
+                      'seconds': refsort_s}})
+
+
 def _score_inputs(torch, G, P, k, R, seed, sort=True):
     """Random tours and records between contigs at most 4 apart; sorted
     by contig as build_problem sorts them (``sort=False``: in random
@@ -1015,6 +1297,11 @@ def main() -> int:
     phase_polyploid_pipeline(torch, cli, kscore, kdelta)
     torch.cuda.empty_cache()
     phase_correct_pipeline(torch, cli, kscore, kdelta)
+    torch.cuda.empty_cache()
+    out = os.path.join(WORK, 'out')
+    phase_allhic(torch, cli, kscore, kdelta, topt, out)
+    torch.cuda.empty_cache()
+    phase_post(torch, out, os.path.join(WORK, 'sim'), SIM)
     kernels = []
     for k in KERNELS:
         row = main_rows[k['name']]

@@ -1,9 +1,10 @@
 """Command-line interface of the port: ``python -m haphic_tpu_torch``.
 
 Port of haphic_tpu/cli.py for the subcommands pipeline, cluster,
-reassign, sort, build and check, with the same flags. The stages that
-use the card (pipeline, cluster, sort) also take ``--device cuda|cpu``
-(default cuda); asking for CUDA on a host without a card raises.
+reassign, sort, build, check, plot, refsort, util, allhic and juicer,
+with the same flags. The commands that use the card (pipeline, cluster,
+sort, allhic, plot) also take ``--device cuda|cpu`` (default cuda);
+asking for CUDA on a host without a card raises.
 """
 
 from __future__ import annotations
@@ -117,10 +118,11 @@ def _add_build_args(p: argparse.ArgumentParser) -> None:
     g.add_argument('--prefix', default='scaffolds')
 
 
-def _add_device_arg(p: argparse.ArgumentParser) -> None:
+def _add_device_arg(p: argparse.ArgumentParser,
+                    what: str = 'the MCL sweep and the GA') -> None:
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'],
-                   help='torch device of the MCL sweep and the GA '
-                        '(default: cuda; raises when CUDA is absent)')
+                   help='torch device of {} (default: cuda; raises when '
+                        'CUDA is absent)'.format(what))
 
 
 def _config_from_args(args) -> 'PipelineConfig':
@@ -199,6 +201,134 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser('check', help='check the torch/CUDA runtime and '
                    'build the CUDA kernels')
+
+    pl = sub.add_parser('plot', help='draw contact-map heatmap')
+    pl.add_argument('agp')
+    pl.add_argument('alignments')
+    pl.add_argument('--outdir', default='.')
+    pl.add_argument('--bin_size', type=int, default=500,
+                    help='heatmap bin size (kbp)')
+    pl.add_argument('--normalization', default='KR',
+                    choices=['KR', 'log10', 'none'])
+    pl.add_argument('--min_len', type=float, default=0,
+                    help='minimum scaffold length to plot (Mbp)')
+    pl.add_argument('--specified_scaffolds', default=None,
+                    help='comma-separated scaffold subset')
+    pl.add_argument('--vmax_coef', type=float, default=5.0,
+                    help='vmax = coef x median nondiagonal signal')
+    pl.add_argument('--vmax', type=float, default=-1.0,
+                    help='manual vmax (overrides --vmax_coef)')
+    pl.add_argument('--cmap', default='whitered')
+    pl.add_argument('--origin', default='bottom_left',
+                    choices=['bottom_left', 'top_left'])
+    pl.add_argument('--border_style', default='grid',
+                    choices=['grid', 'outline'])
+    pl.add_argument('--separate_plots', action='store_true',
+                    help='one heatmap per scaffold')
+    pl.add_argument('--threads', type=int, default=4,
+                    help='BAM decoder threads')
+    pl.add_argument('--out_name', default='contact_map.pdf')
+    _add_device_arg(pl, 'the contact matrix and its normalisation')
+
+    pr = sub.add_parser('refsort', help='reference-guided scaffold ordering')
+    pr.add_argument('agp')
+    pr.add_argument('paf')
+    pr.add_argument('--fasta', default=None)
+
+    pu = sub.add_parser('util', help='aux utilities (see utils/tools.py)')
+    pusub = pu.add_subparsers(dest='util_cmd', required=True)
+    u = pusub.add_parser('mock_agp')
+    u.add_argument('fasta')
+    u = pusub.add_parser('groups_to_clusters')
+    u.add_argument('groups', nargs='+')
+    u = pusub.add_parser('combine_groups')
+    u.add_argument('list_file')
+    u = pusub.add_parser('convert_gfa_ids')
+    u.add_argument('gfa')
+    u.add_argument('liftover_agp')
+    u = pusub.add_parser('gfa_depth_to_bedgraph')
+    u.add_argument('agp')
+    u.add_argument('gfas', nargs='+')
+    u.add_argument('--depth_tag', default='rd')
+    u.add_argument('--scale', type=float, default=1.0)
+    u = pusub.add_parser('find_telomeres')
+    u.add_argument('genome')
+    u.add_argument('--repeat', default='CCCTAAA')
+    u.add_argument('--contigs', nargs='+', default=None)
+    u = pusub.add_parser('fasta_count_N')
+    u.add_argument('fasta')
+    u = pusub.add_parser('fastq_length_filtering')
+    u.add_argument('out_fq')
+    u.add_argument('in_fqs', nargs='+')
+    u.add_argument('--length', type=int, default=50000)
+    u = pusub.add_parser('reverse_bed')
+    u.add_argument('bed')
+    u.add_argument('genome')
+    u = pusub.add_parser('global_chaining')
+    u.add_argument('paf')
+    u.add_argument('--mapq', type=int, default=0)
+    u.add_argument('--min_len', type=int, default=100000)
+    u.add_argument('--min_aln_len', type=int, default=10000)
+    u.add_argument('--div', choices=['de', 'dv'], default='de')
+    u.add_argument('--min_identity', type=float, default=90)
+    u.add_argument('--min_cov_ratio', type=float, default=0)
+    u.add_argument('--min_sb_ratio', type=float, default=0.2)
+    u.add_argument('--perform_clustering', action='store_true',
+                   default=False)
+    u = pusub.add_parser('prepare_clusters')
+    u.add_argument('wrk_dir')
+    u.add_argument('--for_manual', action='store_true', default=False)
+    u = pusub.add_parser('mock_blast')
+    u.add_argument('fasta')
+    u.add_argument('tour')
+    u = pusub.add_parser('remove_singletons')
+    u.add_argument('bam')
+
+    pa = sub.add_parser(
+        'allhic',
+        help='standalone tour optimization (allhic optimize replacement)')
+    pa.add_argument('group', help='group*.txt (#Contig RECounts Length)')
+    pa.add_argument('clm', help='per-group .clm file')
+    pa.add_argument('--mutapb', type=float, default=0.2,
+                    help='mutation probability (default: %(default)s)')
+    pa.add_argument('--ngen', type=int, default=5000,
+                    help='GA generations (default: %(default)s)')
+    pa.add_argument('--npop', type=int, default=100,
+                    help='GA population size (default: %(default)s)')
+    pa.add_argument('--seed', type=int, default=42,
+                    help='random seed (default: %(default)s)')
+    pa.add_argument('--resume', action='store_true', default=False,
+                    help='hot-start from an existing <group>.tour '
+                         '(renamed to .tour.sav, as the reference binary '
+                         'does)')
+    pa.add_argument('--skipGA', action='store_true', default=False,
+                    help='score/emit the hot-start tour without running '
+                         'the GA')
+    _add_device_arg(pa, 'the GA')
+
+    pj = sub.add_parser('juicer',
+                        help='Juicebox curation round-trip (pre/post)')
+    pjsub = pj.add_subparsers(dest='juicer_cmd', required=True)
+    pre = pjsub.add_parser('pre')
+    pre.add_argument('alignments',
+                     help='.bam, .bed, .pa5 or .pairs[.gz]')
+    pre.add_argument('--file-type', dest='file_type', default=None,
+                     help='BED|BAM|BIN|PA5: override the extension '
+                          '(reference utils/juicer surface)')
+    pre.add_argument('agp', help='scaffolds.raw.agp')
+    pre.add_argument('fai', nargs='?', default=None,
+                     help='contigs .fai (accepted for CLI compatibility)')
+    pre.add_argument('-a', '--assembly_mode', action='store_true',
+                     default=True)
+    pre.add_argument('-q', '--mapq', type=int, default=1)
+    pre.add_argument('-o', '--out_prefix', default='out_JBAT')
+    pre.add_argument('--outdir', default='.')
+    post = pjsub.add_parser('post')
+    post.add_argument('review_assembly')
+    post.add_argument('liftover_agp')
+    post.add_argument('contigs_fasta', nargs='?', default=None)
+    post.add_argument('-o', '--out_prefix', default='out_JBAT.FINAL')
+    post.add_argument('--outdir', default='.')
     return parser
 
 
@@ -422,6 +552,128 @@ def cmd_check(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_plot(args) -> int:
+    from haphic_tpu_torch.post.plot import run_plot
+    run_plot(args.agp, args.alignments, outdir=args.outdir,
+             bin_size_kbp=args.bin_size, normalization=args.normalization,
+             min_len_mbp=args.min_len,
+             specified_scaffolds=args.specified_scaffolds,
+             vmax_coef=args.vmax_coef, manual_vmax=args.vmax,
+             cmap=args.cmap, origin=args.origin,
+             border_style=args.border_style,
+             separate_plots=args.separate_plots, threads=args.threads,
+             out_name=args.out_name, device=args.device)
+    return 0
+
+
+def cmd_refsort(args) -> int:
+    from haphic_tpu_torch.post.refsort import run_refsort
+    run_refsort(args.agp, args.paf, fasta=args.fasta, out=sys.stdout)
+    return 0
+
+
+def cmd_util(args) -> int:
+    from haphic_tpu_torch.utils import tools
+    c = args.util_cmd
+    if c == 'mock_agp':
+        tools.mock_agp(args.fasta)
+    elif c == 'groups_to_clusters':
+        tools.groups_to_clusters(args.groups)
+    elif c == 'combine_groups':
+        tools.combine_groups(args.list_file)
+    elif c == 'convert_gfa_ids':
+        tools.convert_gfa_ids(args.gfa, args.liftover_agp)
+    elif c == 'gfa_depth_to_bedgraph':
+        tools.gfa_depth_to_bedgraph(args.gfas, args.agp,
+                                    depth_tag=args.depth_tag,
+                                    scale=args.scale)
+    elif c == 'find_telomeres':
+        tools.find_telomeres(args.genome, repeat=args.repeat,
+                             contigs=args.contigs)
+    elif c == 'fasta_count_N':
+        tools.fasta_count_N(args.fasta)
+    elif c == 'fastq_length_filtering':
+        tools.fastq_length_filtering(args.out_fq, args.in_fqs,
+                                     length=args.length)
+    elif c == 'reverse_bed':
+        tools.reverse_bed(args.bed, args.genome)
+    elif c == 'global_chaining':
+        tools.global_chaining(
+            args.paf, mapq=args.mapq, min_len=args.min_len,
+            min_aln_len=args.min_aln_len, div=args.div,
+            min_identity=args.min_identity,
+            min_cov_ratio=args.min_cov_ratio,
+            min_sb_ratio=args.min_sb_ratio,
+            perform_clustering=args.perform_clustering)
+    elif c == 'prepare_clusters':
+        tools.prepare_clusters(args.wrk_dir, for_manual=args.for_manual)
+    elif c == 'mock_blast':
+        print(tools.mock_blast(args.fasta, args.tour))
+    elif c == 'remove_singletons':
+        tools.remove_singletons(args.bam)
+    return 0
+
+
+def cmd_allhic(args) -> int:
+    """Standalone `allhic optimize` replacement (flag contract:
+    scripts/HapHiC_sort.py:618-642). Reads <group>.txt + .clm, writes
+    <prefix>.tour in the current directory; with --resume an existing
+    <prefix>.tour is renamed to <prefix>.tour.sav and used to hot-start
+    the GA, matching the reference fork's behavior. The GA runs on
+    ``--device`` (or the native C++ GA for small work, as `sort`)."""
+    import os
+
+    import numpy as np
+
+    from haphic_tpu_torch.io.artifacts import (parse_clm_file,
+                                               parse_group_file,
+                                               parse_tour_file)
+    from haphic_tpu_torch.order import optimize as opt
+    from haphic_tpu_torch.runtime import resolve_device
+
+    resolve_device(args.device)
+    ctgs = parse_group_file(args.group)
+    names = [c for c, _, __ in ctgs]
+    name2id = {c: i for i, c in enumerate(names)}
+    lengths = np.asarray([l for _, __, l in ctgs], dtype=np.int64)
+    prefix = os.path.splitext(os.path.basename(args.group))[0]
+
+    hot = None
+    init_tour = None
+    tour_path = '{}.tour'.format(prefix)
+    if args.resume and os.path.exists(tour_path):
+        init_tour = parse_tour_file(tour_path)
+        os.replace(tour_path, '{}.tour.sav'.format(prefix))
+        hot = (np.asarray([name2id[c] for c, _ in init_tour], np.int32),
+               np.asarray([1 if o == '-' else 0 for _, o in init_tour],
+                          np.int32))
+
+    clm = parse_clm_file(args.clm, name2id)
+    problem = opt.build_problem(np.arange(len(names)), lengths,
+                                clm.pair_i, clm.pair_j, clm.d)
+    res = opt.optimize_tour(problem, npop=args.npop, ngen=args.ngen,
+                            mutprob=args.mutapb, seed=args.seed,
+                            hot_start=hot, skip_ga=args.skipGA,
+                            device=args.device)
+    tour = opt.result_to_tour(res, np.arange(len(names)), names)
+    opt.write_ga_tour(tour_path, res, tour, init_tour=init_tour)
+    return 0
+
+
+def cmd_juicer(args) -> int:
+    from haphic_tpu_torch.post.juicer import juicer_post, juicer_pre
+    if args.juicer_cmd == 'pre':
+        juicer_pre(args.agp, args.alignments, out_prefix=args.out_prefix,
+                   outdir=args.outdir, mapq=args.mapq,
+                   assembly_mode=args.assembly_mode,
+                   file_type=args.file_type)
+    else:
+        juicer_post(args.review_assembly, args.liftover_agp,
+                    contigs_fasta=args.contigs_fasta,
+                    out_prefix=args.out_prefix, outdir=args.outdir)
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -435,6 +687,11 @@ def main(argv=None) -> int:
         'sort': cmd_sort,
         'build': cmd_build,
         'check': cmd_check,
+        'plot': cmd_plot,
+        'refsort': cmd_refsort,
+        'allhic': cmd_allhic,
+        'juicer': cmd_juicer,
+        'util': cmd_util,
     }[args.command](args)
 
 

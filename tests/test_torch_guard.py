@@ -59,6 +59,31 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, bad
 
 
+def test_port_imports_no_matplotlib_at_module_level():
+    """matplotlib (absent on the card machine) is imported only inside
+    the functions that draw."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        todo = list(tree.body)
+        while todo:
+            node = todo.pop()
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or '']
+            else:
+                todo += list(ast.iter_child_nodes(node))
+                continue
+            bad += ['{}:{} {}'.format(os.path.relpath(path, REPO),
+                                      node.lineno, n)
+                    for n in names if n.split('.')[0] == 'matplotlib']
+    assert not bad, bad
+
+
 def _sim_files(tmp_path):
     import random
     from . import util
@@ -98,10 +123,41 @@ def _call_ga(tmp_path):
     optimize_tours([p], npop=4, ngen=2, backend='native')
 
 
+def _call_allhic_cli(tmp_path):
+    from haphic_tpu_torch.cli import main
+    group, clm = tmp_path / 'group1.txt', tmp_path / 'group1.clm'
+    group.write_text('#Contig\tRECounts\tLength\na\t1\t100\nb\t1\t100\n')
+    clm.write_text('a+ b+\t1\t50\na+ b-\t1\t60\na- b+\t1\t70\n'
+                   'a- b-\t1\t80\n')
+    main(['allhic', str(group), str(clm), '--skipGA'])
+
+
+def _plot_inputs(tmp_path):
+    agp, pairs = tmp_path / 's.agp', tmp_path / 'hic.pairs'
+    agp.write_text('s1\t1\t100\t1\tW\ta\t1\t100\t+\n')
+    pairs.write_text('## pairs format v1.0\nr1\ta\t5\ta\t60\t+\t+\n')
+    return str(agp), str(pairs)
+
+
+def _call_plot_cli(tmp_path):
+    from haphic_tpu_torch.cli import main
+    agp, pairs = _plot_inputs(tmp_path)
+    main(['plot', agp, pairs, '--outdir', str(tmp_path / 'o'),
+          '--bin_size', '1'])
+
+
+def _call_contact_map(tmp_path):
+    from haphic_tpu_torch.post.plot import contact_map
+    agp, pairs = _plot_inputs(tmp_path)
+    contact_map(agp, pairs, outdir=str(tmp_path / 'out'), bin_size_kbp=1)
+
+
 @pytest.mark.parametrize('entry', [_call_pipeline, _call_cli, _call_mcl,
-                                   _call_ga],
+                                   _call_ga, _call_allhic_cli,
+                                   _call_plot_cli, _call_contact_map],
                          ids=['run_pipeline', 'cli', 'run_mcl_partitions',
-                              'optimize_tours'])
+                              'optimize_tours', 'cli-allhic', 'cli-plot',
+                              'contact_map'])
 def test_entry_point_without_device_raises_on_cpu_host(entry, tmp_path):
     """Called without a device, an entry point asks for CUDA; on a host
     without a card it raises instead of running on the CPU, and writes
@@ -112,6 +168,7 @@ def test_entry_point_without_device_raises_on_cpu_host(entry, tmp_path):
         entry(tmp_path)
     assert not (tmp_path / 'out').exists()
     assert not (tmp_path / 'o').exists()
+    assert not any(f.endswith('.tour') for f in os.listdir(os.getcwd()))
 
 
 @pytest.mark.parametrize('flag,value', [('use_mesh', 'on')])
