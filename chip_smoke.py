@@ -109,13 +109,45 @@ Phases, each printing one JSON line:
              back (same contigs, order and orientation); and `refsort`
              with a PAF of every contig aligned whole to its simulated
              chromosome: each of the 8 scaffolds on its own chromosome.
-10. kernels  one line listing every kernel (the line before the last).
+10. sim      `cli.main(["sim", "ga_study", "--ks", "50,200,500,1000",
+             "--ngen", "5000", "--npop", "100", "--backend", "device"])`
+             on the card (docs/GA_VALIDATION.md's sizes and settings):
+             per k a truth rescoring and a cold and a hot GA run, every
+             one on the card with both kernels (launch counts set to 0
+             just before and read just after: one score launch per GA
+             call, one delta launch per delta generation the GA
+             reports). Every run's history may fall by no more than
+             1e-6 of its score (f32 rounding when a window rescores its
+             caches) and every run ends above its start; every hot run
+             reaches 0.9 of the truth's score and Spearman >= 0.9
+             against the simulated order (the hot start's own Spearman
+             is above 0.9 already: adjacent swaps barely move it, flips
+             not at all, so the score bar is the one a GA that stood
+             still would fail). The arguments of every GA call's score
+             launch and of each run's SIM_CHECK_GEN-th delta launch are
+             kept on the host, and after the study each kernel is rerun
+             on them against its plain version (the checks of phase 3)
+             at the shapes the study gave it. Prints one line per run
+             (k, start, records, scores, start and final Spearman,
+             seconds, generations per second), one per checked GA call,
+             then the launches, seconds and peak card memory. Then two
+             host
+             tools through the CLI: `sim score_statistics` on the allhic
+             phase's tour must print its >GA5000 score, and `sim
+             convert_agp_to_tour` on the pipeline's scaffolds.agp must
+             list every W line's contig and orientation in order.
+11. kernels  one line listing every kernel (the line before the last):
+             `launches` sums the counts of every phase that drives a
+             path (pipeline, sparse_pipeline, polyploid_pipeline,
+             correct_pipeline, allhic, sim), `launches_by_phase` lists
+             them.
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
 package is missing, or when any phase fails.
 """
 
+import contextlib
 import io
 import json
 import logging
@@ -125,6 +157,7 @@ import struct
 import subprocess
 import sys
 import time
+import types
 import zlib
 
 import numpy as np
@@ -163,6 +196,15 @@ PLOT_BIN_KBP = 20        # post: the contact map's bin size
 PLOT_TOL = 1e-9          # post: KR vectors and matrices, relative
 ALLHIC_NGEN = 5000       # allhic: `--ngen` default
 ALLHIC_TOL = 1e-5        # allhic: skip-GA rescoring, relative
+# sim: `sim ga_study` at docs/GA_VALIDATION.md's sizes and settings
+SIM_KS = [50, 200, 500, 1000]
+SIM_NGEN = 5000
+SIM_NPOP = 100
+SIM_SEED = 42            # `--seed` default; group k simulated from it + k
+SIM_MIN_SPEARMAN = 0.9   # every hot run, every k
+SIM_MIN_TRUTH = 0.9      # every hot run: final score / the truth's
+SIM_CHECK_GEN = 2400     # the delta launch of each run rerun (middle)
+SIM_FALL_TOL = 1e-6      # history: largest fall, relative to the score
 REL_TOL = 1e-5           # score_population, relative
 DELTA_TOL = 1e-6         # delta_generation, relative to the row's score
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor)
@@ -543,6 +585,7 @@ def phase_polyploid_pipeline(torch, cli, kscore, kdelta):
                      'ul_every': UL_EVERY, 'ul_reads': UL_READS},
           **allelic, 'ul_paths': m['ul_paths'][-1],
           **_run_line(torch, m, sim_s, wall, launches, part)})
+    return launches
 
 
 def _chimera_chrom_of(table, ctg_len):
@@ -588,6 +631,7 @@ def phase_correct_pipeline(torch, cli, kscore, kdelta):
           'other_contigs_broken': len(broken) - n_chims,
           'correct_s': m['cluster_secs'][-1]['correct'],
           **_run_line(torch, m, sim_s, wall, launches, part)})
+    return launches
 
 
 def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
@@ -595,7 +639,7 @@ def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
     genome of SPARSE_SIM['nchrs'] * SPARSE_SIM['ctgs_per_chr'] one-
     fragment contigs runs the sparse top-K MCL engine. Returns the
     arguments of the engine's first sweep step, as the pipeline passed
-    them, for phase_sparse_step."""
+    them, for phase_sparse_step, and the launch counts."""
     first = []
     step = sp._sweep_step
 
@@ -623,7 +667,7 @@ def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
           'sweep_s': m['sweep_s'][-1], 'interpret_s': m['interpret_s'][-1],
           'clusters_per_inflation': m['clusters_per_inflation'][-1],
           **_run_line(torch, m, sim_s, wall, launches, part)})
-    return first[0]
+    return first[0], launches
 
 
 def _block_coo(n, n_blocks, seed):
@@ -725,6 +769,28 @@ def _count_rows(path):
                    and not line.startswith('#'))
 
 
+@contextlib.contextmanager
+def _recorded_tours(topt):
+    """Every topt.optimize_tour call made inside the block, in order:
+    {'kw': its keyword arguments, 'result': the GA's result, 'wall':
+    its seconds (it ends reading the result to the host)}. The CLI
+    writes only files; this keeps the GA's own results."""
+    calls = []
+    optimize_tour = topt.optimize_tour
+
+    def recording(*args, **kw):
+        t0 = time.time()
+        res = optimize_tour(*args, **kw)
+        calls.append({'kw': kw, 'result': res, 'wall': time.time() - t0})
+        return res
+
+    topt.optimize_tour = recording
+    try:
+        yield calls
+    finally:
+        topt.optimize_tour = optimize_tour
+
+
 def phase_allhic(torch, cli, kscore, kdelta, topt, out):
     """`allhic --resume` at its defaults on the card, on the largest
     group of the pipeline run in ``out``, hot-started from its 03.sort
@@ -744,44 +810,34 @@ def phase_allhic(torch, cli, kscore, kdelta, topt, out):
     os.makedirs(run_dir)
     tour = os.path.join(run_dir, prefix + '.tour')
     shutil.copy(os.path.join(out, '03.sort', prefix + '.tour'), tour)
-    # the GA's own result of each call (cli.cmd_allhic writes only the
-    # tour file)
-    results = []
-    optimize_tour = topt.optimize_tour
-
-    def recording(*args, **kw):
-        results.append(optimize_tour(*args, **kw))
-        return results[-1]
-
     log = MetricsLog()
     logging.getLogger('haphic_tpu_torch').addHandler(log)
     cwd = os.getcwd()
-    topt.optimize_tour = recording
-    os.chdir(run_dir)
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kscore.score_population.launches = 0
-        kdelta.delta_generation.launches = 0
-        t0 = time.time()
-        rc = cli.main(['allhic', group, clm, '--resume'])
-        torch.cuda.synchronize()
-        secs = time.time() - t0
-        launches = {'score_population': kscore.score_population.launches,
-                    'delta_generation': kdelta.delta_generation.launches}
-        peak = torch.cuda.max_memory_allocated()
-        check(rc == 0, 'allhic exit code {}'.format(rc))
-        m = {k: v[-1] for k, v in log.metrics.items()}
-        delta_gens = m.get('ga_delta_gens')
-        with open(tour, 'rb') as f:
-            ga_bytes = f.read()
-        rc = cli.main(['allhic', group, clm, '--resume', '--skipGA'])
-        check(rc == 0, 'allhic --skipGA exit code {}'.format(rc))
-        skip_route = log.metrics['ga_route'][-1]
-    finally:
-        os.chdir(cwd)
-        topt.optimize_tour = optimize_tour
-        logging.getLogger('haphic_tpu_torch').removeHandler(log)
+    with _recorded_tours(topt) as calls:
+        os.chdir(run_dir)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kscore.score_population.launches = 0
+            kdelta.delta_generation.launches = 0
+            t0 = time.time()
+            rc = cli.main(['allhic', group, clm, '--resume'])
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            launches = {'score_population': kscore.score_population.launches,
+                        'delta_generation': kdelta.delta_generation.launches}
+            peak = torch.cuda.max_memory_allocated()
+            check(rc == 0, 'allhic exit code {}'.format(rc))
+            m = {k: v[-1] for k, v in log.metrics.items()}
+            delta_gens = m.get('ga_delta_gens')
+            with open(tour, 'rb') as f:
+                ga_bytes = f.read()
+            rc = cli.main(['allhic', group, clm, '--resume', '--skipGA'])
+            check(rc == 0, 'allhic --skipGA exit code {}'.format(rc))
+            skip_route = log.metrics['ga_route'][-1]
+        finally:
+            os.chdir(cwd)
+            logging.getLogger('haphic_tpu_torch').removeHandler(log)
     check(m['ga_route'] == DEVICE,
           'allhic ran its GA on {}, not the card'.format(m['ga_route']))
     for kname, n in launches.items():
@@ -803,7 +859,7 @@ def phase_allhic(torch, cli, kscore, kdelta, topt, out):
             if l.startswith('>GA')][-1]
     gen, ga_score = last[3:].split('-', 1)
     ga_score = float(ga_score)
-    res, skip = results
+    res, skip = (c['result'] for c in calls)
     hot_score = res.history[0][1]
     check(int(gen) == ALLHIC_NGEN and res.history[-1][0] == ALLHIC_NGEN,
           'the last GA line is {}'.format(last))
@@ -821,7 +877,10 @@ def phase_allhic(torch, cli, kscore, kdelta, topt, out):
           'skip_ga_route': skip_route, 'wall_s': secs,
           'generations_per_s': ALLHIC_NGEN / secs, 'launches': launches,
           'max_memory_allocated': peak})
-    return launches
+    # the launch counts; the GA's tour (kept as .tour.sav by --resume)
+    # and its last score as the file writes it
+    return launches, (os.path.join(run_dir, prefix + '.tour.sav'),
+                      last.split('-', 1)[1])
 
 
 def _w_lines(agp):
@@ -965,6 +1024,246 @@ def phase_post(torch, out, sim_dir, sim):
                      'post_s': post_s, 'scaffolds': len(scaffolds)},
           'refsort': {'scaffolds_placed': sorted(placed),
                       'seconds': refsort_s}})
+
+
+@contextlib.contextmanager
+def _recorded_launches(topt):
+    """Host copies of kernel arguments the GA passes inside the block,
+    one entry per score_population call (on the delta route the GA
+    scores each batch once, at its start, so an entry is a batch):
+    'score' that call's arguments, 'delta' those of the batch's
+    SIM_CHECK_GEN-th delta_generation call ((state before the step,
+    move, (la, lb, d, w))) or None, 'n_delta' its delta calls, 'copy_s'
+    the seconds the copies took. The GA reaches score_population by its
+    module's name and the delta kernel's wrapper as _dgen's default
+    `step`; both are restored on leaving."""
+    batches = []
+    score, defaults = topt.score_population, topt._dgen.__defaults__
+    (step,) = defaults
+
+    def host(xs):
+        return tuple(x.to('cpu', copy=True) for x in xs)
+
+    def recording_score(*args):
+        t0 = time.time()
+        batches.append({'score': host(args), 'delta': None, 'n_delta': 0})
+        batches[-1]['copy_s'] = time.time() - t0
+        return score(*args)
+
+    def recording_step(state, move, la, lb, d, w, *rest, **kw):
+        b = batches[-1]
+        b['n_delta'] += 1
+        if b['n_delta'] == SIM_CHECK_GEN:
+            t0 = time.time()
+            b['delta'] = (host(state), host(move), host((la, lb, d, w)))
+            b['copy_s'] += time.time() - t0
+        return step(state, move, la, lb, d, w, *rest, **kw)
+
+    topt.score_population = recording_score
+    topt._dgen.__defaults__ = (recording_step,)
+    try:
+        yield batches
+    finally:
+        topt.score_population = score
+        topt._dgen.__defaults__ = defaults
+
+
+def _check_sim_launches(torch, kscore, kdelta, topt, what, batch):
+    """Each kernel rerun on the arguments one GA call gave it
+    (_recorded_launches) and held against its plain version, as phase 3
+    holds them: score_population within REL_TOL relative; the delta
+    generation by _check_delta, then its commit by _check_commit under
+    the plain version's acceptance and under all rows accepted."""
+    args = [x.to(DEVICE) for x in batch['score']]
+    got = kscore.score_population(*args)
+    want = kscore.score_population_plain(*args)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          'score kernel output ({})'.format(what))
+    rel = float(((got - want).abs() / want.abs()).max())
+    check(rel <= REL_TOL, 'score kernel disagrees ({}): max relative '
+          'error {}'.format(what, rel))
+    G, P, k = args[0].shape
+    row = {'score_population': {'G': G, 'P': P, 'k_pad': k,
+                                'R_pad': args[3].shape[1],
+                                'max_abs_err': float((got - want).abs()
+                                                     .max()),
+                                'max_rel_err': rel}}
+    del args, got, want
+    if batch['delta'] is None:
+        return row
+    state, move, (la, lb, d, w) = (tuple(x.to(DEVICE) for x in xs)
+                                   for xs in batch['delta'])
+    rec = types.SimpleNamespace(la=la, lb=lb, d=d, w=w)
+    kern, plain = kdelta.delta_generation, kdelta.delta_generation_plain
+    got = _run(kern, topt, rec, state, move)
+    want = _run(plain, topt, rec, state, move)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got[0]).all()),
+          'delta kernel output ({})'.format(what))
+    errs = _check_delta(torch, kdelta, topt, what, rec, state, move, got,
+                        want)
+    mask = want[1]
+    del got, want
+    # the commit under the acceptance the plain version made, and with
+    # every row accepted (late in a run few rows are)
+    for label, acc in (('', mask), (', every row', torch.ones_like(mask))):
+        got = _run(kern, topt, rec, state, move, acc)
+        want = _run(plain, topt, rec, state, move, acc)
+        torch.cuda.synchronize()
+        _check_commit(torch, 'commit ({}{})'.format(what, label), state[-1],
+                      got, want)
+        del got, want
+    G, P, k = state[0].shape
+    row['delta_generation'] = {'G': G, 'P': P, 'k_pad': k,
+                               'R_pad': state[4].shape[2],
+                               'generation': SIM_CHECK_GEN,
+                               'accepted_rows': int(mask.sum()), **errs}
+    return row
+
+
+def phase_sim(torch, cli, kscore, kdelta, topt, out, allhic_tour):
+    """`sim ga_study` on the card at GA_VALIDATION's sizes with the
+    torch GA forced (--backend device), each kernel then rerun against
+    its plain version on arguments the study gave it; then two host
+    tools of `sim` on earlier phases' files."""
+    from haphic_tpu_torch.sim import ga_study
+    run_dir = os.path.join(WORK, 'sim_tools')
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    tsv = os.path.join(run_dir, 'ga_study.tsv')
+    log = MetricsLog()
+    logging.getLogger('haphic_tpu_torch').addHandler(log)
+    # calls and batches in ga_study's order: per k the truth rescoring
+    # (skip_ga), the cold run, the hot run
+    try:
+        with _recorded_tours(topt) as calls, \
+                _recorded_launches(topt) as batches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kscore.score_population.launches = 0
+            kdelta.delta_generation.launches = 0
+            t0 = time.time()
+            rc = cli.main(['sim', 'ga_study', '--ks',
+                           ','.join(map(str, SIM_KS)), '--ngen',
+                           str(SIM_NGEN), '--npop', str(SIM_NPOP),
+                           '--seed', str(SIM_SEED), '--backend', 'device',
+                           '--device', DEVICE, '--out', tsv])
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            launches = {
+                'score_population': kscore.score_population.launches,
+                'delta_generation': kdelta.delta_generation.launches}
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        logging.getLogger('haphic_tpu_torch').removeHandler(log)
+    check(rc == 0, 'sim ga_study exit code {}'.format(rc))
+    routes = log.metrics['ga_route']
+    check(len(routes) == 3 * len(SIM_KS) and set(routes) == {DEVICE},
+          'ga_study ran its GAs on {}'.format(routes))
+    check(launches['score_population'] == 3 * len(SIM_KS)
+          == len(calls) == len(batches),
+          'score_population launched {} times for {} GA calls'.format(
+              launches['score_population'], len(calls)))
+    delta_gens = sum(log.metrics['ga_delta_gens'])
+    check(launches['delta_generation'] == delta_gens > 0,
+          'delta_generation launched {} times for {} delta generations'
+          .format(launches['delta_generation'], delta_gens))
+    copy_s = sum(b['copy_s'] for b in batches)
+    with open(tsv) as f:
+        head, *rows = [line.rstrip('\n').split('\t') for line in f]
+    check(len(rows) == 2 * len(SIM_KS), 'ga_study wrote {} rows'.format(
+        len(rows)))
+    for i, cols in enumerate(rows):
+        row = dict(zip(head, cols))
+        k, start = int(row['k']), row['start']
+        call, batch = calls[3 * (i // 2) + 1 + i % 2], \
+            batches[3 * (i // 2) + 1 + i % 2]
+        res = call['result']
+        wall = call['wall'] - batch['copy_s']
+        score_truth = calls[3 * (i // 2)]['result'].score
+        history = [s for _, s in res.history]
+        problem, true_order, _ = ga_study.simulate_group(SIM_SEED + k, k)
+        spearman = ga_study.order_spearman(res.order, true_order)
+        hot_start = call['kw']['hot_start']
+        start_spearman = None if hot_start is None else \
+            ga_study.order_spearman(hot_start[0], true_order)
+        check((k, start) == (SIM_KS[i // 2], ('cold', 'hot')[i % 2])
+              and (hot_start is None) == (start == 'cold'),
+              'ga_study row {} is k={} {}'.format(i, k, start))
+        # the best score of each window; a window that rescores its
+        # caches may round it down by a few f32 ulps (both packages)
+        fall = max([(a - b) / abs(a) for a, b in zip(history, history[1:])]
+                   + [0.0])
+        check(res.history[-1][0] == SIM_NGEN and fall <= SIM_FALL_TOL,
+              'k={} {}: the GA history falls: {}'.format(k, start,
+                                                         res.history))
+        check(res.score > history[0], 'k={} {}: {} does not end above '
+              'its start {}'.format(k, start, res.score, history[0]))
+        check('{:.4f}'.format(spearman) == row['spearman'],
+              'k={} {}: Spearman {} in the TSV, {} from the tour'.format(
+                  k, start, row['spearman'], spearman))
+        # the run's delta generations, as the GA reports them (a
+        # skip_ga rescoring reports none)
+        check(batch['n_delta'] == log.metrics['ga_delta_gens'][i]
+              and batch['delta'] is not None,
+              'k={} {}: {} delta calls recorded'.format(k, start,
+                                                       batch['n_delta']))
+        if start == 'hot':
+            check(res.score >= SIM_MIN_TRUTH * score_truth, 'k={} hot: {} '
+                  'below {} of the truth\'s {}'.format(
+                      k, res.score, SIM_MIN_TRUTH, score_truth))
+            check(spearman >= SIM_MIN_SPEARMAN, 'k={} hot: Spearman {} '
+                  'below {}'.format(k, spearman, SIM_MIN_SPEARMAN))
+        emit({'phase': 'sim', 'k': k, 'start': start,
+              'records': problem.n_records, 'score0': history[0],
+              'score_final': res.score, 'score_truth': score_truth,
+              'final_over_truth': res.score / score_truth,
+              'start_spearman': start_spearman, 'spearman': spearman,
+              'largest_fall': fall, 'wall_s': wall,
+              'generations_per_s': SIM_NGEN / wall})
+    emit({'phase': 'sim', 'ks': SIM_KS, 'ngen': SIM_NGEN,
+          'npop': SIM_NPOP, 'ga_route': DEVICE, 'seconds': secs - copy_s,
+          'recording_copy_s': copy_s, 'launches': launches,
+          'ga_delta_gens': delta_gens, 'max_memory_allocated': peak})
+    # both kernels against their plain versions on what the study gave
+    # them (these launches are not counted above)
+    for i, batch in enumerate(batches):
+        k, what = SIM_KS[i // 3], ('truth', 'cold', 'hot')[i % 3]
+        row = _check_sim_launches(torch, kscore, kdelta, topt,
+                                  'sim k={} {}'.format(k, what), batch)
+        emit({'phase': 'sim_kernels', 'k': k, 'start': what, **row})
+    del batches
+    torch.cuda.empty_cache()
+
+    # two host tools through the CLI: score_statistics prints (in a
+    # process of its own: the harness binds sys.stdout at import)
+    sav, ga_score = allhic_tour
+    p = subprocess.run(
+        [sys.executable, '-m', 'haphic_tpu_torch', 'sim',
+         'score_statistics', sav, 'chrX', 'N50', 'HapHiC'], cwd=run_dir,
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=300, check=True)
+    first = p.stdout.splitlines()[0].split('\t')
+    check(first == ['HapHiC', 'chrX', 'N50', ga_score],
+          'score_statistics printed {} for the allhic tour (>GA{}-{})'
+          .format(first, ALLHIC_NGEN, ga_score))
+    agp = os.path.join(out, '04.build', 'scaffolds.agp')
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        check(cli.main(['sim', 'convert_agp_to_tour', agp, 'scaffolds'])
+              == 0, 'sim convert_agp_to_tour failed')
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(run_dir, 'scaffolds.tour')) as f:
+        tour = f.read().splitlines()
+    want = [c + o for scaffold in _w_lines(agp) for c, _, __, o in scaffold]
+    check(tour == ['>INIT', ' '.join(want)], 'convert_agp_to_tour does '
+          'not list the W lines of scaffolds.agp in order')
+    emit({'phase': 'sim', 'score_statistics': first,
+          'convert_agp_to_tour': {'contigs': len(want)}})
+    return launches
 
 
 def _score_inputs(torch, G, P, k, R, seed, sort=True):
@@ -1289,24 +1588,33 @@ def main() -> int:
         'delta_generation': phase_delta(torch, kdelta, topt, trace_ga,
                                         big, launches)[-1]}
     torch.cuda.empty_cache()
-    first_step = phase_sparse_pipeline(torch, cli, kscore, kdelta, sp,
-                                       SPARSE_MIN_N)
+    by_phase = {'pipeline': launches}
+    first_step, by_phase['sparse_pipeline'] = phase_sparse_pipeline(
+        torch, cli, kscore, kdelta, sp, SPARSE_MIN_N)
     phase_sparse_step(torch, sp, first_step)
     del first_step                # its tensors would count in the next peaks
     torch.cuda.empty_cache()
-    phase_polyploid_pipeline(torch, cli, kscore, kdelta)
+    by_phase['polyploid_pipeline'] = phase_polyploid_pipeline(
+        torch, cli, kscore, kdelta)
     torch.cuda.empty_cache()
-    phase_correct_pipeline(torch, cli, kscore, kdelta)
+    by_phase['correct_pipeline'] = phase_correct_pipeline(
+        torch, cli, kscore, kdelta)
     torch.cuda.empty_cache()
     out = os.path.join(WORK, 'out')
-    phase_allhic(torch, cli, kscore, kdelta, topt, out)
+    by_phase['allhic'], allhic_tour = phase_allhic(
+        torch, cli, kscore, kdelta, topt, out)
     torch.cuda.empty_cache()
     phase_post(torch, out, os.path.join(WORK, 'sim'), SIM)
+    torch.cuda.empty_cache()
+    by_phase['sim'] = phase_sim(torch, cli, kscore, kdelta, topt, out,
+                                allhic_tour)
     kernels = []
     for k in KERNELS:
         row = main_rows[k['name']]
+        counts = {p: n[k['name']] for p, n in by_phase.items()}
         # no single PyTorch call computes either function
-        kernels.append(dict(k, launches=launches[k['name']],
+        kernels.append(dict(k, launches=sum(counts.values()),
+                            launches_by_phase=counts,
                             max_abs_err=row['max_abs_err'], ms=row['ms'],
                             plain_ms=row['plain_ms'],
                             bound_ms=row['bound_ms'],

@@ -1,10 +1,11 @@
 """Command-line interface of the port: ``python -m haphic_tpu_torch``.
 
 Port of haphic_tpu/cli.py for the subcommands pipeline, cluster,
-reassign, sort, build, check, plot, refsort, util, allhic and juicer,
-with the same flags. The commands that use the card (pipeline, cluster,
-sort, allhic, plot) also take ``--device cuda|cpu`` (default cuda);
-asking for CUDA on a host without a card raises.
+reassign, sort, build, check, plot, refsort, util, sim, allhic and
+juicer, with the same flags. The commands that use the card (pipeline,
+cluster, sort, allhic, plot, sim ga_study) also take ``--device
+cuda|cpu`` (default cuda); asking for CUDA on a host without a card
+raises.
 """
 
 from __future__ import annotations
@@ -283,6 +284,227 @@ def build_parser() -> argparse.ArgumentParser:
     u.add_argument('tour')
     u = pusub.add_parser('remove_singletons')
     u.add_argument('bam')
+
+    pm = sub.add_parser('sim',
+                        help='simulation/evaluation harness tools')
+    pmsub = pm.add_subparsers(dest='sim_cmd', required=True)
+    s = pmsub.add_parser('convert_agp_to_tour')
+    s.add_argument('agp')
+    s.add_argument('prefix')
+    s = pmsub.add_parser('convert_assembly_to_tour')
+    s.add_argument('assembly')
+    s.add_argument('prefix')
+    s = pmsub.add_parser('convert_agp_to_groups')
+    s.add_argument('agp')
+    s = pmsub.add_parser('convert_assembly_to_groups')
+    s.add_argument('assembly')
+    s = pmsub.add_parser('convert_lachesis_result_to_groups')
+    s.add_argument('clusters')
+    s.add_argument('fasta')
+    s = pmsub.add_parser('convert_lachesis_ordering_to_tour')
+    s.add_argument('fasta')
+    s.add_argument('prefix')
+    s.add_argument('ordering_files', nargs='+')
+    s = pmsub.add_parser('sim_group_files')
+    s.add_argument('fasta')
+    s = pmsub.add_parser('ga_study',
+                         help='GA quality study: score-vs-generation on '
+                              'simulated groups (docs/GA_VALIDATION.md)')
+    s.add_argument('--ks', default='50,200')
+    s.add_argument('--ngen', type=int, default=3000)
+    s.add_argument('--npop', type=int, default=100)
+    s.add_argument('--seed', type=int, default=42)
+    s.add_argument('--backend', default='auto',
+                   choices=['auto', 'native', 'device'])
+    s.add_argument('--out', default=None)
+    _add_device_arg(s, 'the GA')
+
+    s = pmsub.add_parser('score_statistics')
+    s.add_argument('tour')
+    s.add_argument('chrom')
+    s.add_argument('N50')
+    s.add_argument('program')
+    s.add_argument('--each_iteration', action='store_true', default=False)
+    s = pmsub.add_parser('result_statistics')
+    s.add_argument('fasta')
+    s.add_argument('groups', nargs='+')
+    s = pmsub.add_parser('link_statistics')
+    s.add_argument('fasta')
+    s.add_argument('bam')
+    s.add_argument('tag')
+    s = pmsub.add_parser('shuffle_fasta')
+    s.add_argument('fasta')
+    s.add_argument('--seed', type=int, default=12345)
+    s.add_argument('--offset', type=int, default=0)
+    s = pmsub.add_parser('split_fasta')
+    s.add_argument('fasta')
+    s.add_argument('--bin_size', type=int, default=None)
+    s.add_argument('--seed', type=int, default=12345)
+    s = pmsub.add_parser('sample_mnd')
+    s.add_argument('mnd')
+    s.add_argument('npairs', type=int)
+    s.add_argument('proportion', type=float)
+    s.add_argument('--seed', type=int, default=12345)
+    s = pmsub.add_parser('sort_agp')
+    s.add_argument('agp')
+    s.add_argument('chr_ordering', nargs='+')
+    s = pmsub.add_parser('sim_switch_errors')
+    s.add_argument('fasta')
+    s.add_argument('allele_info')
+    s.add_argument('--rate', type=float, default=0.1)
+    s.add_argument('--seed', type=int, default=12345)
+    s = pmsub.add_parser('sim_for_reassignment')
+    s.add_argument('fasta')
+    s.add_argument('ratio', type=float)
+    s.add_argument('--error_type', default='inter_homo',
+                   choices=['inter_homo', 'inter_nonhomo', 'contiguity',
+                            'anchoring_rate'])
+    s.add_argument('--output_groups', action='store_true', default=False)
+    s.add_argument('--seed', type=int, default=12345)
+    s = pmsub.add_parser('get_haphic_break_points')
+    s.add_argument('raw_fasta')
+    s.add_argument('corrected_fasta')
+    s.add_argument('N50')
+    s = pmsub.add_parser('extract_corrected_ctgs_from_yahs_agp')
+    s.add_argument('agp')
+    s.add_argument('fasta')
+    s = pmsub.add_parser('extract_corrected_ctgs_from_salsa_agp')
+    s.add_argument('agp')
+    s.add_argument('fasta')
+    s = pmsub.add_parser('extract_corrected_ctgs_from_3d_dna_assembly')
+    s.add_argument('assembly')
+    s.add_argument('fasta')
+    s = pmsub.add_parser('summarize_correction')
+    s.add_argument('stat')
+    s = pmsub.add_parser('get_yahs_break_points')
+    s.add_argument('raw_fasta')
+    s.add_argument('agp')
+    s.add_argument('N50')
+    s = pmsub.add_parser('get_salsa_break_points')
+    s.add_argument('raw_fasta')
+    s.add_argument('agp')
+    s.add_argument('N50')
+    s = pmsub.add_parser('get_3d_dna_break_points')
+    s.add_argument('raw_fasta')
+    s.add_argument('assembly')
+    s.add_argument('N50')
+    s = pmsub.add_parser('get_allhic_break_points')
+    s.add_argument('raw_fasta')
+    s.add_argument('corrected_fasta')
+    s.add_argument('N50')
+    s = pmsub.add_parser('haplotype_kmers')
+    s.add_argument('ref')
+    s.add_argument('asm')
+    s.add_argument('--kmer_size', type=int, default=201)
+    s.add_argument('--bin_size', type=int, default=500000)
+    s = pmsub.add_parser('mock_delta')
+    s.add_argument('query_agp')
+    s.add_argument('query_fasta')
+    s.add_argument('ref_fasta')
+    s = pmsub.add_parser('validate_mock_delta')
+    s.add_argument('ref_fa')
+    s.add_argument('query_fa')
+    s.add_argument('mock_delta')
+    s = pmsub.add_parser('chimeric_contig_statistics')
+    s.add_argument('fasta')
+    s.add_argument('result')
+    s.add_argument('program')
+    s.add_argument('N50')
+    s = pmsub.add_parser('collapsed_contig_statistics')
+    s.add_argument('fasta')
+    s.add_argument('result')
+    s.add_argument('program')
+    s.add_argument('tag')
+    s.add_argument('--method', default='link_density',
+                   choices=['link_density', 'rank_sum'])
+    s = pmsub.add_parser('extract_SVs_from_simple')
+    s.add_argument('simple')
+    s.add_argument('gene_bed')
+    s.add_argument('--chrom', default='Chr02')
+    s = pmsub.add_parser('filter_orthologous_anchors')
+    s.add_argument('anchors_simple')
+    s.add_argument('bed1')
+    s.add_argument('bed2')
+    s.add_argument('chrs1')
+    s.add_argument('chrs2')
+    s = pmsub.add_parser('pbsperf')
+    s.add_argument('jobids', nargs='+')
+    s.add_argument('--ndays', type=int, default=100)
+    s = pmsub.add_parser('add_allele_tag')
+    s.add_argument('cor_file')
+    s.add_argument('allele_table')
+    s = pmsub.add_parser('allele_statistics')
+    s.add_argument('allele_info')
+    s.add_argument('prefix')
+    s.add_argument('--chrom', default='Chr1_1')
+    s = pmsub.add_parser('density_statistics')
+    s.add_argument('density')
+    s = pmsub.add_parser('get_paf_alignments')
+    s.add_argument('pafs', nargs='+')
+    s = pmsub.add_parser('filter_bam_from_list')
+    s.add_argument('bam')
+    s.add_argument('listf')
+    s.add_argument('--threads', type=int, default=8)
+    s = pmsub.add_parser('filter_fastq_len')
+    s.add_argument('fastq_files', nargs='+')
+    s.add_argument('--len_cutoff', type=int, default=50000)
+    s = pmsub.add_parser('interpret_switch_errors')
+    s.add_argument('allele_info')
+    s.add_argument('new_allele_info')
+    s = pmsub.add_parser('split_mnd')
+    s.add_argument('mnd')
+    s.add_argument('chrs', nargs='+')
+    s = pmsub.add_parser('split_bam')
+    s.add_argument('bam')
+    s.add_argument('chrs', nargs='+')
+    s.add_argument('--threads', type=int, default=8)
+    s = pmsub.add_parser('generic_result_statistics')
+    s.add_argument('fasta')
+    s.add_argument('chr_pattern')
+    s.add_argument('groups', nargs='+')
+    s = pmsub.add_parser('draw_tour_file')
+    s.add_argument('fasta')
+    s.add_argument('tour')
+    s.add_argument('program')
+    s.add_argument('N50')
+    s.add_argument('--CCC', action='store_true', default=False)
+    s = pmsub.add_parser('sim_collapsed_regions')
+    s.add_argument('fasta')
+    s.add_argument('allele_info')
+    s.add_argument('--collapsed_len', type=int, default=500000)
+    s.add_argument('--collapsed_ratio', type=float, default=0.2)
+    s.add_argument('--weights', default='0.7,0.2,0.1')
+    s.add_argument('--seed', type=int, default=12345)
+    s.add_argument('--strict', action='store_true', default=False)
+    s = pmsub.add_parser('allelic_contig_statistics')
+    s.add_argument('result', help='cluster-stage --verbose log')
+    s.add_argument('allele_table', help='ALLHiC Allele.ctg.table')
+    s.add_argument('tag')
+    s.add_argument('--overlap_len_cutoff', type=int, default=10000)
+    s.add_argument('--link_cutoff', type=int, default=20)
+    s = pmsub.add_parser('get_discordant_HiC_links')
+    s.add_argument('agp_truth')
+    s.add_argument('bam')
+    s.add_argument('--agp', nargs=2, action='append', required=True,
+                   metavar=('TAG', 'AGP'),
+                   help='result to compare (repeatable)')
+    s.add_argument('--bin_size', type=int, default=500000)
+    s = pmsub.add_parser('correction_analysis')
+    s.add_argument('raw', help='raw assembly FASTA')
+    s.add_argument('bam')
+    s.add_argument('ctg_anno', help='contig annotation list')
+    s.add_argument('--agp', nargs=2, action='append', required=True,
+                   metavar=('TAG', 'AGP'),
+                   help='corrected AGP to compare (repeatable)')
+    s.add_argument('--hap_prefixes', required=True,
+                   help='comma-separated haplotype sequence-name '
+                        'prefixes')
+    s.add_argument('--resolution', type=int, default=10000)
+    s = pmsub.add_parser('mock_delta_chrs_only')
+    s.add_argument('query_agp')
+    s.add_argument('query_fasta')
+    s.add_argument('ref_fasta')
+    s.add_argument('ref_chrom_pattern')
 
     pa = sub.add_parser(
         'allhic',
@@ -614,6 +836,151 @@ def cmd_util(args) -> int:
     return 0
 
 
+def cmd_sim(args) -> int:
+    from haphic_tpu_torch.sim import harness as h
+    c = args.sim_cmd
+    if c == 'convert_agp_to_tour':
+        h.convert_agp_to_tour(args.agp, args.prefix)
+    elif c == 'convert_assembly_to_tour':
+        h.convert_assembly_to_tour(args.assembly, args.prefix)
+    elif c == 'convert_agp_to_groups':
+        h.convert_agp_to_groups(args.agp)
+    elif c == 'convert_assembly_to_groups':
+        h.convert_assembly_to_groups(args.assembly)
+    elif c == 'convert_lachesis_result_to_groups':
+        h.convert_lachesis_result_to_groups(args.clusters, args.fasta)
+    elif c == 'convert_lachesis_ordering_to_tour':
+        h.convert_lachesis_ordering_to_tour(args.fasta, args.prefix,
+                                            args.ordering_files)
+    elif c == 'sim_group_files':
+        h.sim_group_files(args.fasta)
+    elif c == 'ga_study':
+        from haphic_tpu_torch.runtime import resolve_device
+        from haphic_tpu_torch.sim.ga_study import run_study
+        resolve_device(args.device)
+        run_study(ks=[int(x) for x in args.ks.split(',')],
+                  ngen=args.ngen, npop=args.npop, seed=args.seed,
+                  backend=args.backend, out=args.out, device=args.device)
+    elif c == 'score_statistics':
+        h.score_statistics(args.tour, args.chrom, args.N50, args.program,
+                           each_iteration=args.each_iteration)
+    elif c == 'result_statistics':
+        h.result_statistics(args.fasta, args.groups)
+    elif c == 'link_statistics':
+        h.link_statistics(args.fasta, args.bam, args.tag)
+    elif c == 'shuffle_fasta':
+        h.shuffle_fasta(args.fasta, seed=args.seed, offset=args.offset)
+    elif c == 'split_fasta':
+        h.split_fasta(args.fasta, bin_size=args.bin_size, seed=args.seed)
+    elif c == 'sample_mnd':
+        h.sample_mnd(args.mnd, args.npairs, args.proportion,
+                     seed=args.seed)
+    elif c == 'sort_agp':
+        h.sort_agp(args.agp, args.chr_ordering)
+    elif c == 'sim_switch_errors':
+        h.sim_switch_errors(args.fasta, args.allele_info, rate=args.rate,
+                            seed=args.seed)
+    elif c == 'sim_for_reassignment':
+        h.sim_for_reassignment(args.fasta, args.ratio,
+                               error_type=args.error_type,
+                               seed=args.seed,
+                               output_groups=args.output_groups)
+    elif c == 'get_haphic_break_points':
+        h.get_haphic_break_points(args.raw_fasta, args.corrected_fasta,
+                                  args.N50)
+    elif c == 'extract_corrected_ctgs_from_yahs_agp':
+        h.extract_corrected_ctgs_from_yahs_agp(args.agp, args.fasta)
+    elif c == 'extract_corrected_ctgs_from_salsa_agp':
+        h.extract_corrected_ctgs_from_salsa_agp(args.agp, args.fasta)
+    elif c == 'extract_corrected_ctgs_from_3d_dna_assembly':
+        h.extract_corrected_ctgs_from_3d_dna_assembly(args.assembly,
+                                                      args.fasta)
+    elif c == 'summarize_correction':
+        h.summarize_correction(args.stat)
+    elif c == 'get_yahs_break_points':
+        h.get_yahs_break_points(args.raw_fasta, args.agp, args.N50)
+    elif c == 'get_salsa_break_points':
+        h.get_salsa_break_points(args.raw_fasta, args.agp, args.N50)
+    elif c == 'get_3d_dna_break_points':
+        h.get_3d_dna_break_points(args.raw_fasta, args.assembly,
+                                  args.N50)
+    elif c == 'get_allhic_break_points':
+        h.get_allhic_break_points(args.raw_fasta, args.corrected_fasta,
+                                  args.N50)
+    elif c == 'haplotype_kmers':
+        h.haplotype_kmers(args.ref, args.asm, kmer_size=args.kmer_size,
+                          bin_size=args.bin_size)
+    elif c == 'mock_delta':
+        h.mock_delta(args.query_agp, args.query_fasta, args.ref_fasta)
+    elif c == 'validate_mock_delta':
+        h.validate_mock_delta(args.ref_fa, args.query_fa,
+                              args.mock_delta)
+    elif c == 'chimeric_contig_statistics':
+        h.chimeric_contig_statistics(args.fasta, args.result, args.N50)
+    elif c == 'collapsed_contig_statistics':
+        h.collapsed_contig_statistics(args.fasta, args.result, args.tag,
+                                      method=args.method)
+    elif c == 'extract_SVs_from_simple':
+        h.extract_SVs_from_simple(args.simple, args.gene_bed,
+                                  chrom=args.chrom)
+    elif c == 'filter_orthologous_anchors':
+        h.filter_orthologous_anchors(args.anchors_simple, args.bed1,
+                                     args.bed2, args.chrs1.split(','),
+                                     args.chrs2.split(','))
+    elif c == 'pbsperf':
+        h.pbsperf(args.jobids, ndays=args.ndays)
+    elif c == 'add_allele_tag':
+        h.add_allele_tag(args.cor_file, args.allele_table)
+    elif c == 'allele_statistics':
+        h.allele_statistics(args.allele_info, args.prefix,
+                            chrom=args.chrom)
+    elif c == 'density_statistics':
+        h.density_statistics(args.density)
+    elif c == 'get_paf_alignments':
+        h.get_paf_alignments(args.pafs)
+    elif c == 'filter_bam_from_list':
+        h.filter_bam_from_list(args.bam, args.listf,
+                               threads=args.threads)
+    elif c == 'filter_fastq_len':
+        h.filter_fastq_len(args.fastq_files, len_cutoff=args.len_cutoff)
+    elif c == 'interpret_switch_errors':
+        h.interpret_switch_errors(args.allele_info, args.new_allele_info)
+    elif c == 'split_mnd':
+        h.split_mnd(args.mnd, args.chrs)
+    elif c == 'split_bam':
+        h.split_bam(args.bam, args.chrs, threads=args.threads)
+    elif c == 'generic_result_statistics':
+        h.generic_result_statistics(args.fasta, args.chr_pattern,
+                                    args.groups)
+    elif c == 'draw_tour_file':
+        h.draw_tour_file(args.fasta, args.tour, args.program, args.N50,
+                         ccc=args.CCC)
+    elif c == 'sim_collapsed_regions':
+        h.sim_collapsed_regions(
+            args.fasta, args.allele_info,
+            collapsed_len=args.collapsed_len,
+            collapsed_ratio=args.collapsed_ratio,
+            weights=[float(w) for w in args.weights.split(',')],
+            seed=args.seed, strict=args.strict)
+    elif c == 'allelic_contig_statistics':
+        h.allelic_contig_statistics(
+            args.result, args.allele_table, args.tag,
+            overlap_len_cutoff=args.overlap_len_cutoff,
+            link_cutoff=args.link_cutoff)
+    elif c == 'get_discordant_HiC_links':
+        h.get_discordant_hic_links(args.agp_truth, args.agp, args.bam,
+                                   bin_size=args.bin_size)
+    elif c == 'correction_analysis':
+        h.correction_analysis(args.raw, args.bam, args.ctg_anno,
+                              args.agp,
+                              args.hap_prefixes.split(','),
+                              resolution=args.resolution)
+    elif c == 'mock_delta_chrs_only':
+        h.mock_delta_chrs_only(args.query_agp, args.query_fasta,
+                               args.ref_fasta, args.ref_chrom_pattern)
+    return 0
+
+
 def cmd_allhic(args) -> int:
     """Standalone `allhic optimize` replacement (flag contract:
     scripts/HapHiC_sort.py:618-642). Reads <group>.txt + .clm, writes
@@ -690,6 +1057,7 @@ def main(argv=None) -> int:
         'plot': cmd_plot,
         'refsort': cmd_refsort,
         'allhic': cmd_allhic,
+        'sim': cmd_sim,
         'juicer': cmd_juicer,
         'util': cmd_util,
     }[args.command](args)
