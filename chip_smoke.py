@@ -61,7 +61,9 @@ Phases, each printing one JSON line:
              torch.profiler split by op and by kernel, each with its
              share.
 6. polyploid_pipeline
-             the pipeline phase's genome made tetraploid
+             the pipeline phase's genome at half its contigs and pairs
+             (8 x 500 contigs, 1,000,000 pairs: a cut, for time) made
+             tetraploid
              (make_polyploid_sim: chr1-4 and chr5-8 are the haplotypes
              of two chromosomes, allelic Hi-C pairs between them, four
              GFAs, a UL BAM) with --remove_allelic_links 4
@@ -136,11 +138,44 @@ Phases, each printing one JSON line:
              phase's tour must print its >GA5000 score, and `sim
              convert_agp_to_tour` on the pipeline's scaffolds.agp must
              list every W line's contig and orientation in order.
-11. kernels  one line listing every kernel (the line before the last):
+11. mesh_pipeline
+             the pipeline phase's genome, flags and cut through `python
+             -m torch.distributed.run --standalone --nproc_per_node 2`
+             with --use_mesh on: each rank is this script's worker
+             (`chip_smoke.py --mesh-worker pipeline spec.json`), which
+             calls the same `cli.main(["pipeline", ...])` with the launch
+             counts set to 0 just before and read just after. On one
+             card both ranks run on cuda:0 over gloo; with two cards,
+             one each over NCCL. Ingest, the 20 inflations and the GA's
+             groups shard over the ranks. Each rank's MCL and GA must run
+             on the card with both kernels, one delta launch per delta
+             generation it reports; out_mesh/ and out_mesh.rank1/ must
+             equal the single-process out/ byte for byte (every
+             01.cluster file, scaffolds.agp, scaffolds.raw.agp), and the
+             8 chromosomes come back. Prints backend, world, wall, and per
+             rank its stage seconds, seconds and bytes in collectives
+             and peak card memory.
+12. mesh_sparse
+             the sparse pipeline's adjacency (n = 24,000, K = 128), its
+             first inflation batch (4 of 20 inflations, a cut), through
+             the column-sharded run_mcl_sparse on two torchrun ranks
+             (`--mesh-worker sparse`) against the meshless run on the
+             card: iterates, iteration counts and K shrinks bit-equal.
+             Prints each sharded step's ms, its all-gather ms and bytes,
+             peak card memory per rank.
+13. mesh_nccl
+             a one-rank NCCL group in this process, so that NCCL's
+             collectives run on CUDA tensors even on one card: the
+             sharded dense sweep (its first 5 inflations at n = 8000),
+             the sharded sparse step (the sparse pipeline's first step)
+             and the sharded GA (the pipeline's own GA call: 7 groups,
+             both kernels; launch counts set to 0 just before and read
+             just after) against the meshless calls, bit-equal.
+14. kernels  one line listing every kernel (the line before the last):
              `launches` sums the counts of every phase that drives a
              path (pipeline, sparse_pipeline, polyploid_pipeline,
-             correct_pipeline, allhic, sim), `launches_by_phase` lists
-             them.
+             correct_pipeline, allhic, sim, mesh_pipeline over its two
+             ranks, mesh_nccl), `launches_by_phase` lists them.
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
@@ -172,6 +207,9 @@ SIM = dict(nchrs=8, ctgs_per_chr=1000, ctg_len=20000, n_pairs=2_000_000,
 SPARSE_SIM = dict(nchrs=24, ctgs_per_chr=1000, ctg_len=20000,
                   n_pairs=6_000_000, seed=17)
 NGEN = 500
+# the polyploid genome: the dense genome at half its contigs and pairs
+# (a cut, for time: every check keeps its meaning)
+POLY_SIM = dict(SIM, ctgs_per_chr=500, n_pairs=1_000_000)
 # polyploid_pipeline: the tetraploid genome's own draws (make_polyploid_sim)
 POLY_SEED = 18
 POLY_ALLELIC = 25        # Hi-C pairs per allelic contig pair
@@ -205,6 +243,9 @@ SIM_MIN_SPEARMAN = 0.9   # every hot run, every k
 SIM_MIN_TRUTH = 0.9      # every hot run: final score / the truth's
 SIM_CHECK_GEN = 2400     # the delta launch of each run rerun (middle)
 SIM_FALL_TOL = 1e-6      # history: largest fall, relative to the score
+MESH_WORLD = 2           # mesh_pipeline, mesh_sparse: torchrun ranks
+MESH_SPARSE_B = 4        # mesh_sparse: the sweep's first inflation batch
+MESH_DENSE_B = 5         # mesh_nccl: the dense sweep's first 5 inflations
 REL_TOL = 1e-5           # score_population, relative
 DELTA_TOL = 1e-6         # delta_generation, relative to the row's score
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor)
@@ -224,7 +265,14 @@ KERNELS = [{
 }]
 
 
+T0 = time.time()
+
+
 def emit(obj):
+    """One JSON line; a phase line also gets 'at_s', the seconds since
+    the script started."""
+    if 'phase' in obj:
+        obj = dict(obj, at_s=time.time() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -572,14 +620,14 @@ def phase_polyploid_pipeline(torch, cli, kscore, kdelta):
     search, the UL paths found, and the 8 chromosomes recovered with
     the MCL and the GA on the card."""
     sim_s, wall, m, launches, part, _ = _drive_pipeline(
-        torch, cli, kscore, kdelta, SIM, 'poly_sim', 'poly_out', 'dense',
+        torch, cli, kscore, kdelta, POLY_SIM, 'poly_sim', 'poly_out', 'dense',
         genome=make_polyploid_sim)
     allelic = m['allelic'][-1]
     check(allelic['n_allelic_pairs'] > 0, 'no allelic pair was removed')
     check(allelic['largest_allele_group'] == 4, 'allele groups of {} '
           'contigs at ploidy 4'.format(allelic['largest_allele_group']))
     check(m['ul_paths'][-1] > 0, 'no UL path was found')
-    emit({'phase': 'polyploid_pipeline', 'sim': SIM,
+    emit({'phase': 'polyploid_pipeline', 'sim': POLY_SIM,
           'genome': {'ploidy': 4, 'allelic_pairs_per_contig_pair':
                      POLY_ALLELIC, 'fifth_every': POLY_FIFTH,
                      'ul_every': UL_EVERY, 'ul_reads': UL_READS},
@@ -1030,11 +1078,12 @@ def phase_post(torch, out, sim_dir, sim):
 def _recorded_launches(topt):
     """Host copies of kernel arguments the GA passes inside the block,
     one entry per score_population call (on the delta route the GA
-    scores each batch once, at its start, so an entry is a batch):
-    'score' that call's arguments, 'delta' those of the batch's
-    SIM_CHECK_GEN-th delta_generation call ((state before the step,
-    move, (la, lb, d, w))) or None, 'n_delta' its delta calls, 'copy_s'
-    the seconds the copies took. The GA reaches score_population by its
+    scores each group once, at its batch's start, one launch per group;
+    in `sim` a GA call is one group, so there an entry is a GA call):
+    'score' that call's arguments, 'delta' those of the
+    SIM_CHECK_GEN-th delta_generation call after it ((state before the
+    step, move, (la, lb, d, w))) or None, 'n_delta' its delta calls,
+    'copy_s' the seconds the copies took. The GA reaches score_population by its
     module's name and the delta kernel's wrapper as _dgen's default
     `step`; both are restored on leaving."""
     batches = []
@@ -1301,15 +1350,23 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel(torch, kscore, big, launches):
+def phase_kernel(torch, kscore, main_args, launches):
+    """score_population held against its plain version and timed: at a
+    small shape, on random unsorted records at the main path's shape,
+    and ('main_path') on the host copy ``main_args`` of the arguments of
+    the dense pipeline's largest launch. The GA launches the kernel once
+    per group (optimize._Records.score), so that launch is one group."""
     rows = []
-    main = (big['G'], big['P'], big['k_pad'], big['R_pad'])
-    shapes = [('small', 2, 6, 32, 1000),
-              ('main_path_unsorted',) + main,
-              ('main_path',) + main]
-    for seed, (label, G, P, k, R) in enumerate(shapes):
-        args = _score_inputs(torch, G, P, k, R, min(seed, 1),
-                             sort=label != 'main_path_unsorted')
+    G, P, k = main_args[0].shape
+    main = (G, P, k, main_args[3].shape[1])
+    cases = [('small', lambda: _score_inputs(torch, 2, 6, 32, 1000, 0)),
+             ('main_path_unsorted',
+              lambda: _score_inputs(torch, *main, 1, sort=False)),
+             ('main_path', lambda: [x.to(DEVICE) for x in main_args])]
+    for label, make in cases:
+        args = make()
+        G, P, k = args[0].shape
+        R = args[3].shape[1]
         got = kscore.score_population(*args)
         want = kscore.score_population_plain(*args)
         torch.cuda.synchronize()
@@ -1334,6 +1391,7 @@ def phase_kernel(torch, kscore, big, launches):
         emit({'phase': 'kernel', 'name': 'score_population',
               'main_path_launches': launches['score_population'], **row})
         rows.append(row)
+        del args, got, want
     return rows
 
 
@@ -1345,7 +1403,7 @@ def _delta_inputs(torch, topt, trace_ga, G, P, k, R, seed):
     rec, state = trace_ga.make_batch(G, P, k, R, seed, DEVICE)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    move = topt._sample_moves(gen, (G, P), k, 1.1,
+    move = topt._sample_moves(topt._Draws(gen, G), (G, P), k, 1.1,
                               local_frac=topt._DELTA_LOCAL_FRAC,
                               device=DEVICE)
     return rec, state, move
@@ -1566,13 +1624,363 @@ def _threshold(torch, topt, scores, move):
     return scores * (topt._DELTA_MIN_GAIN + topt._DELTA_SPAN_GAIN * spanv)
 
 
+@contextlib.contextmanager
+def _first_call(module, name, keep):
+    """Appends {'args', 'kw', 'result'} of the first call of
+    module.name made inside the block to ``keep`` (the port calls these
+    by their module's name); restored on leaving."""
+    fn = getattr(module, name)
+
+    def recording(*args, **kw):
+        res = fn(*args, **kw)
+        if not keep:
+            keep.append({'args': args, 'kw': kw, 'result': res})
+        return res
+
+    setattr(module, name, recording)
+    try:
+        yield keep
+    finally:
+        setattr(module, name, fn)
+
+
+def _torchrun(kind, spec, timeout):
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    MESH_WORLD chip_smoke.py --mesh-worker kind spec.json`: one process
+    per rank, each on cuda:{LOCAL_RANK % device_count}. Returns (wall
+    seconds, each rank's JSON record)."""
+    path = os.path.join(WORK, 'mesh_{}.json'.format(kind))
+    with open(path, 'w') as f:
+        json.dump(spec, f)
+    for r in range(MESH_WORLD):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove('{}.rank{}'.format(path, r))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    # one node: the ranks meet on the loopback interface
+    env.setdefault('GLOO_SOCKET_IFNAME', 'lo')
+    env.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         '--nproc_per_node', str(MESH_WORLD), os.path.abspath(__file__),
+         '--mesh-worker', kind, path], env=env, capture_output=True,
+        text=True, timeout=timeout)
+    wall = time.time() - t0
+    with open(os.path.join(WORK, 'mesh_{}.log'.format(kind)), 'w') as f:
+        f.write(proc.stdout + proc.stderr)
+    sys.stderr.write(proc.stderr[-4000:])
+    check(proc.returncode == 0, 'torchrun {} exit code {}'.format(
+        kind, proc.returncode))
+    recs = []
+    for r in range(MESH_WORLD):
+        with open('{}.rank{}'.format(path, r)) as f:
+            recs.append(json.load(f))
+    return wall, recs
+
+
+def mesh_worker(kind, spec_path) -> int:
+    """One rank under torchrun (chip_smoke.py --mesh-worker kind spec):
+    'pipeline' runs `cli.main(spec['argv'])` with the launch counts set
+    to 0 just before and read just after; 'sparse' runs the sharded
+    run_mcl_sparse on spec['coo'] and times each sweep step. Writes the
+    rank's record to <spec>.rank<r>."""
+    import torch
+    sys.path.insert(0, REPO)
+    from haphic_tpu_torch.kernels import delta as kdelta
+    from haphic_tpu_torch.kernels import score as kscore
+    from haphic_tpu_torch.parallel import mesh as pmesh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ['RANK'])
+    logging.basicConfig(level=logging.INFO)
+    rec = {'rank': rank, 'local_rank': int(os.environ['LOCAL_RANK'])}
+    if kind == 'pipeline':
+        from haphic_tpu_torch import cli
+        log = MetricsLog()
+        logging.getLogger('haphic_tpu_torch').addHandler(log)
+        kscore.score_population.launches = 0
+        kdelta.delta_generation.launches = 0
+        t0 = time.time()
+        rc = cli.main(spec['argv'])
+        torch.cuda.synchronize()
+        rec.update(rc=rc, wall_s=time.time() - t0, metrics=log.metrics,
+                   launches={
+                       'score_population': kscore.score_population.launches,
+                       'delta_generation': kdelta.delta_generation.launches},
+                   device=str(torch.cuda.current_device()),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+    else:
+        from haphic_tpu_torch.cluster import sparse_mcl as sp
+        pmesh.init_distributed('cuda')
+        mesh = pmesh.make_mesh('cuda')
+        d = np.load(spec['coo'])
+        steps = []
+        step = sp._sharded_sweep_step
+
+        def timed(m, idx, *rest):
+            torch.cuda.synchronize()
+            st0 = dict(m.stats)
+            t0 = time.perf_counter()
+            out = step(m, idx, *rest)
+            torch.cuda.synchronize()
+            steps.append({
+                'ms': (time.perf_counter() - t0) * 1e3,
+                'gather_ms': (m.stats['collective_s']
+                              - st0['collective_s']) * 1e3,
+                'bytes': m.stats['collective_bytes']
+                - st0['collective_bytes'], 'K': int(idx.shape[2])})
+            return out
+
+        sp._sharded_sweep_step = timed
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = sp.run_mcl_sparse(d['i'], d['j'], d['w'], int(d['n']),
+                                d['inflations'].tolist(), K=int(d['K']),
+                                expansion=int(d['expansion']),
+                                max_iter=int(d['max_iter']),
+                                pruning=float(d['pruning']), mesh=mesh)
+        sweep_s = time.time() - t0
+        np.save('{}.idx{}.npy'.format(spec_path, rank), res.idx)
+        np.save('{}.val{}.npy'.format(spec_path, rank), res.val)
+        rec.update(rc=0, sweep_s=sweep_s, n_iters=res.n_iters.tolist(),
+                   converged=res.converged.tolist(), k_steps=res.k_steps,
+                   steps=steps, backend=mesh.backend, world=mesh.world,
+                   device=str(mesh.device),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        pmesh.shutdown_distributed()
+    with open('{}.rank{}'.format(spec_path, rank), 'w') as f:
+        json.dump(rec, f, default=str)
+    return int(rec['rc'])
+
+
+def _read_all(root, rels):
+    """{rel: bytes} of the files ``rels`` under root, read from 16
+    threads (tens of thousands of small files: the opens dominate)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def read(rel):
+        with open(os.path.join(root, rel), 'rb') as f:
+            return f.read()
+    with ThreadPoolExecutor(16) as pool:
+        return dict(zip(rels, pool.map(read, rels)))
+
+
+def phase_mesh_pipeline(torch, out):
+    """The dense phase's genome, flags and cut through `python -m
+    torch.distributed.run --standalone --nproc_per_node 2 -m
+    haphic_tpu_torch pipeline ... --use_mesh on` (here through this
+    script's worker, which calls the same cli.main): ingest, the
+    inflations and the GA groups shard over the two ranks (both on
+    cuda:0 over gloo on one card, one card each over NCCL on two).
+    Each rank's MCL and GA must run on the card with both kernels, one
+    delta launch per delta generation it reports; out_mesh/ and
+    out_mesh.rank1/ must equal the single-process out/: every
+    01.cluster file, scaffolds.agp and scaffolds.raw.agp; the 8
+    chromosomes come back. Returns the launches summed over the
+    ranks."""
+    fa = os.path.join(WORK, 'sim', 'asm.fa')
+    pairs = os.path.join(WORK, 'sim', 'hic.pairs')
+    mesh_out = os.path.join(WORK, 'out_mesh')
+    for r in range(MESH_WORLD):
+        shutil.rmtree(mesh_out + ('.rank{}'.format(r) if r else ''),
+                      ignore_errors=True)
+    argv = ['pipeline', fa, pairs, str(SIM['nchrs']), '--outdir', mesh_out,
+            '--ngen', str(NGEN), '--use_mesh', 'on'] + SIM_FLAGS
+    wall, recs = _torchrun('pipeline', {'argv': argv}, 420)
+    launches = {'score_population': 0, 'delta_generation': 0}
+    ranks = []
+    for r, rec in enumerate(recs):
+        m = rec['metrics']
+        check(rec['rc'] == 0, 'rank {} exit code {}'.format(r, rec['rc']))
+        mesh = m['mesh'][-1]
+        check(mesh['world'] == MESH_WORLD and mesh['rank'] == r,
+              'rank {} mesh {}'.format(r, mesh))
+        check(m['mcl_route'][-1] == 'cuda' and m['ga_route'][-1] == 'cuda',
+              'rank {}: MCL on {}, GA on {}'.format(
+                  r, m['mcl_route'][-1], m['ga_route'][-1]))
+        for kname, n in rec['launches'].items():
+            check(n > 0, 'rank {} launched no {}'.format(r, kname))
+            launches[kname] += n
+        check(rec['launches']['delta_generation'] == sum(m['ga_delta_gens']),
+              'rank {}: {} delta launches for {} delta generations'.format(
+                  r, rec['launches']['delta_generation'],
+                  sum(m['ga_delta_gens'])))
+        ranks.append({'rank': r, 'device': mesh['device'],
+                      'backend': mesh['backend'],
+                      'mcl_shard': m['mcl_shard'][-1],
+                      'ga_batches': m['ga_batch'],
+                      'ga_delta_gens': sum(m['ga_delta_gens']),
+                      'launches': rec['launches'],
+                      'stage_s': m['stage_secs'][-1],
+                      'cluster_s': m['cluster_secs'][-1],
+                      'ga_s': m['ga_secs'][-1], 'wall_s': rec['wall_s'],
+                      'collectives': m['mesh_stats'][-1],
+                      'max_memory_allocated': rec['max_memory_allocated']})
+    rels = ['04.build/scaffolds.agp', '04.build/scaffolds.raw.agp']
+    for d, _, files in os.walk(os.path.join(out, '01.cluster')):
+        rels += [os.path.relpath(os.path.join(d, f), out) for f in files
+                 if not os.path.islink(os.path.join(d, f))]
+    t0 = time.time()
+    want = _read_all(out, rels)
+    for r in range(MESH_WORLD):
+        got = mesh_out + ('.rank{}'.format(r) if r else '')
+        bad = [rel for rel, data in _read_all(got, rels).items()
+               if data != want[rel]]
+        check(not bad, 'rank {} differs from the single-process run in '
+              '{} files, e.g. {}'.format(r, len(bad), bad[:5]))
+        part = check_partition(os.path.join(got, '04.build',
+                                            'scaffolds.agp'), SIM['nchrs'])
+    emit({'phase': 'mesh_pipeline', 'world': MESH_WORLD,
+          'backend': ranks[0]['backend'], 'sim': SIM,
+          'cut': {'ngen': [5000, NGEN]}, 'files_equal': len(rels),
+          'wall_s': wall, 'compare_s': time.time() - t0, 'ranks': ranks,
+          'launches': launches, **part})
+    return launches
+
+
+def phase_mesh_sparse(torch, sp, call):
+    """The sparse phase's adjacency (n = 24,000, K = 128), its first
+    inflation batch only (a cut: MESH_SPARSE_B of its inflations),
+    through the column-sharded run_mcl_sparse on two torchrun ranks,
+    against the meshless run on the same input: iterates, iteration
+    counts and K shrinks bit-equal. Prints each sharded step's ms and
+    all-gather ms and bytes, the peak memory per rank."""
+    (i, j, w, n, infl), kw = call['args'], call['kw']
+    infl = list(infl)[:MESH_SPARSE_B]
+    coo = os.path.join(WORK, 'mesh_sparse_coo.npz')
+    np.savez(coo, i=i, j=j, w=w, n=n, inflations=np.asarray(infl),
+             K=kw['K'], expansion=kw['expansion'], max_iter=kw['max_iter'],
+             pruning=kw['pruning'])
+    wall, recs = _torchrun('sparse', {'coo': coo}, 300)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    want = sp.run_mcl_sparse(i, j, w, n, infl, K=kw['K'],
+                             expansion=kw['expansion'],
+                             max_iter=kw['max_iter'],
+                             pruning=kw['pruning'], device=DEVICE)
+    meshless_s = time.time() - t0
+    spec = os.path.join(WORK, 'mesh_sparse.json')
+    ranks = []
+    for r, rec in enumerate(recs):
+        idx = np.load('{}.idx{}.npy'.format(spec, r))
+        val = np.load('{}.val{}.npy'.format(spec, r))
+        diff = int((idx != want.idx).sum() + (val != want.val).sum())
+        check(diff == 0, 'rank {}: {} iterate entries differ from the '
+              'meshless run'.format(r, diff))
+        check(rec['n_iters'] == want.n_iters.tolist()
+              and rec['k_steps'] == want.k_steps,
+              'rank {}: iterations {} / K steps {} vs meshless {} / {}'
+              .format(r, rec['n_iters'], rec['k_steps'],
+                      want.n_iters.tolist(), want.k_steps))
+        st = rec['steps']
+        full = [x for x in st if x['K'] == kw['K']]
+        ranks.append({'rank': r, 'device': rec['device'],
+                      'sweep_s': rec['sweep_s'], 'steps': len(st),
+                      'step_ms_at_K': [x['ms'] for x in full],
+                      'gather_ms_at_K': [x['gather_ms'] for x in full],
+                      'gather_bytes_at_K': full[0]['bytes'] if full else 0,
+                      'gather_ms_total': sum(x['gather_ms'] for x in st),
+                      'max_memory_allocated': rec['max_memory_allocated']})
+    emit({'phase': 'mesh_sparse', 'world': recs[0]['world'],
+          'backend': recs[0]['backend'], 'n': n, 'K': kw['K'],
+          'inflations': infl, 'cut': {'inflations': [len(call['args'][4]),
+                                                     len(infl)]},
+          'n_iters': want.n_iters.tolist(), 'k_steps': want.k_steps,
+          'equal': True, 'wall_s': wall, 'meshless_s': meshless_s,
+          'meshless_max_memory_allocated': torch.cuda.max_memory_allocated(),
+          'ranks': ranks})
+
+
+def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
+                    step_args):
+    """A one-rank NCCL group in this process, so that NCCL's collectives
+    run on CUDA tensors on the card even with one card: the sharded
+    dense sweep (its first MESH_DENSE_B inflations, n = 8000), the
+    sharded sparse step (the sparse pipeline's first step, B = 4, n+1 =
+    24,001, K = 128) and the sharded GA (the dense pipeline's call, its
+    batch of 7 groups) against the meshless calls: bit-equal."""
+    from haphic_tpu_torch.cluster import mcl as tmcl
+    from haphic_tpu_torch.parallel import mesh as pmesh
+    store = os.path.join(WORK, 'nccl_store')
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(store)
+    os.environ.setdefault('NCCL_SOCKET_IFNAME', 'lo')
+    pmesh.init_distributed(DEVICE, init_method='file://' + store, rank=0,
+                           world_size=1)
+    try:
+        mesh = pmesh.make_mesh(DEVICE)
+        check(mesh.backend == 'nccl', 'backend {}'.format(mesh.backend))
+        line = {'phase': 'mesh_nccl', 'world': mesh.world,
+                'backend': mesh.backend}
+        # dense sweep
+        kw = dict(dense_call['kw'])
+        kw.pop('device', None)
+        infl = list(dense_call['args'][1])[:MESH_DENSE_B]
+        t0 = time.time()
+        got = pmesh.mcl_sweep_sharded_partitions(mesh, None, infl, **kw)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        want = tmcl.run_mcl_partitions(None, infl, device=DEVICE, **kw)
+        line['dense'] = {'n': kw['coo'][3], 'inflations': infl,
+                         'n_iters': got[1].tolist(), 'sharded_s': t1 - t0,
+                         'meshless_s': time.time() - t1}
+        check(got[0] == want[0] and np.array_equal(got[1], want[1]),
+              'sharded dense sweep differs from the meshless one')
+        # sparse step
+        si, sv, f, active, n, K, chunk, pruning, expansion = step_args
+        si, sv, f = si.to(DEVICE), sv.to(DEVICE), f.to(DEVICE)
+        t0 = time.time()
+        g = sp._sharded_sweep_step(mesh, si, sv, f, active, n, K, chunk,
+                                   pruning, expansion)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        w_ = sp._sweep_step(si, sv, f, active, n, K, chunk, pruning,
+                            expansion)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(g[:2], w_[:2]))
+              and torch.equal(g[2].double(), w_[2].double())
+              and int(g[3]) == int(w_[3]),
+              'sharded sparse step differs from the meshless one')
+        line['sparse_step'] = {'B': int(si.shape[0]), 'n_plus_1': n + 1,
+                               'K': K, 'sharded_s': t1 - t0,
+                               'meshless_s': time.time() - t1}
+        del si, sv, g, w_
+        # GA
+        kw = dict(ga_call['kw'], mesh=mesh)
+        kscore.score_population.launches = 0
+        kdelta.delta_generation.launches = 0
+        t0 = time.time()
+        res = topt.optimize_tours(*ga_call['args'], **kw)
+        secs = time.time() - t0
+        launches = {'score_population': kscore.score_population.launches,
+                    'delta_generation': kdelta.delta_generation.launches}
+        want = ga_call['result']
+        same = [np.array_equal(a.order, b.order)
+                and np.array_equal(a.ori, b.ori) and a.score == b.score
+                and a.history == b.history for a, b in zip(res, want)]
+        check(len(res) == len(want) and all(same),
+              'sharded GA differs from the meshless one in groups {}'
+              .format([t for t, ok in enumerate(same) if not ok]))
+        line['ga'] = {'groups': len(res), 'sharded_s': secs,
+                      'launches': launches}
+        line['collectives'] = dict(mesh.stats)
+        line['equal'] = True
+        emit(line)
+    finally:
+        pmesh.shutdown_distributed()
+    return launches
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == '--mesh-worker':
+        return mesh_worker(sys.argv[2], sys.argv[3])
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write('chip_smoke: CUDA is not available\n')
         return 1
     sys.path.insert(0, REPO)
     from haphic_tpu_torch import cli
+    from haphic_tpu_torch.cluster import mcl as tmcl
     from haphic_tpu_torch.cluster import sparse_mcl as sp
     from haphic_tpu_torch.cluster.sweep import SPARSE_MIN_N
     from haphic_tpu_torch.kernels import build as kbuild
@@ -1582,17 +1990,31 @@ def main() -> int:
     from haphic_tpu_torch.order import optimize as topt
 
     phase_env(torch, kbuild)
-    launches, big = phase_pipeline(torch, cli, kscore, kdelta)
+    dense_call, ga_call, sparse_call = [], [], []
+    with _first_call(tmcl, 'run_mcl_partitions', dense_call), \
+            _first_call(topt, 'optimize_tours', ga_call), \
+            _recorded_launches(topt) as ga_launches:
+        launches, big = phase_pipeline(torch, cli, kscore, kdelta)
+    # the largest score launch (most tours x records) of the pipeline
+    main_score = max((b['score'] for b in ga_launches), key=lambda a:
+                     a[0].shape[0] * a[0].shape[1] * a[3].shape[1])
+    del ga_launches
     main_rows = {
-        'score_population': phase_kernel(torch, kscore, big, launches)[-1],
+        'score_population': phase_kernel(torch, kscore, main_score,
+                                         launches)[-1],
         'delta_generation': phase_delta(torch, kdelta, topt, trace_ga,
                                         big, launches)[-1]}
     torch.cuda.empty_cache()
     by_phase = {'pipeline': launches}
-    first_step, by_phase['sparse_pipeline'] = phase_sparse_pipeline(
-        torch, cli, kscore, kdelta, sp, SPARSE_MIN_N)
+    with _first_call(sp, 'run_mcl_sparse', sparse_call):
+        first_step, by_phase['sparse_pipeline'] = phase_sparse_pipeline(
+            torch, cli, kscore, kdelta, sp, SPARSE_MIN_N)
+    sparse_call[0].pop('result')
     phase_sparse_step(torch, sp, first_step)
-    del first_step                # its tensors would count in the next peaks
+    # on the host: its tensors would count in the next peaks
+    step_args = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
+                      for x in first_step)
+    del first_step
     torch.cuda.empty_cache()
     by_phase['polyploid_pipeline'] = phase_polyploid_pipeline(
         torch, cli, kscore, kdelta)
@@ -1608,6 +2030,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_phase['sim'] = phase_sim(torch, cli, kscore, kdelta, topt, out,
                                 allhic_tour)
+    torch.cuda.empty_cache()
+    by_phase['mesh_pipeline'] = phase_mesh_pipeline(torch, out)
+    phase_mesh_sparse(torch, sp, sparse_call[0])
+    by_phase['mesh_nccl'] = phase_mesh_nccl(
+        torch, sp, topt, kscore, kdelta, dense_call[0], ga_call[0],
+        step_args)
     kernels = []
     for k in KERNELS:
         row = main_rows[k['name']]

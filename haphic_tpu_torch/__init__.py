@@ -12,6 +12,8 @@ assign    reassignment/rescue + average-linkage group merge (scipy)
 order     fast sort + tour optimizer (torch GA, CUDA tour-score kernel)
 build     final scaffold FASTA/AGP emission
 kernels   hand-written CUDA kernels, built with nvcc at first use
+parallel  one process per card on torch.distributed: rank-sharded
+          ingest, MCL sweeps and GA
 
 Entry points take ``device`` and default to "cuda"; asking for CUDA on
 a host without a card raises (see runtime.resolve_device).

@@ -6,12 +6,18 @@ juicer, with the same flags. The commands that use the card (pipeline,
 cluster, sort, allhic, plot, sim ga_study) also take ``--device
 cuda|cpu`` (default cuda); asking for CUDA on a host without a card
 raises.
+
+Under torchrun every process runs the same command: ``main`` joins the
+process group (parallel/mesh.py), and rank r > 0 writes to the sibling
+directory ``<outdir>.rank<r>`` so that two processes never write one
+path.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 from haphic_tpu_torch._version import __version__, __update_time__
@@ -58,8 +64,13 @@ def _add_cluster_args(p: argparse.ArgumentParser) -> None:
                    help='sparse MCL top-K per column (0 = default 128)')
     g.add_argument('--use_mesh', default='auto',
                    choices=['auto', 'on', 'off'],
-                   help='shard the MCL sweep + sort GA over a device '
-                        'mesh (not ported yet: "on" raises)')
+                   help='shard the MCL sweep + sort GA over the ranks of '
+                        'a torch.distributed run, one process per card '
+                        '(python -m torch.distributed.run '
+                        '--nproc_per_node N -m haphic_tpu_torch ...); '
+                        'auto and on shard when there is more than one '
+                        'process, off never; rank r > 0 writes to '
+                        '<outdir>.rank<r>')
     g.add_argument('--ga_backend', default='auto',
                    choices=['auto', 'device', 'native'],
                    help='sort-stage GA engine (auto picks by work size)')
@@ -1041,26 +1052,48 @@ def cmd_juicer(args) -> int:
     return 0
 
 
+def _rank_outdir(outdir: str, rank: int) -> str:
+    """--outdir for ``rank``: rank 0 keeps it, rank r > 0 writes to the
+    sibling <outdir>.rank<r>."""
+    if rank == 0:
+        return outdir
+    return '{}.rank{}'.format(os.path.normpath(os.path.abspath(outdir)),
+                              rank)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format='%(asctime)s <%(module)s> [%(funcName)s] %(message)s',
         datefmt='%Y-%m-%d %H:%M:%S')
-    return {
-        'pipeline': cmd_pipeline,
-        'cluster': cmd_cluster,
-        'reassign': cmd_reassign,
-        'sort': cmd_sort,
-        'build': cmd_build,
-        'check': cmd_check,
-        'plot': cmd_plot,
-        'refsort': cmd_refsort,
-        'allhic': cmd_allhic,
-        'sim': cmd_sim,
-        'juicer': cmd_juicer,
-        'util': cmd_util,
-    }[args.command](args)
+    # join the process group torchrun describes (a no-op in a single
+    # process; see parallel/mesh.py for the execution model)
+    from haphic_tpu_torch.parallel import mesh
+    if mesh.init_distributed(getattr(args, 'device', 'cpu')) > 1 \
+            and getattr(args, 'outdir', None) is not None:
+        import torch.distributed as dist
+        args.outdir = _rank_outdir(args.outdir, dist.get_rank())
+    try:
+        return _COMMANDS[args.command](args)
+    finally:
+        mesh.shutdown_distributed()
+
+
+_COMMANDS = {
+    'pipeline': cmd_pipeline,
+    'cluster': cmd_cluster,
+    'reassign': cmd_reassign,
+    'sort': cmd_sort,
+    'build': cmd_build,
+    'check': cmd_check,
+    'plot': cmd_plot,
+    'refsort': cmd_refsort,
+    'allhic': cmd_allhic,
+    'sim': cmd_sim,
+    'juicer': cmd_juicer,
+    'util': cmd_util,
+}
 
 
 if __name__ == '__main__':

@@ -35,8 +35,16 @@ Where JAX vmaps the per-column functions and streams columns through a
 lax.scan, the port loops over fixed column chunks on the host, writing
 into preallocated (B, n+1, K) outputs; nothing in that loop syncs with
 the card. Converged inflations leave the computed batch (as in the
-port's dense sweep) but stay in the K-shrink statistic. The
-column-sharded multi-card step is ROADMAP queue item 3.
+port's dense sweep) but stay in the K-shrink statistic.
+
+With a mesh (parallel/mesh.py) the column axis is sharded: N = n+1 is
+padded with sentinel columns to a multiple of the world, each rank
+holds its contiguous block of every iterate, all-gathers the whole
+iterate once per step (the only bulk traffic) and computes its own
+columns against it; the convergence statistic and the widest support
+are max-reduced, so every rank takes the same convergence and K-shrink
+decisions. The math is per column, so the iterates are the meshless
+run's, bit for bit.
 
 Where the port would differ from JAX unless careful:
   * lax.sort with num_keys=1 is stable: every sort by row id is
@@ -63,6 +71,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from haphic_tpu_torch.parallel.mesh import all_gather_cols, all_reduce_max
 from haphic_tpu_torch.runtime import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -210,19 +219,24 @@ def _first_iteration(idx0: torch.Tensor, val0: torch.Tensor,
 
 
 def _sweep_cols(A_i, A_v, infl, n: int, K: int, chunk: int,
-                pruning: float, expansion: int):
-    """Expand→inflate→cap→prune for every column of A, in fixed column
-    chunks. A_i/A_v: (B, N, K) per-inflation matrices; infl (B,).
-    Returns (new_i, new_v, stat) with stat (B,) the per-inflation max
-    allclose statistic, left on the card. The math is per column, so
-    the chunk size does not change the results."""
+                pruning: float, expansion: int, c0: int = 0,
+                c1: Optional[int] = None):
+    """Expand→inflate→cap→prune for columns [c0, c1) of A (default: all
+    of them) against the whole of A, in fixed column chunks. A_i/A_v:
+    (B, N, K) per-inflation matrices; infl (B,). Returns (new_i, new_v,
+    stat): (B, c1 - c0, K) columns and stat (B,) the per-inflation max
+    allclose statistic over them, left on the card. The math is per
+    column, so the chunk size and the block do not change the
+    results."""
     B, N = A_i.shape[0], A_i.shape[1]
-    new_i = torch.empty_like(A_i)
-    new_v = torch.empty_like(A_v)
+    c1 = N if c1 is None else c1
+    new_i = A_i.new_empty((B, c1 - c0, A_i.shape[2]))
+    new_v = A_v.new_empty((B, c1 - c0, A_v.shape[2]))
     maxstat = torch.full((B,), -torch.inf, device=A_v.device)
     f = infl.view(B, 1, 1)
-    for s in range(0, N, chunk):
-        ci, cv = A_i[:, s:s + chunk], A_v[:, s:s + chunk]
+    for s in range(c0, c1, chunk):
+        e = min(c1, s + chunk)
+        ci, cv = A_i[:, s:e], A_v[:, s:e]
         di, dv = _expand(A_i, A_v, ci, cv, n)
         for _ in range(expansion - 2):
             # higher expansion powers: re-expand the deduped column
@@ -233,8 +247,8 @@ def _sweep_cols(A_i, A_v, infl, n: int, K: int, chunk: int,
         del di, dv
         stat = _col_allclose_stat(ci, cv, ni, nv, n)
         maxstat = torch.maximum(maxstat, stat.amax(dim=-1))
-        new_i[:, s:s + chunk] = ni
-        new_v[:, s:s + chunk] = nv
+        new_i[:, s - c0:e - c0] = ni
+        new_v[:, s - c0:e - c0] = nv
     return new_i, new_v, maxstat
 
 
@@ -264,10 +278,49 @@ def _sweep_step(idx: torch.Tensor, val: torch.Tensor,
     return new_idx, new_val, stat, max_nnz
 
 
+def _sharded_sweep_step(mesh, idx: torch.Tensor, val: torch.Tensor,
+                        inflations: torch.Tensor, active: np.ndarray,
+                        n: int, K: int, chunk: int, pruning: float,
+                        expansion: int):
+    """The multi-card twin of _sweep_step (the JAX package's
+    _sharded_sweep_step, haphic_tpu/cluster/sparse_mcl.py:250-289).
+    idx/val: this rank's (B, M, K) block of columns [rank·M, rank·M +
+    M) of the padded iterate. The active inflations' blocks are
+    all-gathered into the whole iterate A, this rank's columns go
+    through _sweep_cols against it, and the statistic and the widest
+    support are max-reduced over the ranks (one collective), so every
+    rank gets the same (stat, max_nnz) and takes the same decisions.
+    Returns (new_idx, new_val) blocks and (stat, max_nnz) reduced."""
+    B, M = idx.shape[0], idx.shape[1]
+    sel = torch.as_tensor(np.flatnonzero(active), device=idx.device)
+    A_i = all_gather_cols(mesh, idx[sel])
+    A_v = all_gather_cols(mesh, val[sel])
+    c0 = mesh.rank * M
+    ni, nv, st = _sweep_cols(A_i, A_v, inflations[sel], n, K, chunk,
+                             pruning, expansion, c0, c0 + M)
+    del A_i, A_v
+    if c0 <= n < c0 + M:
+        ni[:, n - c0] = n
+        nv[:, n - c0] = 0.0
+    new_idx, new_val = idx.clone(), val.clone()
+    new_idx[sel] = ni
+    new_val[sel] = nv
+    stat = torch.full((B,), -torch.inf, device=val.device)
+    stat[sel] = st
+    max_nnz = (new_val > 0).sum(dim=-1).amax()
+    red = all_reduce_max(mesh, torch.cat([stat.double(),
+                                          max_nnz.double().view(1)]))
+    return new_idx, new_val, red[:B], red[B]
+
+
 def _run_sweep_batch(idx0: torch.Tensor, val0: torch.Tensor,
                      infl: torch.Tensor, n: int, K: int, chunk: int,
-                     max_iter: int, pruning: float, expansion: int):
-    """Host convergence loop for one inflation batch.
+                     max_iter: int, pruning: float, expansion: int,
+                     mesh=None):
+    """Host convergence loop for one inflation batch. With ``mesh``,
+    idx0/val0 are padded to a multiple of the world and each rank
+    iterates its block of the columns (_sharded_sweep_step); the final
+    iterates are gathered to every rank, without the padding.
 
     The working K shrinks to the next power of two over the actual
     widest column support whenever that halves — iteration cost is
@@ -284,15 +337,24 @@ def _run_sweep_batch(idx0: torch.Tensor, val0: torch.Tensor,
     K_full = K
     k_steps = [K]
     idx, val = _first_iteration(idx0, val0, infl, n, K, float(pruning))
+    if mesh is not None:
+        M = idx.shape[1] // mesh.world
+        idx = idx[:, mesh.rank * M:(mesh.rank + 1) * M].contiguous()
+        val = val[:, mesh.rank * M:(mesh.rank + 1) * M].contiguous()
     active = np.ones(B, dtype=bool)
     conv_at = np.full(B, max_iter, dtype=np.int32)
     n_shrinks = 0
     t0 = time.time()
     for it in range(1, max_iter):
         cur_chunk = min(chunk, _auto_chunk(B, K, n))
-        idx, val, stat, max_nnz = _sweep_step(
-            idx, val, infl, active, n, K, cur_chunk, float(pruning),
-            expansion)
+        if mesh is None:
+            idx, val, stat, max_nnz = _sweep_step(
+                idx, val, infl, active, n, K, cur_chunk, float(pruning),
+                expansion)
+        else:
+            idx, val, stat, max_nnz = _sharded_sweep_step(
+                mesh, idx, val, infl, active, n, K, cur_chunk,
+                float(pruning), expansion)
         # the one host sync of an iteration: stat and max_nnz together
         # (max_nnz <= K is exact in f64)
         got = torch.cat([stat.double(), max_nnz.double().view(1)]).cpu()
@@ -321,6 +383,9 @@ def _run_sweep_batch(idx0: torch.Tensor, val0: torch.Tensor,
         pad = K_full - K
         idx = torch.nn.functional.pad(idx, (0, pad), value=n)
         val = torch.nn.functional.pad(val, (0, pad))
+    if mesh is not None:
+        idx = all_gather_cols(mesh, idx)[:, :n + 1]
+        val = all_gather_cols(mesh, val)[:, :n + 1]
     return (idx.cpu().numpy(), val.cpu().numpy(), conv_at,
             np.logical_not(active), k_steps)
 
@@ -478,14 +543,20 @@ def _auto_chunk(B: int, K: int, n: int, budget_bytes: int = 2 << 30) -> int:
 def run_mcl_sparse(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
                    inflations: Sequence[float], K: int = DEFAULT_K,
                    expansion: int = 2, max_iter: int = 200,
-                   pruning: float = 1e-4, device=None) -> SparseMCLResult:
+                   pruning: float = 1e-4, device=None,
+                   mesh=None) -> SparseMCLResult:
     """Sparse MCL inflation sweep over a symmetric COO link matrix, on
     ``device`` ("cuda" by default; raises without a card).
 
     ``K`` bounds the per-column support (selection pruning). With
     K ≥ max column support of every iterate the result is exact; smaller
-    K approximates (validated against the dense path in tests)."""
-    dev = resolve_device(device)
+    K approximates (validated against the dense path in tests).
+
+    With ``mesh`` (parallel/mesh.py) every rank calls this with the same
+    arguments and the column axis is sharded over the ranks, on
+    ``mesh.device``; every rank returns the whole result, bit-equal to
+    the meshless run's."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     t0 = time.time()
     if K > n:
         K = max(1, n)
@@ -507,6 +578,12 @@ def run_mcl_sparse(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
     for _ in range(expansion - 1):
         cur_i, cur_v = _pre_expand(base_i, base_v, cur_i, cur_v, n, K,
                                    chunk)
+    if mesh is not None:
+        # the sharded column axis must divide by the world: sentinel
+        # columns (idx = n, val = 0) compute empty columns, as column n
+        pad = (-(n + 1)) % mesh.world
+        cur_i = torch.nn.functional.pad(cur_i, (0, 0, 0, pad), value=n)
+        cur_v = torch.nn.functional.pad(cur_v, (0, 0, 0, pad))
     infl_t = torch.as_tensor(infl, device=dev)
 
     out_idx = np.empty((B, n + 1, K), dtype=np.int32)
@@ -518,7 +595,7 @@ def run_mcl_sparse(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
         e = min(B, s + inflation_batch)
         (out_idx[s:e], out_val[s:e], iters[s:e], conv[s:e],
          ks) = _run_sweep_batch(cur_i, cur_v, infl_t[s:e], n, K, chunk,
-                                max_iter, pruning, expansion)
+                                max_iter, pruning, expansion, mesh=mesh)
         batches.append(e - s)
         k_steps.append(ks)
     return SparseMCLResult(idx=out_idx, val=out_val, n=n, n_iters=iters,

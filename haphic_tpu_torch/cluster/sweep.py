@@ -27,6 +27,7 @@ from haphic_tpu_torch.cluster import mcl as mcl_mod
 from haphic_tpu_torch.cluster import sparse_mcl as sp
 from haphic_tpu_torch.core.contacts import COO
 from haphic_tpu_torch.core.fragments import Fragments
+from haphic_tpu_torch.parallel.mesh import mcl_sweep_sharded_partitions
 from haphic_tpu_torch.runtime import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -234,16 +235,18 @@ def _write_sparse_info(path: str, m: int, res, inflations) -> None:
 def _sparse_partitions(flank: COO, filtered_ids: np.ndarray,
                        frags: Fragments, inflations, expansion: int,
                        max_iter: int, pruning: float, sparse_K: int,
-                       outdir: str, write_files: bool, device):
-    """The sweep on the sparse top-K engine: per-inflation partitions
-    and the fragment ids of their rows."""
-    dev = resolve_device(device)
+                       outdir: str, write_files: bool, device, mesh=None):
+    """The sweep on the sparse top-K engine (column-sharded over
+    ``mesh`` when given): per-inflation partitions and the fragment ids
+    of their rows."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     m = len(np.asarray(filtered_ids))
     ci, cj, cw, frag_ids = build_adjacency_coo(flank, filtered_ids,
                                                len(frags))
     res = sp.run_mcl_sparse(ci, cj, cw, m, [float(i) for i in inflations],
                             K=sparse_K or sp.DEFAULT_K, expansion=expansion,
-                            max_iter=max_iter, pruning=pruning, device=dev)
+                            max_iter=max_iter, pruning=pruning, device=dev,
+                            mesh=mesh)
     t0 = time.time()
     partitions = [res.interpret(b) for b in range(len(inflations))]
     interpret_s = time.time() - t0
@@ -278,24 +281,38 @@ def run_clustering(flank: COO, filtered_ids: np.ndarray, frags: Fragments,
                    max_iter: int = 200, pruning: float = 1e-4,
                    outdir: str = '.', write_files: bool = True,
                    mcl_backend: str = 'auto', sparse_K: int = 0,
-                   device=None) -> SweepResult:
+                   device=None, mesh=None) -> SweepResult:
     """Full clustering stage: adjacency → batched MCL sweep → cluster
     files + inflation recommendation.
 
     ``mcl_backend``: 'dense' | 'sparse' | 'auto' (sparse from
     SPARSE_MIN_N / HAPHIC_SPARSE_MCL_MIN_N fragments on). Both engines
-    run on ``device``."""
+    run on ``device``.
+
+    ``mesh``: a parallel.mesh.Mesh to shard the sweep over, on its
+    device: the sparse engine shards the matrix column axis, the dense
+    engine the inflations (parallel.mesh.mcl_sweep_sharded_partitions).
+    Every rank gets every partition."""
     inflations = inflation_values(min_inflation, max_inflation, inflation_step)
     m = len(np.asarray(filtered_ids))
     use_sparse = mcl_backend == 'sparse' or (
         mcl_backend == 'auto' and m >= SPARSE_MIN_N)
     logger.info('Performing Markov clustering (n=%d fragments, %d '
-                'inflations, batched, %s)...', m, len(inflations),
-                'sparse top-K' if use_sparse else 'dense')
+                'inflations, batched, %s%s)...', m, len(inflations),
+                'sparse top-K' if use_sparse else 'dense',
+                ', {}-rank mesh'.format(mesh.world)
+                if mesh is not None else '')
     if use_sparse:
         partitions, frag_ids = _sparse_partitions(
             flank, filtered_ids, frags, inflations, expansion, max_iter,
-            pruning, sparse_K, outdir, write_files, device)
+            pruning, sparse_K, outdir, write_files, device, mesh)
+    elif mesh is not None:
+        ci, cj, cw, frag_ids = build_adjacency_coo(flank, filtered_ids,
+                                                   len(frags))
+        partitions, _, _ = mcl_sweep_sharded_partitions(
+            mesh, None, [float(i) for i in inflations], expansion=expansion,
+            max_iter=max_iter, pruning=pruning,
+            coo=(ci, cj, cw, len(frag_ids)))
     else:
         # links go to the device as an O(nnz) COO list and are densified
         # there; only the nonzero pattern of each result comes back

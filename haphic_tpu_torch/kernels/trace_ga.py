@@ -168,7 +168,7 @@ def _moves_stats(rec, state, gen, step, gens: int) -> dict:
     R = state[4].shape[2]
     touched, accepted = [], []
     for _ in range(gens):
-        move = opt._sample_moves(gen, (G, P), k, 1.1,
+        move = opt._sample_moves(opt._Draws(gen, G), (G, P), k, 1.1,
                                  local_frac=opt._DELTA_LOCAL_FRAC,
                                  device=state[0].device)
         touched.append(kdelta.touched_records(state[4], state[7],
@@ -190,8 +190,10 @@ def trace(label: str, rec, state, gen, step, gens: int,
 
     from haphic_tpu_torch.order import optimize as opt
 
+    draws = opt._Draws(gen, state[0].shape[0])
+
     def one(s):
-        return opt._dgen(gen, rec, s, step)
+        return opt._dgen(draws, rec, s, step)
     for _ in range(3):
         state = one(state)
     torch.cuda.synchronize()
@@ -271,7 +273,7 @@ def kernel_breakdown(rec, state, gen, reps: int) -> dict:
     from haphic_tpu_torch.kernels import delta as kdelta
     from haphic_tpu_torch.order import optimize as opt
     G, P, k = state[0].shape
-    move = opt._sample_moves(gen, (G, P), k, 1.1,
+    move = opt._sample_moves(opt._Draws(gen, G), (G, P), k, 1.1,
                              local_frac=opt._DELTA_LOCAL_FRAC,
                              device=state[0].device)
     st = tuple(x.clone() for x in state)

@@ -34,6 +34,15 @@ are plain torch indexing and scatters (no one-hot matmuls, no 12-bit
 splits); random numbers come from a torch.Generator on the device,
 drawn in their own functions (``_move_draws``, ``_ox_draws``) so that a
 test can hand the same draws to both packages.
+
+With a mesh (parallel/mesh.py) each rank evolves its contiguous share
+of the groups of every batch. A group's result must not depend on that
+share: every rank draws the whole batch's numbers from the batch's one
+generator and keeps its rows (``_Draws``), and the two reductions whose
+rounding on the card follows the batch's group count (the score
+kernel's record chunking, a torch sum's block layout) run one group at
+a time (``_Records.score``, ``_group_sums``). Every other step is per
+group: selection, re-seeding, crossover, the delta kernel.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ from haphic_tpu_torch.kernels.delta import (  # noqa: F401 (tests)
     delta_generation, endpoint_update as _endpoint_update,
     move_scalars as _move_scalars, move_src as _move_src)
 from haphic_tpu_torch.kernels.score import score_population
+from haphic_tpu_torch.parallel.mesh import all_gather_object, shard_range
 from haphic_tpu_torch.runtime import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -285,15 +295,36 @@ def _top_rows(scores: torch.Tensor, P: int):
 _LOG_075 = float(np.log(np.float32(0.75)).astype(np.float32))
 
 
-def _move_draws(gen: torch.Generator, shape, k: int, device):
+class _Draws:
+    """The GA's random numbers: the draws of rows [g0, g1) (default:
+    all) of a batch of G groups from the batch's one generator. Each
+    (G, ...) tensor is drawn whole and cut to the rows, so a group's
+    numbers are the same whichever rank evolves it (the JAX package gets
+    this from one key per group)."""
+
+    def __init__(self, gen: torch.Generator, G: int, g0: int = 0,
+                 g1: Optional[int] = None):
+        self.gen, self.G, self.g0 = gen, G, g0
+        self.g1 = G if g1 is None else g1
+
+    def rand(self, shape, device):
+        return torch.rand((self.G,) + tuple(shape[1:]), generator=self.gen,
+                          device=device)[self.g0:self.g1]
+
+    def randint(self, hi: int, shape, device):
+        return torch.randint(0, hi, (self.G,) + tuple(shape[1:]),
+                             generator=self.gen, device=device,
+                             dtype=torch.int32)[self.g0:self.g1]
+
+
+def _move_draws(gen: _Draws, shape, k: int, device):
     """The seven draws of one mutation per individual: u_do, op, e1,
     e2, e3, u_local, u_span (the JAX package's _sample_moves draws)."""
     def u():
-        return torch.rand(shape, generator=gen, device=device)
+        return gen.rand(shape, device)
 
     def ri(hi):
-        return torch.randint(0, hi, shape, generator=gen, device=device,
-                             dtype=torch.int32)
+        return gen.randint(hi, shape, device)
     return u(), ri(4), ri(k), ri(k), ri(k), u(), u()
 
 
@@ -334,16 +365,11 @@ def _mutate(gen, order, ori, mutprob: float):
     return _apply_move(order, ori, *_move_src(do, op, i, j, t, k))
 
 
-def _ox_draws(gen: torch.Generator, G: int, P: int, k: int, device):
+def _ox_draws(gen: _Draws, G: int, P: int, k: int, device):
     """u_do, partner, e1, e2 of one OX crossover per individual."""
-    u = torch.rand((G, P), generator=gen, device=device)
-    partner = torch.randint(0, P, (G, P), generator=gen, device=device,
-                            dtype=torch.int32)
-    e1 = torch.randint(0, k, (G, P), generator=gen, device=device,
-                       dtype=torch.int32)
-    e2 = torch.randint(0, k, (G, P), generator=gen, device=device,
-                       dtype=torch.int32)
-    return u, partner, e1, e2
+    shape = (G, P)
+    return (gen.rand(shape, device), gen.randint(P, shape, device),
+            gen.randint(k, shape, device), gen.randint(k, shape, device))
 
 
 def _ox_from_draws(order, ori, u_do, partner, e1, e2, xoprob: float):
@@ -433,6 +459,16 @@ _DELTA_SPAN_GAIN = float(os.environ.get('HAPHIC_GA_DELTA_SPAN_GAIN',
 _GA_RESET = os.environ.get('HAPHIC_GA_RESET', 'half')
 
 
+def _group_sums(contrib: torch.Tensor) -> torch.Tensor:
+    """(G, P) row sums of (G, P, R) contributions, one reduction per
+    group. On the card a torch sum's block layout follows its output
+    count, so a batched sum could round a row differently in a batch of
+    another group count; per group, a row's sum does not depend on the
+    groups beside it. On the CPU the rows sum in the same order either
+    way."""
+    return torch.stack([c.sum(dim=1) for c in contrib.unbind(0)])
+
+
 class _Records:
     """One bucket's device-resident records: lengths (G, k) int64,
     pa/pb (G, R) int32, d (G, 4, R) f32, w (G, R) f32, and the int32
@@ -446,9 +482,13 @@ class _Records:
         self.lb = torch.gather(Li, 1, pb.long())
 
     def score(self, order, ori):
-        """Full f32-table score: the CUDA kernel (plain on CPU)."""
-        return score_population(order, ori, self.lengths, self.pa,
-                                self.pb, self.d, self.w)
+        """Full f32-table score: the CUDA kernel (plain on CPU), one
+        launch per group: the kernel sizes its record chunks by the
+        launch's group count, and the chunks' sums round."""
+        return torch.cat([score_population(
+            order[t:t + 1], ori[t:t + 1], self.lengths[t:t + 1],
+            self.pa[t:t + 1], self.pb[t:t + 1], self.d[t:t + 1],
+            self.w[t:t + 1]) for t in range(order.shape[0])])
 
     def caches(self, order, ori):
         """(L_slot, startsx, posA, sA, oA, posB, sB, oB, contrib,
@@ -456,7 +496,7 @@ class _Records:
         c = _build_caches(order, ori, self.lengths, self.pa, self.pb)
         contrib = _contrib_from_cache(*c[2:], self.la, self.lb, self.d,
                                       self.w)
-        return c + (contrib, contrib.sum(dim=2))
+        return c + (contrib, _group_sums(contrib))
 
     def cache_scores(self, order, ori):
         return self.caches(order, ori)[-1]
@@ -633,30 +673,39 @@ def _batches(problems: Sequence[TourProblem], npop: int, chunk: int):
 
 
 def _make_batch(problems: Sequence[TourProblem], hot_starts, k_pad: int,
-                Rp: int, c_eff: int, npop: int, seed: int, dev):
-    """(_Records, order, ori, generator) of one batch on ``dev``: the
-    groups' padded records and their initial populations."""
+                Rp: int, c_eff: int, npop: int, seed: int, dev,
+                rows: Optional[Tuple[int, int]] = None):
+    """(_Records, order, ori, draws) of groups [g0, g1) = ``rows``
+    (default: all) of one batch on ``dev``: their padded records and
+    initial populations, and the _Draws of their rows. Every group's
+    initial population is drawn, in turn, from the batch's generator,
+    so the draws after it do not depend on ``rows``."""
     G = len(problems)
-    lengths = np.zeros((G, k_pad), dtype=np.int64)
-    pa = np.zeros((G, Rp), dtype=np.int32)
-    pb = np.zeros((G, Rp), dtype=np.int32)
-    d = np.zeros((G, 4, Rp), dtype=np.float32)
-    w = np.zeros((G, Rp), dtype=np.float32)
-    order = np.zeros((G, npop, k_pad), dtype=np.int32)
-    ori = np.zeros((G, npop, k_pad), dtype=np.int32)
+    g0, g1 = (0, G) if rows is None else rows
+    n = g1 - g0
+    lengths = np.zeros((n, k_pad), dtype=np.int64)
+    pa = np.zeros((n, Rp), dtype=np.int32)
+    pb = np.zeros((n, Rp), dtype=np.int32)
+    d = np.zeros((n, 4, Rp), dtype=np.float32)
+    w = np.zeros((n, Rp), dtype=np.float32)
+    order = np.zeros((n, npop, k_pad), dtype=np.int32)
+    ori = np.zeros((n, npop, k_pad), dtype=np.int32)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     for t, p in enumerate(problems):
-        lengths[t, :p.k] = p.lengths
-        pa[t], pb[t], d[t], w[t], _ = _pad_records(p, c_eff)
-        order[t], ori[t] = _initial_population(
-            p, k_pad, npop, hot_starts[t], gen, dev)
+        o, r = _initial_population(p, k_pad, npop, hot_starts[t], gen, dev)
+        if not g0 <= t < g1:
+            continue
+        u = t - g0
+        order[u], ori[u] = o, r
+        lengths[u, :p.k] = p.lengths
+        pa[u], pb[u], d[u], w[u], _ = _pad_records(p, c_eff)
 
     def put(x):
         return torch.as_tensor(x, device=dev)
 
     rec = _Records(put(lengths), put(pa), put(pb), put(d), put(w))
-    return rec, put(order), put(ori), gen
+    return rec, put(order), put(ori), _Draws(gen, G, g0, g1)
 
 
 def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
@@ -664,15 +713,21 @@ def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
                    hot_starts: Optional[Sequence] = None,
                    log_every: int = 500, skip_ga: bool = False,
                    chunk: int = CHUNK, backend: str = 'auto',
-                   device=None) -> List[GAResult]:
+                   device=None, mesh=None) -> List[GAResult]:
     """Evolve every group at once: groups are bucketed by padded shape
     (k_pad, R_pad) and each bucket runs as one batch with a leading
     group axis, per log_every window.
 
     Small workloads (npop * ngen * total records < NATIVE_MAX_WORK)
     dispatch to the native C++ kernel instead (backend='auto'; force
-    with 'device'/'native')."""
-    dev = resolve_device(device)
+    with 'device'/'native'); that route ignores ``mesh``, as in the JAX
+    package, so every rank runs every group.
+
+    With ``mesh`` (parallel/mesh.py) every rank calls this with the same
+    arguments, evolves its contiguous share of each batch's groups on
+    ``mesh.device``, and the results are gathered: every rank returns
+    every group's result, equal to the meshless run's."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     results: List[Optional[GAResult]] = [None] * len(problems)
     hot_starts = list(hot_starts) if hot_starts is not None \
         else [None] * len(problems)
@@ -700,7 +755,14 @@ def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
             results[gi] = _trivial(p)
     evolve = _evolve_delta_impl if _delta_applicable(problems) \
         else _evolve_impl
-    for (k_pad, Rp, c_eff), idxs in _batches(problems, npop, chunk):
+    mine: List[int] = []
+    for (k_pad, Rp, c_eff), all_idxs in _batches(problems, npop, chunk):
+        g0, g1 = (0, len(all_idxs)) if mesh is None else \
+            shard_range(len(all_idxs), mesh)
+        if g1 == g0:
+            continue
+        idxs = all_idxs[g0:g1]
+        mine += idxs
         G = len(idxs)
         logger.info('GA batch: %d groups, k_pad=%d, R_pad=%d on %s', G,
                     k_pad, Rp, dev,
@@ -708,8 +770,9 @@ def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
                                                     'k_pad': k_pad,
                                                     'R_pad': Rp}}})
         rec, order_t, ori_t, gen = _make_batch(
-            [problems[gi] for gi in idxs], [hot_starts[gi] for gi in idxs],
-            k_pad, Rp, c_eff, npop, seed, dev)
+            [problems[gi] for gi in all_idxs],
+            [hot_starts[gi] for gi in all_idxs], k_pad, Rp, c_eff, npop,
+            seed, dev, rows=(g0, g1))
         scores = rec.score(order_t, ori_t)
         best0 = scores.max(dim=1).values.cpu().numpy()
         histories: List[List[Tuple[int, float]]] = \
@@ -757,6 +820,11 @@ def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
             results[gi] = GAResult(order=o[real], ori=r[real],
                                    score=float(final[t]),
                                    history=histories[t])
+    if mesh is not None:
+        for got in all_gather_object(mesh, [(gi, results[gi])
+                                            for gi in mine]):
+            for gi, res in got:
+                results[gi] = res
     return results
 
 

@@ -5,8 +5,10 @@ from SPARSE_MIN_N fragments on) and the GA run on
 ``PipelineConfig.device`` ("cuda" by default); the other stages are the
 same host code, the flag-gated cluster steps included (assembly
 correction, GFA read depth and phasing, concentrated and allelic link
-pruning, UL reads), in haphic_tpu's order. Mesh sharding is not ported
-yet and raises NotImplementedError naming its ROADMAP.md item.
+pruning, UL reads), in haphic_tpu's order. Under torchrun (one process
+per card, parallel/mesh.py) ingest, the MCL sweep and the GA shard over
+the ranks, and every rank writes the single-process tree to its own
+``outdir``.
 
 The reference drives stages as subprocesses communicating through files
 and regexes the recommended inflation out of its own log
@@ -46,6 +48,8 @@ from haphic_tpu_torch.order import optimize as opt
 from haphic_tpu_torch.order.arbiter import choose_fast_sort
 from haphic_tpu_torch.order.fast_sort import (fast_sort, make_group_data,
                                               paths_to_tour, write_tour)
+from haphic_tpu_torch.parallel.ingest import distributed_aggregate
+from haphic_tpu_torch.parallel.mesh import make_mesh, world_size
 from haphic_tpu_torch.runtime import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -89,9 +93,12 @@ class PipelineConfig:
     expansion: int = 2
     mcl_backend: str = 'auto'          # dense | sparse | auto (by size)
     sparse_K: int = 0                  # top-K per column; 0 = default
-    # device-mesh sharding of the MCL sweep + sort GA: not ported yet,
-    # so 'auto' and 'off' run on one device and 'on' (or a `mesh`)
-    # raises NotImplementedError.
+    # sharding of the MCL sweep + sort GA over the ranks of a
+    # torch.distributed run (one process per card, torchrun): 'auto'
+    # and 'on' shard when the world has more than one process, 'off'
+    # never shards; a single process never shards ('on' logs how to
+    # launch one per card). `mesh`, a parallel.mesh.Mesh, overrides.
+    # Ingest shards whenever the world has more than one process.
     use_mesh: str = 'auto'             # auto | on | off
     mesh: Optional[object] = None
     # torch device of the MCL sweep and the GA: 'cuda' or 'cpu'
@@ -131,13 +138,40 @@ class PipelineConfig:
     steps: str = '1234'
 
 
-def check_slice(cfg: 'PipelineConfig') -> None:
-    """Raise NotImplementedError for mesh sharding, which is not ported
-    yet (ROADMAP.md queue), before any work starts."""
-    if cfg.mesh is not None or cfg.use_mesh == 'on':
-        raise NotImplementedError(
-            'mesh sharding is not ported yet: ROADMAP.md queue item '
-            '"multi-GPU (parallel/mesh.py)"')
+def _resolve_mesh(cfg: 'PipelineConfig'):
+    """The mesh the hot stages shard over, or None. An explicit cfg.mesh
+    wins; 'off' never shards; 'auto' and 'on' shard when this process
+    is one of a torch.distributed world of more than one. Torch runs one
+    process per card, so a single process never shards (JAX's one-
+    device case). Resolved once and cached on cfg so the cluster and
+    sort stages share one mesh."""
+    if cfg.mesh is not None or cfg.use_mesh == 'off':
+        return cfg.mesh
+    if world_size() > 1:
+        cfg.mesh = make_mesh(cfg.device)
+        m = cfg.mesh
+        logger.info('Sharding hot stages over a %d-rank %s mesh (rank %d '
+                    'on %s)', m.world, m.backend, m.rank, m.device,
+                    extra={'metrics': {'mesh': {
+                        'world': m.world, 'rank': m.rank,
+                        'backend': m.backend, 'device': str(m.device)}}})
+        return cfg.mesh
+    if cfg.use_mesh == 'on':
+        logger.info('use_mesh=on in a single process: running on one '
+                    'device; launch one process per card to shard '
+                    '(python -m torch.distributed.run --nproc_per_node N '
+                    '-m haphic_tpu_torch pipeline ...)')
+    return None
+
+
+def _ingest_mesh(cfg: 'PipelineConfig'):
+    """The mesh ingest shards over: the hot stages' mesh, else the
+    default group's when the world has more than one process (whatever
+    use_mesh says, as in the JAX package), else None."""
+    mesh = _resolve_mesh(cfg)
+    if mesh is None and world_size() > 1:
+        return make_mesh(cfg.device)
+    return mesh
 
 
 @dataclass
@@ -162,7 +196,6 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
                   cfg: PipelineConfig, outdir: str) -> ClusterStageResult:
     """01.cluster (parity: HapHiC_cluster.run,
     scripts/HapHiC_cluster.py:2738-2959)."""
-    check_slice(cfg)
     resolve_device(cfg.device)
     os.makedirs(outdir, exist_ok=True)
     t0 = time.time()
@@ -248,12 +281,18 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
     remove_allelic = 0 if cfg.quick_view else cfg.remove_allelic_links
     remove_concentrated = (False if cfg.quick_view
                            else cfg.remove_concentrated_links)
-    links = aggregate(reader, frags, flank_kbp=cfg.flank,
-                      need_coords=bool(remove_allelic) or remove_concentrated,
-                      max_read_pairs=cfg.max_read_pairs,
-                      keep_clm=not cfg.quick_view,
-                      track_ctg_pair_to_frag=bool(remove_allelic)
-                      and frags.any_split)
+    ingest_kw = dict(
+        flank_kbp=cfg.flank,
+        need_coords=bool(remove_allelic) or remove_concentrated,
+        max_read_pairs=cfg.max_read_pairs, keep_clm=not cfg.quick_view,
+        track_ctg_pair_to_frag=bool(remove_allelic) and frags.any_split)
+    imesh = _ingest_mesh(cfg)
+    if imesh is not None:
+        # each rank consumes its stride of the stream; the partial link
+        # tensors are exchanged and merged on every rank
+        links = distributed_aggregate(reader, frags, imesh, **ingest_kw)
+    else:
+        links = aggregate(reader, frags, **ingest_kw)
     timings['ingest'] = time.time() - t0 - timings['parse']
     logger.info('Alignment pass done in %.1fs (%d contig pairs, %d '
                 'fragment pairs)', time.time() - t0, len(links.full.i),
@@ -354,7 +393,7 @@ def cluster_stage(fasta: str, alignments: str, nchrs: int,
         max_inflation=cfg.max_inflation, inflation_step=cfg.inflation_step,
         max_iter=cfg.max_iter, pruning=cfg.pruning, outdir=outdir,
         mcl_backend=cfg.mcl_backend, sparse_K=cfg.sparse_K,
-        device=cfg.device)
+        device=cfg.device, mesh=_resolve_mesh(cfg))
     timings['mcl'] = time.time() - t_mcl
     # join the CLM writer before statistics: the PDF renderer forks,
     # and forking with another live thread risks inherited-lock
@@ -536,7 +575,7 @@ def sort_stage(cres: ClusterStageResult, groups: 'ReassignResult',
             problems, npop=cfg.npop, ngen=cfg.ngen, mutprob=cfg.mutprob,
             seed=cfg.seed, hot_starts=hots,
             skip_ga=cfg.skipGA, backend=cfg.ga_backend,
-            device=cfg.device)
+            device=cfg.device, mesh=_resolve_mesh(cfg))
         ga_results = dict(zip(ga_idx, results))
         logger.info('optimized %d groups (batched GA) in %.1fs',
                     len(ga_idx), time.time() - t0,
@@ -605,7 +644,6 @@ def run_pipeline(fasta: str, alignments: str, nchrs: int,
                  cfg: Optional[PipelineConfig] = None,
                  outdir: str = '.') -> PipelineResult:
     cfg = cfg or PipelineConfig()
-    check_slice(cfg)
     resolve_device(cfg.device)
     if cfg.quick_view:
         # quick view forces the no-GA fast path
@@ -637,9 +675,12 @@ def run_pipeline(fasta: str, alignments: str, nchrs: int,
         t_w = time.time()
         cres.stat_wait()
         cres.timings['stat_wait'] = time.time() - t_w
+    metrics = {'stage_secs': dict(stage_secs)}
+    if cfg.mesh is not None:
+        metrics['mesh_stats'] = dict(cfg.mesh.stats)
     logger.info('Pipeline finished in %.1fs (%s)', time.time() - t0,
                 ', '.join('{} {:.1f}s'.format(k, v)
                           for k, v in stage_secs.items()),
-                extra={'metrics': {'stage_secs': dict(stage_secs)}})
+                extra={'metrics': metrics})
     return PipelineResult(cluster=cres, reassign=rres, sort=sres,
                           scaffold_files=files, stage_secs=stage_secs)

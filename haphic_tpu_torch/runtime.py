@@ -11,10 +11,16 @@ no cache to manage here. What remains is:
   the JAX reference runs exact f32 on the CPU.
 * device resolution. Entry points take ``device`` ("cuda" by default)
   and resolve it here. Asking for CUDA on a host without a usable card
-  raises: the port never carries on on the CPU by itself.
+  raises: the port never carries on on the CPU by itself. In a process
+  that torchrun started (LOCAL_RANK set), "cuda" is the rank's card,
+  cuda:{LOCAL_RANK % device_count}: one process per card, and ranks
+  share cards round-robin when there are more ranks than cards
+  (parallel/mesh.py).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -25,7 +31,8 @@ DEFAULT_DEVICE = 'cuda'
 
 
 def resolve_device(device=None) -> torch.device:
-    """torch.device for ``device`` (None means DEFAULT_DEVICE). Raises
+    """torch.device for ``device`` (None means DEFAULT_DEVICE); "cuda"
+    without an index is the rank's card under torchrun. Raises
     RuntimeError when CUDA is requested and unavailable."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
@@ -35,4 +42,8 @@ def resolve_device(device=None) -> torch.device:
                 str(dev)))
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError('unsupported device {!r}'.format(str(dev)))
+    if dev.type == 'cuda' and dev.index is None \
+            and 'LOCAL_RANK' in os.environ:
+        dev = torch.device('cuda', int(os.environ['LOCAL_RANK'])
+                           % torch.cuda.device_count())
     return dev

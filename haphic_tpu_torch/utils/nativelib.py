@@ -14,6 +14,7 @@ pure-Python paths.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
 import os
 import subprocess
@@ -28,19 +29,27 @@ NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 def ensure_native(target: str, sources: Sequence[str]) -> Optional[str]:
     """Absolute path to an up-to-date native artifact, building it via
     ``make -C native <target>`` when missing or older than any of its
-    sources. Returns None when the artifact cannot be produced."""
+    sources. Returns None when the artifact cannot be produced. The
+    check and the build hold an exclusive lock on native/.<target>.lock:
+    the processes of a multi-process run start together, and one must
+    not load an artifact another is still writing."""
     path = os.path.join(NATIVE_DIR, target)
     srcs = [os.path.join(NATIVE_DIR, s) for s in sources]
     have_src = any(os.path.exists(s) for s in srcs)
-    stale = os.path.exists(path) and any(
-        os.path.exists(s) and os.path.getmtime(s) > os.path.getmtime(path)
-        for s in srcs)
-    if (not os.path.exists(path) or stale) and have_src:
-        try:
-            subprocess.run(['make', '-C', NATIVE_DIR, target],
-                           check=True, capture_output=True)
-        except Exception as e:
-            logger.warning('building native/%s failed (%s)', target, e)
+    if not have_src:
+        return path if os.path.exists(path) else None
+    with open(os.path.join(NATIVE_DIR, '.{}.lock'.format(target)),
+              'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        stale = os.path.exists(path) and any(
+            os.path.exists(s) and os.path.getmtime(s) > os.path.getmtime(path)
+            for s in srcs)
+        if not os.path.exists(path) or stale:
+            try:
+                subprocess.run(['make', '-C', NATIVE_DIR, target],
+                               check=True, capture_output=True)
+            except Exception as e:
+                logger.warning('building native/%s failed (%s)', target, e)
     return path if os.path.exists(path) else None
 
 

@@ -173,12 +173,28 @@ def test_entry_point_without_device_raises_on_cpu_host(entry, tmp_path):
 
 @pytest.mark.parametrize('flag,value', [('use_mesh', 'on')])
 def test_unported_options_raise(flag, value, tmp_path):
+    """Every option is ported: use_mesh='on' in a single process runs
+    unsharded (one process is one card, haphic_tpu's one-device case)
+    and writes the tree that 'off' writes."""
     from haphic_tpu_torch.pipeline import PipelineConfig, run_pipeline
-    cfg = PipelineConfig(device='cpu', **{flag: value})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        run_pipeline('asm.fa', 'hic.pairs', 2, cfg=cfg,
-                     outdir=str(tmp_path / 'out'))
-    assert not (tmp_path / 'out').exists()
+    fa, pairs = _sim_files(tmp_path)
+    trees = []
+    for v in (value, 'off'):
+        cfg = PipelineConfig(device='cpu', Nx=100, RE_site_cutoff=0,
+                             density_lower='0', density_upper='1',
+                             rank_sum_upper='1', flank=0, ngen=20, npop=8,
+                             **{flag: v})
+        cfg.reassign.min_group_len = 0
+        cfg.reassign.min_RE_sites = 0
+        cfg.reassign.min_links = 1
+        out = tmp_path / v
+        run_pipeline(fa, pairs, 2, cfg=cfg, outdir=str(out))
+        assert cfg.mesh is None
+        trees.append({os.path.relpath(os.path.join(d, f), out):
+                      open(os.path.join(d, f), 'rb').read()
+                      for d, _, fs in os.walk(out) for f in fs
+                      if not os.path.islink(os.path.join(d, f))})
+    assert len(trees[0]) > 20 and trees[0] == trees[1]
 
 
 def _merge_case(seed):

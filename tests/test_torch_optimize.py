@@ -319,7 +319,7 @@ def test_cpu_delta_generation_takes_the_plain_version():
         state = (_t(order[None]), _t(ori[None])) + rec.caches(
             _t(order[None]), _t(ori[None]))
         for _ in range(5):
-            state = topt._dgen(gen, rec, state, step)
+            state = topt._dgen(topt._Draws(gen, 1), rec, state, step)
         out.append(state)
     assert tdelta.delta_generation.launches == n0
     for a, b in zip(*out):
@@ -336,7 +336,7 @@ def test_delta_step_settings_are_arguments():
                         _t(pb[None]), _t(d[None]), _t(w[None]))
     gen = torch.Generator()
     gen.manual_seed(4)
-    move = topt._sample_moves(gen, (1, 8), 24, 1.1)
+    move = topt._sample_moves(topt._Draws(gen, 1), (1, 8), 24, 1.1)
     for min_gain, want in ((10.0, False), (-10.0, True)):
         state = (_t(order[None]), _t(ori[None])) + rec.caches(
             _t(order[None]), _t(ori[None]))
@@ -366,7 +366,8 @@ def test_untouched_records_keep_their_state(op):
         _t(order[None]), _t(ori[None]))
     gen = torch.Generator()
     gen.manual_seed(op)
-    do, _, i, j, t = topt._sample_moves(gen, (1, P), k, 0.8)
+    do, _, i, j, t = topt._sample_moves(topt._Draws(gen, 1), (1, P), k,
+                                        0.8)
     move = (do, torch.full_like(i, op), i, j, t)
     scal = topt._move_scalars(state[3], i, j, t)
     new = (topt._endpoint_update(*state[4:7], rec.la, *move, *scal)
@@ -438,8 +439,9 @@ def test_ga_settings_follow_the_environment(ga_env, var, value):
         xoprob=0.0)
     rec = topt._Records(_t(lengths[None], torch.int64), _t(pa[None]),
                         _t(pb[None]), _t(d[None]), _t(w[None]))
-    got = topt._evolve_delta_impl(torch.Generator(), rec, _t(order[None]),
-                                  _t(ori[None]), 0.0, 1, xoprob=0.0)
+    got = topt._evolve_delta_impl(topt._Draws(torch.Generator(), 1), rec,
+                                  _t(order[None]), _t(ori[None]), 0.0, 1,
+                                  xoprob=0.0)
     _eq(got[0], want[0], 'order after reset')
     _eq(got[1], want[1], 'ori after reset')
     np.testing.assert_allclose(got[2][0].numpy(), np.asarray(want[2]),
