@@ -45,9 +45,10 @@ Phases, each printing one JSON line:
              chromosomes x 1000 contigs x 20 kb (480 Mb, n = 24,000
              fragments, past SPARSE_MIN_N) with 6,000,000 pairs, seed
              17, the same flags and cut: the MCL sweep must run on the
-             sparse top-K engine on the card, the GA and its kernels on
-             the card (launch counts set to 0 just before and read just
-             after), and the scaffolds must recover the 24 chromosomes.
+             sparse top-K engine on the card through the sparse_column
+             kernel, the GA and its kernels on the card (launch counts
+             of all three set to 0 just before and read just after), and
+             the scaffolds must recover the 24 chromosomes.
              Prints n, K, the input columns over K, iterations per
              inflation, the K of each shrink per inflation batch, the
              sweep seconds, stage and wall seconds, peak card memory.
@@ -57,9 +58,13 @@ Phases, each printing one JSON line:
              iterations); then the sparse pipeline's first sweep step
              (B=4, n+1, K=128, from the first-iteration state), rerun
              with the arguments the pipeline gave it, timed with CUDA
-             events, its peak card memory, and its device time from
+             events (and again through the plain version of the column
+             pass), its peak card memory, and its device time from
              torch.profiler split by op and by kernel, each with its
-             share.
+             share. Then sparse_column against its plain version on
+             that step's columns: equal sets of entries above 1e-6,
+             values within rtol 1e-5 / atol 1e-7; both timed over the
+             step's chunks (the kernel's ms and plain_ms).
 6. polyploid_pipeline
              the pipeline phase's genome at half its contigs and pairs
              (8 x 500 contigs, 1,000,000 pairs: a cut, for time) made
@@ -162,20 +167,24 @@ Phases, each printing one JSON line:
              (`--mesh-worker sparse`) against the meshless run on the
              card: iterates, iteration counts and K shrinks bit-equal.
              Prints each sharded step's ms, its all-gather ms and bytes,
-             peak card memory per rank.
+             peak card memory and sparse_column launches per rank
+             (counted from 0 just before its run).
 13. mesh_nccl
              a one-rank NCCL group in this process, so that NCCL's
              collectives run on CUDA tensors even on one card: the
              sharded dense sweep (its first 5 inflations at n = 8000),
-             the sharded sparse step (the sparse pipeline's first step)
-             and the sharded GA (the pipeline's own GA call: 7 groups,
-             both kernels; launch counts set to 0 just before and read
-             just after) against the meshless calls, bit-equal.
+             the sharded sparse step (the sparse pipeline's first step,
+             through sparse_column) and the sharded GA (the pipeline's
+             own GA call: 7 groups, both kernels; launch counts set to 0
+             just before and read just after each) against the meshless
+             calls, bit-equal.
 14. kernels  one line listing every kernel (the line before the last):
              `launches` sums the counts of every phase that drives a
              path (pipeline, sparse_pipeline, polyploid_pipeline,
              correct_pipeline, allhic, sim, mesh_pipeline over its two
-             ranks, mesh_nccl), `launches_by_phase` lists them.
+             ranks, mesh_sparse over its two ranks, mesh_nccl),
+             `launches_by_phase` lists them; sparse_column's ms,
+             plain_ms, bound_ms and max_abs_err are phase 5's.
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
@@ -262,7 +271,14 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'haphic_tpu_torch/kernels/csrc/delta_generation.cu',
     'replaces': 'haphic_tpu/order/optimize.py:824',
+}, {
+    'name': 'sparse_column',
+    'route': 'cuda',
+    'source': 'haphic_tpu_torch/kernels/csrc/sparse_column.cu',
+    'replaces': 'haphic_tpu/cluster/sparse_mcl.py:164',
 }]
+# the GA's kernels: every pipeline phase launches both
+GA_KERNELS = ('score_population', 'delta_generation')
 
 
 T0 = time.time()
@@ -540,11 +556,13 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     """``genome`` (make_sim), then `cli.main(["pipeline", ...])` on the
     card with the flags it returns and the kernel launch counts set to 0
     just before and read just after. The MCL sweep must run on the card
-    on ``engine``, the GA on the card with both kernels, one
+    on ``engine`` (the sparse one through sparse_column), the GA on the
+    card with both kernels, one
     delta_generation launch per delta generation the GA reports, and the
     scaffolds must recover the simulated chromosomes. Returns (sim
     seconds, wall seconds, metrics, launches, partition summary, output
     directory)."""
+    from haphic_tpu_torch.kernels import sparse_column as kcol
     t0 = time.time()
     fa, pairs, flags = genome(os.path.join(WORK, sim_dir), **sim)
     sim_s = time.time() - t0
@@ -554,13 +572,15 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     torch.cuda.reset_peak_memory_stats()
     kscore.score_population.launches = 0
     kdelta.delta_generation.launches = 0
+    kcol.sparse_column.launches = 0
     t0 = time.time()
     rc = cli.main(['pipeline', fa, pairs, str(sim['nchrs']), '--outdir',
                    out, '--ngen', str(NGEN)] + SIM_FLAGS + flags)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {'score_population': kscore.score_population.launches,
-                'delta_generation': kdelta.delta_generation.launches}
+                'delta_generation': kdelta.delta_generation.launches,
+                'sparse_column': kcol.sparse_column.launches}
     logging.getLogger('haphic_tpu_torch').removeHandler(log)
     check(rc == 0, 'pipeline exit code {}'.format(rc))
     m = log.metrics
@@ -570,9 +590,10 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     check(mcl == 'cuda', 'the MCL sweep ran on {}, not the card'.format(mcl))
     check(m['ga_route'][-1] == 'cuda',
           'the GA ran on {}, not the card'.format(m['ga_route'][-1]))
-    for kname, n in launches.items():
-        check(n > 0, 'kernel {} was not launched on the main path'.format(
-            kname))
+    for kname in GA_KERNELS + (('sparse_column',) if engine == 'sparse'
+                               else ()):
+        check(launches[kname] > 0, 'kernel {} was not launched on the main '
+              'path'.format(kname))
     # the delta generations the GA says it ran, one launch each
     want = sum(m['ga_delta_gens'])
     check(launches['delta_generation'] == want,
@@ -764,9 +785,14 @@ def _device_ops(torch, prof, top):
 def phase_sparse_step(torch, sp, first_step):
     """The sparse pipeline's first sweep step (its first inflation
     batch, from its first-iteration state), again with the arguments
-    the pipeline gave it, timed with CUDA events and profiled by op.
+    the pipeline gave it, timed with CUDA events and profiled by op;
+    the same step through the plain version of the column pass, timed.
     Before it, the engine on the card against the engine on the
-    CPU on a small block matrix: equal partitions and iterations."""
+    CPU on a small block matrix: equal partitions and iterations. Then
+    sparse_column held against its plain version on the step's columns
+    (equal kept sets above KEPT, values within RTOL/ATOL) and both timed
+    over the step's chunks. Returns the kernel's row."""
+    from haphic_tpu_torch.kernels import sparse_column as kcol
     i, j, w = _block_coo(96, 4, 2)
     infl = [1.2, 1.5, 2.0, 2.8]
     got = sp.run_mcl_sparse(i, j, w, 96, infl, K=48, max_iter=80,
@@ -796,19 +822,42 @@ def phase_sparse_step(torch, sp, first_step):
     check(bool(torch.isfinite(nv).all()) and int(max_nnz) <= K
           and bool((ni[:, n] == n).all()),
           'sparse step output: not finite, too wide or sentinel set')
+    with kcol.plain_columns(sp):
+        plain_step_ms = _time_ms(torch, step, STEP_REPS)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
     busy_ms, ops, kernels = _device_ops(torch, prof, TOP_OPS)
+    # the kernel against its plain version on the step's own columns
+    sel = torch.as_tensor(np.flatnonzero(active), device=si.device)
+    A_i, A_v, fa = si[sel], sv[sel], f[sel]
+    cols = [lambda fn=fn: kcol.step_columns(fn, A_i, A_v, fa, n, K, chunk,
+                                            pruning, expansion)
+            for fn in (kcol.sparse_column, kcol.sparse_column_plain)]
+    kout, pout = cols[0](), cols[1]()
+    torch.cuda.synchronize()
+    cmp = kcol.compare(*kout, *pout, n)
+    check(cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0,
+          "sparse_column disagrees with its plain version on the "
+          "pipeline's step: {}".format(cmp))
+    del kout, pout
+    col_ms = _time_ms(torch, cols[0], STEP_REPS)
+    col_plain_ms = _time_ms(torch, cols[1], STEP_REPS)
+    bound, bound_by = kcol.bound_ms(A_i.shape[0], A_i.shape[1], K)
+    row = {'max_abs_err': cmp['max_abs_err'], 'ms': col_ms,
+           'plain_ms': col_plain_ms, 'bound_ms': bound, 'bound_by': bound_by}
     emit({'phase': 'sparse_step', 'B': B, 'n_plus_1': n + 1, 'K': K,
           'chunk': chunk, 'chunks': -(-(n + 1) // chunk),
-          'candidates': B * (n + 1) * K * K, 'ms': ms, 'reps': STEP_REPS,
+          'candidates': B * (n + 1) * K * K, 'ms': ms,
+          'plain_step_ms': plain_step_ms, 'reps': STEP_REPS,
           'profiled_device_ms': busy_ms, 'max_nnz': int(max_nnz),
           'max_memory_allocated': peak, 'top_device_ops': ops,
           'top_device_kernels': kernels,
-          'small_n_iters': got.n_iters.tolist()})
+          'small_n_iters': got.n_iters.tolist(),
+          'sparse_column': dict(row, **cmp)})
+    return row
 
 
 def _count_rows(path):
@@ -1711,6 +1760,7 @@ def mesh_worker(kind, spec_path) -> int:
                    max_memory_allocated=torch.cuda.max_memory_allocated())
     else:
         from haphic_tpu_torch.cluster import sparse_mcl as sp
+        from haphic_tpu_torch.kernels import sparse_column as kcol
         pmesh.init_distributed('cuda')
         mesh = pmesh.make_mesh('cuda')
         d = np.load(spec['coo'])
@@ -1733,6 +1783,7 @@ def mesh_worker(kind, spec_path) -> int:
 
         sp._sharded_sweep_step = timed
         torch.cuda.reset_peak_memory_stats()
+        kcol.sparse_column.launches = 0
         t0 = time.time()
         res = sp.run_mcl_sparse(d['i'], d['j'], d['w'], int(d['n']),
                                 d['inflations'].tolist(), K=int(d['K']),
@@ -1740,11 +1791,13 @@ def mesh_worker(kind, spec_path) -> int:
                                 max_iter=int(d['max_iter']),
                                 pruning=float(d['pruning']), mesh=mesh)
         sweep_s = time.time() - t0
+        launches = {'sparse_column': kcol.sparse_column.launches}
         np.save('{}.idx{}.npy'.format(spec_path, rank), res.idx)
         np.save('{}.val{}.npy'.format(spec_path, rank), res.val)
         rec.update(rc=0, sweep_s=sweep_s, n_iters=res.n_iters.tolist(),
                    converged=res.converged.tolist(), k_steps=res.k_steps,
-                   steps=steps, backend=mesh.backend, world=mesh.world,
+                   steps=steps, launches=launches, backend=mesh.backend,
+                   world=mesh.world,
                    device=str(mesh.device),
                    max_memory_allocated=torch.cuda.max_memory_allocated())
         pmesh.shutdown_distributed()
@@ -1844,7 +1897,9 @@ def phase_mesh_sparse(torch, sp, call):
     through the column-sharded run_mcl_sparse on two torchrun ranks,
     against the meshless run on the same input: iterates, iteration
     counts and K shrinks bit-equal. Prints each sharded step's ms and
-    all-gather ms and bytes, the peak memory per rank."""
+    all-gather ms and bytes, the peak memory per rank. Returns the
+    sparse_column launches summed over the ranks (counted in each rank
+    from 0 just before its run_mcl_sparse)."""
     (i, j, w, n, infl), kw = call['args'], call['kw']
     infl = list(infl)[:MESH_SPARSE_B]
     coo = os.path.join(WORK, 'mesh_sparse_coo.npz')
@@ -1861,7 +1916,11 @@ def phase_mesh_sparse(torch, sp, call):
     meshless_s = time.time() - t0
     spec = os.path.join(WORK, 'mesh_sparse.json')
     ranks = []
+    launches = {'sparse_column': 0}
     for r, rec in enumerate(recs):
+        n_r = rec['launches']['sparse_column']
+        check(n_r > 0, 'rank {} launched no sparse_column'.format(r))
+        launches['sparse_column'] += n_r
         idx = np.load('{}.idx{}.npy'.format(spec, r))
         val = np.load('{}.val{}.npy'.format(spec, r))
         diff = int((idx != want.idx).sum() + (val != want.val).sum())
@@ -1876,6 +1935,7 @@ def phase_mesh_sparse(torch, sp, call):
         full = [x for x in st if x['K'] == kw['K']]
         ranks.append({'rank': r, 'device': rec['device'],
                       'sweep_s': rec['sweep_s'], 'steps': len(st),
+                      'launches': rec['launches'],
                       'step_ms_at_K': [x['ms'] for x in full],
                       'gather_ms_at_K': [x['gather_ms'] for x in full],
                       'gather_bytes_at_K': full[0]['bytes'] if full else 0,
@@ -1888,7 +1948,8 @@ def phase_mesh_sparse(torch, sp, call):
           'n_iters': want.n_iters.tolist(), 'k_steps': want.k_steps,
           'equal': True, 'wall_s': wall, 'meshless_s': meshless_s,
           'meshless_max_memory_allocated': torch.cuda.max_memory_allocated(),
-          'ranks': ranks})
+          'ranks': ranks, 'launches': launches})
+    return launches
 
 
 def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
@@ -1900,6 +1961,7 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
     24,001, K = 128) and the sharded GA (the dense pipeline's call, its
     batch of 7 groups) against the meshless calls: bit-equal."""
     from haphic_tpu_torch.cluster import mcl as tmcl
+    from haphic_tpu_torch.kernels import sparse_column as kcol
     from haphic_tpu_torch.parallel import mesh as pmesh
     store = os.path.join(WORK, 'nccl_store')
     with contextlib.suppress(FileNotFoundError):
@@ -1929,11 +1991,15 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
         # sparse step
         si, sv, f, active, n, K, chunk, pruning, expansion = step_args
         si, sv, f = si.to(DEVICE), sv.to(DEVICE), f.to(DEVICE)
+        kcol.sparse_column.launches = 0
         t0 = time.time()
         g = sp._sharded_sweep_step(mesh, si, sv, f, active, n, K, chunk,
                                    pruning, expansion)
         torch.cuda.synchronize()
         t1 = time.time()
+        col_launches = kcol.sparse_column.launches
+        check(col_launches > 0, 'the sharded sparse step launched no '
+              'sparse_column')
         w_ = sp._sweep_step(si, sv, f, active, n, K, chunk, pruning,
                             expansion)
         torch.cuda.synchronize()
@@ -1942,7 +2008,8 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
               and int(g[3]) == int(w_[3]),
               'sharded sparse step differs from the meshless one')
         line['sparse_step'] = {'B': int(si.shape[0]), 'n_plus_1': n + 1,
-                               'K': K, 'sharded_s': t1 - t0,
+                               'K': K, 'launches': col_launches,
+                               'sharded_s': t1 - t0,
                                'meshless_s': time.time() - t1}
         del si, sv, g, w_
         # GA
@@ -1953,7 +2020,8 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
         res = topt.optimize_tours(*ga_call['args'], **kw)
         secs = time.time() - t0
         launches = {'score_population': kscore.score_population.launches,
-                    'delta_generation': kdelta.delta_generation.launches}
+                    'delta_generation': kdelta.delta_generation.launches,
+                    'sparse_column': col_launches}
         want = ga_call['result']
         same = [np.array_equal(a.order, b.order)
                 and np.array_equal(a.ori, b.ori) and a.score == b.score
@@ -2010,7 +2078,7 @@ def main() -> int:
         first_step, by_phase['sparse_pipeline'] = phase_sparse_pipeline(
             torch, cli, kscore, kdelta, sp, SPARSE_MIN_N)
     sparse_call[0].pop('result')
-    phase_sparse_step(torch, sp, first_step)
+    main_rows['sparse_column'] = phase_sparse_step(torch, sp, first_step)
     # on the host: its tensors would count in the next peaks
     step_args = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
                       for x in first_step)
@@ -2032,15 +2100,17 @@ def main() -> int:
                                 allhic_tour)
     torch.cuda.empty_cache()
     by_phase['mesh_pipeline'] = phase_mesh_pipeline(torch, out)
-    phase_mesh_sparse(torch, sp, sparse_call[0])
+    by_phase['mesh_sparse'] = phase_mesh_sparse(torch, sp, sparse_call[0])
     by_phase['mesh_nccl'] = phase_mesh_nccl(
         torch, sp, topt, kscore, kdelta, dense_call[0], ga_call[0],
         step_args)
     kernels = []
     for k in KERNELS:
         row = main_rows[k['name']]
-        counts = {p: n[k['name']] for p, n in by_phase.items()}
-        # no single PyTorch call computes either function
+        counts = {p: n.get(k['name'], 0) for p, n in by_phase.items()}
+        check(sum(counts.values()) > 0, 'kernel {} was launched on no '
+              'path'.format(k['name']))
+        # no single PyTorch call computes any of the three functions
         kernels.append(dict(k, launches=sum(counts.values()),
                             launches_by_phase=counts,
                             max_abs_err=row['max_abs_err'], ms=row['ms'],

@@ -31,6 +31,12 @@ iteration, 2K in the convergence merge):
            (reference prune semantics, scripts/HapHiC_cluster.py:1987)
   converge numpy.allclose semantics via a 2K sorted merge of old/new
 
+Expand through prune are one call of kernels.sparse_column.sparse_column
+per column chunk: the hand-written CUDA kernel on the card, and on the
+CPU its plain version, the torch composition described below (the
+functions _expand, _dedupe_sorted and _inflate_cap_prune live there).
+The convergence statistic stays in torch here.
+
 Where JAX vmaps the per-column functions and streams columns through a
 lax.scan, the port loops over fixed column chunks on the host, writing
 into preallocated (B, n+1, K) outputs; nothing in that loop syncs with
@@ -46,7 +52,9 @@ are max-reduced, so every rank takes the same convergence and K-shrink
 decisions. The math is per column, so the iterates are the meshless
 run's, bit for bit.
 
-Where the port would differ from JAX unless careful:
+Where the plain version would differ from JAX unless careful (the
+kernel keeps the same order and tie rules, and sums each run in f64 in
+one pass; csrc/sparse_column.cu):
   * lax.sort with num_keys=1 is stable: every sort by row id is
     torch.sort(stable=True), payloads gathered by its indices;
   * lax.top_k puts the lower position first among equal values;
@@ -71,6 +79,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from haphic_tpu_torch.kernels.sparse_column import (
+    _shift_left, _shift_right, _sort_by_id, sparse_column)
 from haphic_tpu_torch.parallel.mesh import all_gather_cols, all_reduce_max
 from haphic_tpu_torch.runtime import resolve_device
 
@@ -80,93 +90,8 @@ DEFAULT_K = 128
 
 
 # ---------------------------------------------------------------------------
-# per-column functions, over the last axis of (..., L) tensors
+# convergence statistic, over the last axis of (..., L) tensors
 # ---------------------------------------------------------------------------
-
-
-def _shift_left(x: torch.Tensor, fill) -> torch.Tensor:
-    """x[..., 1:] followed by ``fill``."""
-    return torch.cat([x[..., 1:], x.new_full(x.shape[:-1] + (1,), fill)],
-                     dim=-1)
-
-
-def _shift_right(x: torch.Tensor, fill) -> torch.Tensor:
-    """``fill`` followed by x[..., :-1]."""
-    return torch.cat([x.new_full(x.shape[:-1] + (1,), fill), x[..., :-1]],
-                     dim=-1)
-
-
-def _sort_by_id(ids: torch.Tensor, *payloads: torch.Tensor):
-    """Stable sort by id along the last axis, payloads following
-    (lax.sort with num_keys=1 is stable: equal ids keep their order, so
-    the run sums below add in JAX's order)."""
-    ids, order = torch.sort(ids, dim=-1, stable=True)
-    return (ids,) + tuple(torch.gather(p, -1, order) for p in payloads)
-
-
-def _dedupe_sorted(ci: torch.Tensor, cv: torch.Tensor, n: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Segment-sum runs of equal ids in an id-sorted candidate list.
-    Non-last members of each run become sentinels (id n, value 0).
-
-    The running sum is kept in f64 and each run rounded to f32 once: a
-    run is the difference of two prefix sums of the whole column (up to
-    ~1), so f32 prefixes (XLA's, or PyTorch's on CUDA) put ~1e-7 of
-    absolute error on every entry, a tenth of a 1e-3 entry's value."""
-    s = torch.cumsum(cv, dim=-1, dtype=torch.float64)
-    is_last = ci != _shift_left(ci, n + 1)
-    z = torch.where(is_last, s, 0.0)
-    # s is nondecreasing (cv >= 0), so the last run end before each
-    # position is a running max
-    prev_end = torch.cummax(_shift_right(z, 0.0), dim=-1).values
-    run = (s - prev_end).to(cv.dtype)
-    real = is_last & (ci < n)
-    return torch.where(real, ci, n), torch.where(real, run, 0.0)
-
-
-def _inflate_cap_prune(didx: torch.Tensor, dval: torch.Tensor, infl,
-                       pruning: float, n: int, K: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """inflate -> exact colnorm -> top-K cap -> threshold+keep-max ->
-    renormalize -> sort by row id. Works on any deduped candidate list
-    (K² after expansion, K for the no-expand first iteration).
-    ``infl`` is a float or a tensor that broadcasts against (..., 1)."""
-    pos = dval > 0
-    p = torch.where(pos, torch.exp(infl * torch.log(
-        torch.where(pos, dval, 1.0))), 0.0)
-    tot = p.sum(dim=-1, keepdim=True)
-    p = p * torch.where(tot > 0, 1.0 / tot, 0.0)
-    if p.shape[-1] > K:
-        # lax.top_k order: descending, lower position first among ties
-        tv, tpos = torch.sort(p, dim=-1, descending=True, stable=True)
-        tv = tv[..., :K]
-        ti = torch.gather(didx, -1, tpos[..., :K])
-    else:
-        tv, ti = p, didx
-    mx = tv.amax(dim=-1, keepdim=True)
-    keep = (tv >= pruning) | ((tv == mx) & (tv > 0))
-    tv = torch.where(keep, tv, 0.0)
-    t2 = tv.sum(dim=-1, keepdim=True)
-    tv = tv * torch.where(t2 > 0, 1.0 / t2, 0.0)
-    ti = torch.where(tv > 0, ti, n).to(torch.int32)
-    return _sort_by_id(ti, tv)
-
-
-def _expand(A_i: torch.Tensor, A_v: torch.Tensor, col_i: torch.Tensor,
-            col_v: torch.Tensor, n: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Candidates of (A @ A)[:, j] for every column j of the block: the
-    K referenced columns of A scaled by the column's values, flattened
-    and deduped. A_i/A_v: (B, N, K); col_i/col_v: (B, C, K) ->
-    (B, C, K²)."""
-    B, C, Kc = col_i.shape
-    K = A_i.shape[-1]
-    b = torch.arange(B, device=A_i.device).view(B, 1, 1)
-    cols = col_i.long()
-    gi = A_i[b, cols].reshape(B, C, Kc * K)
-    gv = (A_v[b, cols] * col_v[..., None]).reshape(B, C, Kc * K)
-    gi, gv = _sort_by_id(gi, gv)
-    return _dedupe_sorted(gi, gv, n)
 
 
 def _col_allclose_stat(old_idx, old_val, new_idx, new_val, n: int,
@@ -210,8 +135,9 @@ def _first_iteration(idx0: torch.Tensor, val0: torch.Tensor,
     idx0/val0: (N, K), N = n+1; returns (B, N, K) idx/val."""
     B = inflations.shape[0]
     shape = (B,) + tuple(idx0.shape)
-    i0, v0 = _inflate_cap_prune(idx0.expand(shape), val0.expand(shape),
-                                inflations.view(B, 1, 1), pruning, n, K)
+    i0, v0 = sparse_column(None, None, idx0.expand(shape),
+                           val0.expand(shape), inflations, n, K, pruning,
+                           expand=False)
     # sentinel column n stays empty
     i0[:, n] = n
     v0[:, n] = 0.0
@@ -233,17 +159,18 @@ def _sweep_cols(A_i, A_v, infl, n: int, K: int, chunk: int,
     new_i = A_i.new_empty((B, c1 - c0, A_i.shape[2]))
     new_v = A_v.new_empty((B, c1 - c0, A_v.shape[2]))
     maxstat = torch.full((B,), -torch.inf, device=A_v.device)
-    f = infl.view(B, 1, 1)
+    ones = torch.ones_like(infl)
     for s in range(c0, c1, chunk):
         e = min(c1, s + chunk)
         ci, cv = A_i[:, s:e], A_v[:, s:e]
-        di, dv = _expand(A_i, A_v, ci, cv, n)
+        di, dv = ci, cv
         for _ in range(expansion - 2):
-            # higher expansion powers: re-expand the deduped column
+            # higher expansion powers: re-expand the capped column
             # (entries beyond K² fold through the cap)
-            di, dv = _inflate_cap_prune(di, dv, 1.0, 0.0, n, K)
-            di, dv = _expand(A_i, A_v, di, dv, n)
-        ni, nv = _inflate_cap_prune(di, dv, f, pruning, n, K)
+            di, dv = sparse_column(A_i, A_v, di, dv, ones, n, K, 0.0,
+                                   expand=True)
+        ni, nv = sparse_column(A_i, A_v, di, dv, infl, n, K, pruning,
+                               expand=True)
         del di, dv
         stat = _col_allclose_stat(ci, cv, ni, nv, n)
         maxstat = torch.maximum(maxstat, stat.amax(dim=-1))
@@ -399,11 +326,12 @@ def _pre_expand(base_i: torch.Tensor, base_v: torch.Tensor,
     iterate would instead give A^(2^(e-1)). All (N, K)."""
     out_i = torch.empty_like(cur_i)
     out_v = torch.empty_like(cur_v)
+    one = torch.ones(1, device=cur_v.device)
     for s in range(0, cur_i.shape[0], chunk):
-        di, dv = _expand(base_i[None], base_v[None],
-                         cur_i[None, s:s + chunk], cur_v[None, s:s + chunk],
-                         n)
-        ni, nv = _inflate_cap_prune(di, dv, 1.0, 0.0, n, K)
+        ni, nv = sparse_column(base_i[None], base_v[None],
+                               cur_i[None, s:s + chunk],
+                               cur_v[None, s:s + chunk], one, n, K, 0.0,
+                               expand=True)
         out_i[s:s + chunk] = ni[0]
         out_v[s:s + chunk] = nv[0]
     out_i[n] = n

@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels (the tour scorer and the GA's
-delta generation) against their plain torch versions, on the card.
+"""The port's hand-written CUDA kernels (the tour scorer, the GA's
+delta generation and the sparse MCL column step) against their plain
+torch versions, on the card.
 CUDA kernels have no CPU mode, so these tests carry the `cuda` marker
 and skip on a host without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a card
@@ -7,6 +8,7 @@ host without them:
 
     HAPHIC_TEST_TPU=1 python -m pytest -m cuda tests/test_torch_kernels.py
 
+(add ``-k sparse`` for the column step's tests alone).
 (HAPHIC_TEST_TPU=1 keeps the repo's conftest.py from importing JAX.)
 """
 
@@ -361,3 +363,212 @@ def test_device_ga_on_the_card_recovers_true_order(card):
     assert res.score >= 0.95 * float(truth)
     assert _canonical_tour(res.order, res.ori) == \
         _canonical_tour(true_order, true_ori[true_order])
+
+
+# --- sparse MCL column step ------------------------------------------------
+
+def _ell_case(seed, B, n, K, full=False, equal=False):
+    """B random column-stochastic (n+1, K) ELL matrices: each column j < n
+    K (``full``) or 1..K distinct random rows, sorted ascending, sentinels
+    (n, 0) after them; column n empty. ``equal`` gives every entry of a
+    full column the value 1/K, a power of two at K = 2^k, so products and
+    run sums are exact and many are equal."""
+    rng = np.random.default_rng(seed)
+    idx = np.full((B, n + 1, K), n, dtype=np.int32)
+    val = np.zeros((B, n + 1, K), dtype=np.float32)
+    for b in range(B):
+        for j in range(n):
+            m = K if full else int(rng.integers(1, K + 1))
+            rows = np.sort(rng.choice(n, m, replace=False))
+            w = np.full(m, 1.0 / K) if equal else rng.exponential(1.0, m)
+            idx[b, j, :m] = rows
+            val[b, j, :m] = w / w.sum()
+    return idx, val
+
+
+def _column_step(fn, A_i, A_v, infl, n, K, pruning, expansion):
+    """``fn`` (the kernel's wrapper or its plain version) over every
+    column of A, as _sweep_cols composes it for ``expansion``."""
+    di, dv = A_i, A_v
+    for _ in range(expansion - 2):
+        di, dv = fn(A_i, A_v, di, dv, torch.ones_like(infl), n, K, 0.0, True)
+    return fn(A_i, A_v, di, dv, infl, n, K, pruning, True)
+
+
+def _check_iterate(out_i, out_v, n, K):
+    """Rows ascending, then sentinels (n, 0); values in [0, 1]."""
+    assert out_i.dtype == torch.int32 and out_v.dtype == torch.float32
+    assert out_i.shape[-1] == K
+    real = out_i < n
+    assert bool(((out_v > 0) == real).all())
+    assert bool((out_i[..., 1:] > out_i[..., :-1])[real[..., 1:]].all())
+    assert bool((real[..., 1:] <= real[..., :-1]).all())
+    assert bool(((out_v >= 0) & (out_v <= 1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,n,K,expansion,expand', [
+    (2, 500, 16, 2, True),       # a few hundred candidates a column
+    (4, 3000, 128, 2, True),     # the default K: 16,384, columns over K
+    (2, 1000, 192, 2, True),     # 36,864 candidates: the global workspace
+    (2, 500, 32, 3, True),       # expansion 3: two launches a column
+    (4, 3000, 128, 2, False),    # the first iteration: no expansion
+], ids=['small', 'K=128', 'global', 'expansion3', 'expand0'])
+def test_sparse_column_kernel_matches_plain(card, B, n, K, expansion,
+                                            expand):
+    from haphic_tpu_torch.kernels import sparse_column as kcol
+    idx, val = _ell_case(B * n + K, B, n, K)
+    A_i, A_v = torch.as_tensor(idx, device=card), torch.as_tensor(
+        val, device=card)
+    infl = torch.linspace(1.2, 3.0, B, device=card)
+    n0 = kcol.sparse_column.launches
+    if expand:
+        got = _column_step(kcol.sparse_column, A_i, A_v, infl, n, K, 1e-4,
+                           expansion)
+        want = _column_step(kcol.sparse_column_plain, A_i, A_v, infl, n, K,
+                            1e-4, expansion)
+    else:
+        got = kcol.sparse_column(None, None, A_i, A_v, infl, n, K, 1e-4,
+                                 False)
+        want = kcol.sparse_column_plain(None, None, A_i, A_v, infl, n, K,
+                                        1e-4, False)
+    torch.cuda.synchronize()
+    assert kcol.sparse_column.launches == n0 + (expansion - 1)
+    _check_iterate(*got, n, K)
+    assert bool((got[0][:, n] == n).all())
+    cmp = kcol.compare(*got, *want, n)
+    assert cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0, cmp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('expand', [True, False], ids=['expand', 'expand0'])
+def test_sparse_column_kernel_tie_rule(card, expand):
+    """Columns with more distinct rows than K and equal values: the cap
+    keeps the lower row id among equal values, as lax.top_k keeps the
+    lower position, so the kept rows are the plain version's exactly.
+    Expanded: every entry 1/128, so run sums are exact multiples of
+    2^-14 and many tie at the cut. Not expanded: 256 entries of 1/256
+    capped to 128."""
+    from haphic_tpu_torch.kernels import sparse_column as kcol
+    B, n = 2, 3000
+    Kc = 128 if expand else 256
+    idx, val = _ell_case(7, B, n, Kc, full=True, equal=True)
+    A_i, A_v = torch.as_tensor(idx, device=card), torch.as_tensor(
+        val, device=card)
+    infl = torch.tensor([1.5, 2.0], device=card)
+    K = 128
+    args = (A_i, A_v, A_i, A_v) if expand else (None, None, A_i, A_v)
+    got = kcol.sparse_column(*args, infl, n, K, 0.0, expand)
+    want = kcol.sparse_column_plain(*args, infl, n, K, 0.0, expand)
+    torch.cuda.synchronize()
+    # the cap cut every real column
+    assert bool((got[0][:, :n] < n).all())
+    assert torch.equal(got[0], want[0])
+    cmp = kcol.compare(*got, *want, n)
+    assert cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0, cmp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [128, 192], ids=['smem', 'global'])
+def test_sparse_column_kernel_block_chunk_and_repeat_bit_equal(card, K):
+    """A column's bits do not depend on the chunk, on the column block
+    [c0, c1) or on the run: _sweep_cols on the card at two chunk sizes,
+    over two blocks, and twice."""
+    from haphic_tpu_torch.cluster import sparse_mcl as tsp
+    B, n = 2, 700
+    idx, val = _ell_case(11, B, n, K)
+    A_i, A_v = torch.as_tensor(idx, device=card), torch.as_tensor(
+        val, device=card)
+    infl = torch.tensor([1.4, 2.2], device=card)
+    whole = tsp._sweep_cols(A_i, A_v, infl, n, K, 256, 1e-4, 2)
+    again = tsp._sweep_cols(A_i, A_v, infl, n, K, 256, 1e-4, 2)
+    other = tsp._sweep_cols(A_i, A_v, infl, n, K, 96, 1e-4, 2)
+    lo = tsp._sweep_cols(A_i, A_v, infl, n, K, 64, 1e-4, 2, 0, 333)
+    hi = tsp._sweep_cols(A_i, A_v, infl, n, K, 64, 1e-4, 2, 333, n + 1)
+    for a, b in zip(whole[:2], again[:2]):
+        assert torch.equal(a, b)
+    for a, b in zip(whole[:2], other[:2]):
+        assert torch.equal(a, b)
+    for t, a in enumerate(whole[:2]):
+        assert torch.equal(a, torch.cat([lo[t], hi[t]], dim=1))
+    assert torch.equal(whole[2], again[2]) and torch.equal(whole[2],
+                                                           other[2])
+    assert torch.equal(whole[2], torch.maximum(lo[2], hi[2]))
+
+
+@pytest.mark.cuda
+def test_sparse_mcl_call_sites_launch_the_kernel(card):
+    """_pre_expand, _first_iteration and _sweep_step launch the kernel on
+    the card (one launch a chunk, one for the first iteration), and the
+    engine's partitions and iterations on the card equal the CPU's."""
+    from haphic_tpu_torch.cluster import sparse_mcl as tsp
+    from haphic_tpu_torch.kernels import sparse_column as kcol
+    B, n, K, chunk = 2, 300, 32, 128
+    idx, val = _ell_case(5, 1, n, K)
+    bi, bv = torch.as_tensor(idx[0], device=card), torch.as_tensor(
+        val[0], device=card)
+    infl = torch.tensor([1.6, 2.4], device=card)
+    chunks = -(-(n + 1) // chunk)
+    n0 = kcol.sparse_column.launches
+    pi, pv = tsp._pre_expand(bi, bv, bi, bv, n, K, chunk)
+    assert kcol.sparse_column.launches == n0 + chunks
+    si, sv = tsp._first_iteration(pi, pv, infl, n, K, 1e-4)
+    assert kcol.sparse_column.launches == n0 + chunks + 1
+    tsp._sweep_step(si, sv, infl, np.ones(B, dtype=bool), n, K, chunk,
+                    1e-4, 2)
+    assert kcol.sparse_column.launches == n0 + 2 * chunks + 1
+    # the engine on the card against the CPU, on a 4-block matrix
+    rng = np.random.default_rng(2)
+    m = np.zeros((96, 96))
+    for blk in range(4):
+        w = rng.integers(5, 60, (24, 24)) * (rng.random((24, 24)) < 0.5)
+        s = slice(24 * blk, 24 * blk + 24)
+        m[s, s] += np.triu(w, 1) + np.triu(w, 1).T
+    i, j = np.nonzero(np.triu(m, 1))
+    runs = [tsp.run_mcl_sparse(i, j, m[i, j], 96, [1.4, 2.0], K=48,
+                               max_iter=80, device=d)
+            for d in ('cuda', 'cpu')]
+    assert np.array_equal(runs[0].n_iters, runs[1].n_iters)
+    assert [runs[0].interpret(b) for b in range(2)] == \
+        [runs[1].interpret(b) for b in range(2)]
+
+
+@pytest.mark.cuda
+def test_sparse_column_kernel_rejects_bad_input(card):
+    from haphic_tpu_torch.kernels import sparse_column as kcol
+    idx, val = _ell_case(3, 1, 50, 8)
+    A_i, A_v = torch.as_tensor(idx, device=card), torch.as_tensor(
+        val, device=card)
+    infl = torch.ones(1, device=card)
+    bad = [(A_i.long(), A_v, A_i, A_v, infl),          # int64 ids
+           (A_i, A_v, A_i, A_v.double(), infl),        # f64 values
+           (A_i, A_v, A_i.cpu(), A_v, infl),           # mixed devices
+           (A_i, A_v, A_i, A_v, infl.cpu()),
+           (A_i, A_v, A_i[:, :, :4], A_v, infl),       # shapes differ
+           (A_i, A_v, A_i.transpose(1, 2), A_v.transpose(1, 2), infl),
+           (A_i, A_v, A_i, A_v, torch.ones(2, device=card))]
+    for args in bad:
+        with pytest.raises(ValueError):
+            kcol.sparse_column(*args, 50, 8, 1e-4, True)
+    with pytest.raises(ValueError):      # K above the candidates
+        kcol.sparse_column(None, None, A_i, A_v, infl, 50, 9, 1e-4, False)
+    with pytest.raises(ValueError):      # column n missing from A
+        kcol.sparse_column(A_i[:, :50], A_v[:, :50], A_i, A_v, infl, 50, 8,
+                           1e-4, True)
+
+
+def test_sparse_column_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrapper runs the plain version and launches
+    nothing."""
+    from haphic_tpu_torch.kernels import sparse_column as kcol
+    idx, val = _ell_case(4, 2, 60, 8)
+    A_i, A_v = torch.as_tensor(idx), torch.as_tensor(val)
+    infl = torch.tensor([1.5, 2.5])
+    n0 = kcol.sparse_column.launches
+    got = kcol.sparse_column(A_i, A_v, A_i[:, 10:30], A_v[:, 10:30], infl,
+                             60, 8, 1e-4, True)
+    assert kcol.sparse_column.launches == n0
+    want = kcol.sparse_column_plain(A_i, A_v, A_i[:, 10:30], A_v[:, 10:30],
+                                    infl, 60, 8, 1e-4, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _check_iterate(*got, 60, 8)
