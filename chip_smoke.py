@@ -64,7 +64,12 @@ Phases, each printing one JSON line:
              share. Then sparse_column against its plain version on
              that step's columns: equal sets of entries above 1e-6,
              values within rtol 1e-5 / atol 1e-7; both timed over the
-             step's chunks (the kernel's ms and plain_ms).
+             step's chunks (the kernel's ms and plain_ms); and the
+             step's column shapes (sparse_column.column_stats: real
+             sources, real candidates, distinct ids, capped columns).
+             The step's arguments go to build/chip_smoke/sparse_step.pt
+             for `python -m haphic_tpu_torch.kernels.sparse_column
+             --iterate`.
 6. polyploid_pipeline
              the pipeline phase's genome at half its contigs and pairs
              (8 x 500 contigs, 1,000,000 pairs: a cut, for time) made
@@ -809,6 +814,12 @@ def phase_sparse_step(torch, sp, first_step):
 
     si, sv, f, active, n, K, chunk, pruning, expansion = first_step
     B = si.shape[0]
+    # for `python -m haphic_tpu_torch.kernels.sparse_column --iterate`
+    torch.save({'idx': si, 'val': sv, 'infl': f,
+                'active': torch.as_tensor(active), 'n': int(n), 'K': int(K),
+                'chunk': int(chunk), 'pruning': float(pruning),
+                'expansion': int(expansion)},
+               os.path.join(WORK, 'sparse_step.pt'))
 
     def step():
         return sp._sweep_step(si, sv, f, active, n, K, chunk, pruning,
@@ -843,6 +854,7 @@ def phase_sparse_step(torch, sp, first_step):
           "sparse_column disagrees with its plain version on the "
           "pipeline's step: {}".format(cmp))
     del kout, pout
+    shapes = kcol.column_stats(A_i, A_v, n, K, chunk)
     col_ms = _time_ms(torch, cols[0], STEP_REPS)
     col_plain_ms = _time_ms(torch, cols[1], STEP_REPS)
     bound, bound_by = kcol.bound_ms(A_i.shape[0], A_i.shape[1], K)
@@ -855,7 +867,7 @@ def phase_sparse_step(torch, sp, first_step):
           'profiled_device_ms': busy_ms, 'max_nnz': int(max_nnz),
           'max_memory_allocated': peak, 'top_device_ops': ops,
           'top_device_kernels': kernels,
-          'small_n_iters': got.n_iters.tolist(),
+          'small_n_iters': got.n_iters.tolist(), 'column_stats': shapes,
           'sparse_column': dict(row, **cmp)})
     return row
 

@@ -2,6 +2,7 @@
 version.
 
     python -m haphic_tpu_torch.kernels.sparse_column [--seed 0] [--reps 3]
+        [--phases] [--iterate build/chip_smoke/sparse_step.pt]
 
 Counterpart of the jitted XLA column pass of
 haphic_tpu/cluster/sparse_mcl.py: ``_sweep_cols`` (:164), which vmaps
@@ -23,20 +24,28 @@ kernel (csrc/sparse_column.cu) on CUDA tensors and runs
 ``sparse_column_plain``, the torch composition ``_expand`` then
 ``_inflate_cap_prune`` (moved here from cluster/sparse_mcl.py), on CPU
 tensors; nothing else picks the plain version. The convergence
-statistic stays in torch (``sparse_mcl._col_allclose_stat``).
+statistic stays in torch (``sparse_mcl._col_allclose_stat``). On both
+devices the columns of ci, and with ``expand`` those of A_i, must be in
+ELL order (ascending distinct ids below n, then sentinels n), or it
+raises ValueError: the kernel's dedupe relies on it.
 
 What bounds it: each input read once and each output written once, 2 ·
 B · N · K · 8 bytes a sweep step, so bytes (0.06 ms at B = 4, N =
-24,001, K = 128 on an H100). The kernel sorts every column's candidates
-in shared memory instead, one CTA a column (see the .cu).
+24,001, K = 128 on an H100). The kernel dedupes each column's
+candidates in a shared-memory hash table instead, one persistent CTA
+at a time a column (see the .cu).
 
 Run as a module, it times one ``sparse_mcl._sweep_step`` on the card at
 the sparse smoke run's shape (B = 4, n + 1 = 24,001, K = 128) on a
-seeded column-stochastic iterate, through the kernel and through the
-plain version, with CUDA events, then the column work alone (every
-chunk's ``sparse_column`` call, and the plain version's), and prints
-one JSON line: kernel ms, plain ms, step ms both ways, bound ms and the
-largest difference of the two iterates.
+seeded column-stochastic iterate, or with ``--iterate`` on the smoke
+run's own first step as chip_smoke.py saves it, through the kernel and
+through the plain version, with CUDA events, then the column work alone
+(every chunk's ``sparse_column`` call, and the plain version's), and
+prints one JSON line: kernel ms, plain ms, step ms both ways, bound ms
+and the largest difference of the two iterates. With ``--phases`` it
+builds the kernel's timing build (-DSC_PHASE_CLOCKS, its own library)
+and prints instead the column work's cycles by phase (``phases``) and
+the step's column shapes (``column_stats``).
 """
 
 from __future__ import annotations
@@ -46,8 +55,10 @@ import contextlib
 import ctypes
 import functools
 import json
+import os
 import subprocess
 import sys
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -55,9 +66,6 @@ import torch
 
 from haphic_tpu_torch.kernels import build as kbuild
 
-# candidates a column may have for the shared-memory path (the .cu's
-# SC_SMEM_CANDIDATES); past it the kernel works in a global workspace
-SMEM_CANDIDATES = 16384
 # entries above this must be kept by both versions (tests' KEPT)
 KEPT = 1e-6
 RTOL, ATOL = 1e-5, 1e-7
@@ -171,24 +179,27 @@ def sparse_column_plain(A_i, A_v, ci, cv, infl, n: int, K: int,
 # ---------------------------------------------------------------------------
 
 
+def _bind(lib: ctypes.CDLL):
+    """(launch, workspace bytes) of a build of csrc/sparse_column.cu."""
+    fn = lib.sparse_column_launch
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn.argtypes = [vp] * 4 + [i64, vp] + [i32] * 7 + \
+        [ctypes.c_float, i32, vp, i64] + [vp] * 3
+    fn.restype = ctypes.c_int
+    ws = lib.sparse_column_workspace
+    ws.argtypes = [i32] * 8
+    ws.restype = i64
+    return fn, ws
+
+
 @functools.lru_cache(maxsize=None)
 def _fn():
-    lib = kbuild.load('sparse_column')
-    fn = lib.sparse_column_launch
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 4 + [ctypes.c_int64, vp] + [i32] * 7 + \
-        [ctypes.c_float, i32] + [vp] * 5
-    fn.restype = ctypes.c_int
-    return fn
+    return _bind(kbuild.load('sparse_column'))
 
 
 def _candidates(ci, A_i, expand: bool) -> int:
     """Candidates a column has: Kc·KA with ``expand``, else Kc."""
     return ci.shape[2] * (A_i.shape[2] if expand else 1)
-
-
-def _pow2(x: int) -> int:
-    return 1 << max(0, (x - 1).bit_length())
 
 
 def _check(A_i, A_v, ci, cv, infl, n: int, K: int, expand: bool):
@@ -231,6 +242,65 @@ def _check(A_i, A_v, ci, cv, infl, n: int, K: int, expand: bool):
             K, L))
     if not 0 <= n < (1 << 31) - 1:
         raise ValueError('n = {} out of range'.format(n))
+    # the ELL order the kernel relies on; A_i once while it is unchanged
+    # (the same A serves every chunk of a sweep step)
+    _check_order('ci', ci, n)
+    if expand:
+        ref, version, last_n = _checked_A[0]
+        if ref() is not A_i or version != A_i._version or last_n != n:
+            _check_order('A_i', A_i, n)
+            _checked_A[0] = (weakref.ref(A_i), A_i._version, n)
+
+
+# the last A_i that passed _check_order: (a weak reference, its version
+# counter, n)
+_checked_A = [(lambda: None, None, None)]
+
+
+def _check_order(name: str, ids: torch.Tensor, n: int):
+    """Raises ValueError unless every column (the last axis) of ``ids``
+    holds ascending distinct real ids (0 <= id < n), then only sentinels
+    n: the order of every call site's iterate, on which the kernel's
+    dedupe and the plain version's sort agree."""
+    a, b = ids[..., :-1], ids[..., 1:]
+    bad = ((ids < 0) | (ids > n)).any() | ((b <= a) & (b != n)).any()
+    if bool(bad):
+        raise ValueError('{}: each column must hold ascending distinct row '
+                         'ids below n = {}, then only the sentinel n'.format(
+                             name, n))
+
+
+def _launch(fns, A_i, A_v, ci, cv, infl, n: int, K: int, pruning: float,
+            expand: bool):
+    """One launch of a build's (launch, workspace bytes) on checked CUDA
+    tensors; returns (out_i, out_v)."""
+    launch, ws_bytes = fns
+    dev = ci.device
+    B, C, Kc = ci.shape
+    out_i = torch.empty((B, C, K), dtype=torch.int32, device=dev)
+    out_v = torch.empty((B, C, K), dtype=torch.float32, device=dev)
+    if C == 0:
+        return out_i, out_v
+    N, KA = (A_i.shape[1], A_i.shape[2]) if expand else (0, 0)
+    with torch.cuda.device(dev):
+        # a slice a persistent CTA, for the columns past its shared memory
+        nbytes = ws_bytes(B, N, KA, C, Kc, n, K, int(bool(expand)))
+        if nbytes < 0:
+            raise RuntimeError('sparse_column kernel plan failed: CUDA '
+                               'error {}'.format(-nbytes))
+        ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        err = launch(A_i.data_ptr() if expand else None,
+                     A_v.data_ptr() if expand else None, ci.data_ptr(),
+                     cv.data_ptr(), ci.stride(0), infl.data_ptr(), B, N, KA,
+                     C, Kc, n, K, float(pruning), int(bool(expand)),
+                     ws.data_ptr() if nbytes else None, nbytes,
+                     out_i.data_ptr(),
+                     out_v.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError('sparse_column kernel launch failed: CUDA '
+                           'error {}'.format(err))
+    return out_i, out_v
 
 
 def sparse_column(A_i, A_v, ci, cv, infl, n: int, K: int, pruning: float,
@@ -246,32 +316,9 @@ def sparse_column(A_i, A_v, ci, cv, infl, n: int, K: int, pruning: float,
                                    expand)
     if dev.type != 'cuda':
         raise ValueError('unsupported device {}'.format(dev))
-    B, C, Kc = ci.shape
-    out_i = torch.empty((B, C, K), dtype=torch.int32, device=dev)
-    out_v = torch.empty((B, C, K), dtype=torch.float32, device=dev)
-    if C == 0:
-        return out_i, out_v
-    P2 = _pow2(_candidates(ci, A_i, expand))
-    ws_k = ws_v = None
-    if P2 > SMEM_CANDIDATES:
-        # the global-memory path: a slice of P2 keys and values a column
-        ws_k = torch.empty(B * C * P2, dtype=torch.int64, device=dev)
-        ws_v = torch.empty(B * C * P2, dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    N, KA = (A_i.shape[1], A_i.shape[2]) if expand else (0, 0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn()(ptr(A_i) if expand else None,
-                    ptr(A_v) if expand else None, ci.data_ptr(),
-                    cv.data_ptr(), ci.stride(0), infl.data_ptr(), B, N, KA,
-                    C, Kc, n, K, float(pruning), int(bool(expand)),
-                    ptr(ws_k), ptr(ws_v), out_i.data_ptr(),
-                    out_v.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError('sparse_column kernel launch failed: CUDA '
-                           'error {}'.format(err))
+    out = _launch(_fn(), A_i, A_v, ci, cv, infl, n, K, pruning, expand)
     sparse_column.launches += 1
-    return out_i, out_v
+    return out
 
 
 sparse_column.launches = 0
@@ -342,6 +389,34 @@ def bound_ms(B: int, N: int, K: int) -> Tuple[float, str]:
         'operations'
 
 
+def column_stats(A_i, A_v, n: int, K: int, chunk: int) -> dict:
+    """The column shapes of one sweep step (expansion 2) over every
+    column of A, each as p50 / p99 / max: real sources (ids < n), real
+    candidates (the entries of id < n of those sources' columns),
+    distinct ids with a positive run sum; and the columns the cap cuts
+    (more than K of those)."""
+    B = A_i.shape[0]
+    lens = (A_i < n).sum(dim=-1)
+    src, cand, dist = [], [], []
+    for s in range(0, A_i.shape[1], chunk):
+        ci, cv = A_i[:, s:s + chunk], A_v[:, s:s + chunk]
+        src.append((ci < n).sum(dim=-1))
+        cand.append(torch.gather(lens, 1, ci.reshape(B, -1).long())
+                    .view(ci.shape).sum(dim=-1))
+        di, dv = _expand(A_i, A_v, ci, cv, n)
+        dist.append(((di < n) & (dv > 0)).sum(dim=-1))
+        del di, dv
+
+    def pct(parts):
+        x = torch.cat(parts, dim=1).flatten().cpu().numpy()
+        return [float(np.percentile(x, 50)), float(np.percentile(x, 99)),
+                int(x.max())]
+    d = torch.cat(dist, dim=1)
+    return {'columns': int(d.numel()), 'real_sources': pct(src),
+            'real_candidates': pct(cand), 'distinct_ids': pct(dist),
+            'cap_cuts': int((d > K).sum())}
+
+
 # ---------------------------------------------------------------------------
 # the card timing entry
 # ---------------------------------------------------------------------------
@@ -398,6 +473,66 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _phases_fn():
+    """The timing build of csrc/sparse_column.cu (-DSC_PHASE_CLOCKS),
+    its own library beside the main one: (launch, read the cycles, the
+    phase names)."""
+    path = kbuild.library_path('sparse_column').replace(
+        'libsparse_column-', 'libsparse_column_phases-')
+    if not os.path.exists(path):
+        nvcc = kbuild.nvcc_path()
+        if nvcc is None:
+            raise RuntimeError('nvcc not found (set CUDA_HOME)')
+        os.makedirs(kbuild.BUILD_DIR, exist_ok=True)
+        tmp = '{}.{}.tmp'.format(path, os.getpid())
+        subprocess.run([nvcc] + kbuild.NVCC_FLAGS + [
+            '-DSC_PHASE_CLOCKS', '-o', tmp,
+            os.path.join(kbuild.CSRC, 'sparse_column.cu')], check=True)
+        os.replace(tmp, path)
+    lib = ctypes.CDLL(path)
+    read = lib.sparse_column_phase_cycles
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    names = lib.sparse_column_phase_names
+    names.argtypes, names.restype = [], ctypes.c_char_p
+    return _bind(lib), read, names().decode().split(',')
+
+
+def phases(A_i, A_v, infl, n: int, K: int, chunk: int, pruning: float,
+           expansion: int, reps: int) -> dict:
+    """One sweep step's column work (step_columns) through the timing
+    build: each phase's clock64() cycles, summed over the columns, a
+    column's mean and its share; the column work's ms through the
+    timing build and through the main build."""
+    launch, read, names = _phases_fn()
+
+    def timed(*args):
+        _check(*args[:5], args[5], args[6], args[8])
+        return _launch(launch, *args)
+    buf = (ctypes.c_uint64 * (len(names) + 1))()
+    run = functools.partial(step_columns, timed, A_i, A_v, infl, n, K,
+                            chunk, pruning, expansion)
+    run()
+    torch.cuda.synchronize()
+    for attempt in range(2):      # zero, then the counts of one step
+        if attempt:
+            run()
+            torch.cuda.synchronize()
+        err = read(ctypes.addressof(buf))
+        if err != 0:
+            raise RuntimeError('reading the phase cycles: CUDA error '
+                               '{}'.format(err))
+    cycles = list(buf)[:len(names)]
+    cols, total = buf[len(names)], sum(cycles)
+    return {'columns_timed': cols, 'cycles_per_column': total / max(cols, 1),
+            'phases': {k: {'cycles_per_column': c / max(cols, 1),
+                           'share': c / max(total, 1)}
+                       for k, c in zip(names, cycles)},
+            'timing_build_ms': _time_ms(run, reps),
+            'ms': _time_ms(functools.partial(
+                step_columns, sparse_column, A_i, A_v, infl, n, K, chunk,
+                pruning, expansion), reps)}
+
+
 def main(argv=None) -> int:
     # the package's module, not __main__: sparse_mcl calls its wrapper
     from haphic_tpu_torch.cluster import sparse_mcl as sp
@@ -405,26 +540,55 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--reps', type=int, default=3)
+    ap.add_argument('--phases', action='store_true',
+                    help='the timing build: cycles by phase, and the '
+                    "step's column statistics")
+    ap.add_argument('--iterate', help='a sweep step saved by chip_smoke.py '
+                    '(build/chip_smoke/sparse_step.pt) in place of the '
+                    'seeded iterate')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write('sparse_column: CUDA is not available\n')
         return 1
     dev = torch.device('cuda')
-    # the sparse smoke run's first step: n = 24,000 fragments, the first
-    # inflation batch of 4, the default K
-    n, B, K = 24000, 4, sp.DEFAULT_K
-    idx, val = kcol.seeded_iterate(args.seed, B, n, K)
-    idx, val = torch.as_tensor(idx, device=dev), torch.as_tensor(
-        val, device=dev)
-    infl = torch.as_tensor(np.linspace(1.2, 2.0, B, dtype=np.float32),
-                           device=dev)
-    active = np.ones(B, dtype=bool)
-    chunk = sp._auto_chunk(B, K, n)
+    if args.iterate:
+        st = torch.load(args.iterate, map_location=dev)
+        idx, val, infl = st['idx'], st['val'], st['infl']
+        active = st['active'].cpu().numpy()
+        n, K, chunk = st['n'], st['K'], st['chunk']
+        pruning, expansion = st['pruning'], st['expansion']
+    else:
+        # the sparse smoke run's first step: n = 24,000 fragments, the
+        # first inflation batch of 4, the default K
+        n, B, K = 24000, 4, sp.DEFAULT_K
+        idx, val = kcol.seeded_iterate(args.seed, B, n, K)
+        idx, val = torch.as_tensor(idx, device=dev), torch.as_tensor(
+            val, device=dev)
+        infl = torch.as_tensor(np.linspace(1.2, 2.0, B, dtype=np.float32),
+                               device=dev)
+        active = np.ones(B, dtype=bool)
+        chunk = sp._auto_chunk(B, K, n)
+        pruning, expansion = 1e-4, 2
 
     def step():
-        return sp._sweep_step(idx, val, infl, active, n, K, chunk, 1e-4, 2)
+        return sp._sweep_step(idx, val, infl, active, n, K, chunk, pruning,
+                              expansion)
 
+    # the column work alone: the active inflations' columns
+    sel = torch.as_tensor(np.flatnonzero(active), device=dev)
+    A_i, A_v, fa = idx[sel], val[sel], infl[sel]
+    B = A_i.shape[0]
+    head = {'kernel': 'sparse_column', 'nvidia_smi': _nvidia_smi(),
+            'device': torch.cuda.get_device_name(0),
+            'iterate': args.iterate or 'seeded {}'.format(args.seed),
+            'B': B, 'n_plus_1': n + 1, 'K': K, 'chunk': chunk}
     kbuild.build(['sparse_column'])
+    if args.phases:
+        print(json.dumps(dict(
+            head, **kcol.phases(A_i, A_v, fa, n, K, chunk, pruning,
+                                expansion, args.reps),
+            columns=kcol.column_stats(A_i, A_v, n, K, chunk))), flush=True)
+        return 0
     kcol.sparse_column.launches = 0
     got = step()
     torch.cuda.synchronize()
@@ -435,20 +599,16 @@ def main(argv=None) -> int:
         plain_ms = _time_ms(step, args.reps)
     cmp = kcol.compare(got[0], got[1], want[0], want[1], n)
     stat_err = float((got[2] - want[2]).abs().max())
-    # the column work alone, kernel against plain, on the step's input
     kernel_ms, col_plain_ms = (
-        _time_ms(functools.partial(kcol.step_columns, fn, idx, val, infl, n,
-                                   K, chunk, 1e-4), args.reps)
+        _time_ms(functools.partial(kcol.step_columns, fn, A_i, A_v, fa, n, K,
+                                   chunk, pruning, expansion), args.reps)
         for fn in (kcol.sparse_column, kcol.sparse_column_plain))
     bms, by = kcol.bound_ms(B, n + 1, K)
-    print(json.dumps({
-        'kernel': 'sparse_column', 'nvidia_smi': _nvidia_smi(),
-        'device': torch.cuda.get_device_name(0), 'B': B, 'n_plus_1': n + 1,
-        'K': K, 'chunk': chunk, 'launches_per_step': launches,
-        'ms': kernel_ms, 'plain_ms': col_plain_ms,
-        'step_ms': ms, 'plain_step_ms': plain_ms, 'bound_ms': bms,
-        'bound_by': by, 'stat_max_abs_err': stat_err,
-        'max_nnz': int(got[3]), **cmp}), flush=True)
+    print(json.dumps(dict(
+        head, launches_per_step=launches, ms=kernel_ms,
+        plain_ms=col_plain_ms, step_ms=ms, plain_step_ms=plain_ms,
+        bound_ms=bms, bound_by=by, stat_max_abs_err=stat_err,
+        max_nnz=int(got[3]), **cmp)), flush=True)
     ok = launches > 0 and cmp['outside_tol'] == 0 and \
         cmp['kept_differ'] == 0
     return 0 if ok else 1

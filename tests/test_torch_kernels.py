@@ -572,3 +572,168 @@ def test_sparse_column_cpu_tensors_take_the_plain_version():
                                     infl, 60, 8, 1e-4, True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     _check_iterate(*got, 60, 8)
+
+
+# --- the sparse column kernel's shapes: dedupe table, spill, cap ---------
+
+def _kernel_vs_plain(card, A_i, A_v, ci, cv, infl, n, K, pruning, expand):
+    """The kernel against its plain version (max abs error <= 1e-6, every
+    entry within RTOL/ATOL, equal kept sets above KEPT), and the kernel's
+    bits again on a second run and over two column blocks."""
+    from haphic_tpu_torch.kernels import sparse_column as kcol
+    args = [None if t is None else t.to(card) for t in (A_i, A_v, ci, cv,
+                                                         infl)]
+    A_i, A_v, ci, cv, infl = args
+    h = ci.shape[1] // 2
+    n0 = kcol.sparse_column.launches
+    got = kcol.sparse_column(A_i, A_v, ci, cv, infl, n, K, pruning, expand)
+    again = kcol.sparse_column(A_i, A_v, ci, cv, infl, n, K, pruning, expand)
+    lo = kcol.sparse_column(A_i, A_v, ci[:, :h], cv[:, :h], infl, n, K,
+                            pruning, expand)
+    hi = kcol.sparse_column(A_i, A_v, ci[:, h:], cv[:, h:], infl, n, K,
+                            pruning, expand)
+    want = kcol.sparse_column_plain(A_i, A_v, ci, cv, infl, n, K, pruning,
+                                    expand)
+    torch.cuda.synchronize()
+    assert kcol.sparse_column.launches == n0 + 4
+    for t in range(2):
+        assert torch.equal(got[t], again[t])
+        assert torch.equal(got[t], torch.cat([lo[t], hi[t]], dim=1))
+    _check_iterate(*got, n, K)
+    cmp = kcol.compare(*got, *want, n)
+    assert cmp['max_abs_err'] <= 1e-6 and cmp['outside_tol'] == 0 and \
+        cmp['kept_differ'] == 0, cmp
+    return got, want
+
+
+def _disjoint_rows(n, rows, K, seed):
+    """(1, n+1, K) ELL: row j < rows holds ids [K*j, K*j + K) with random
+    column-stochastic values, every other row only sentinels."""
+    rng = np.random.default_rng(seed)
+    idx = np.full((1, n + 1, K), n, dtype=np.int32)
+    val = np.zeros((1, n + 1, K), dtype=np.float32)
+    for j in range(rows):
+        w = rng.exponential(1.0, K)
+        idx[0, j] = np.arange(K * j, K * j + K)
+        val[0, j] = w / w.sum()
+    return idx, val
+
+
+def _columns(n, K, sources, seed):
+    """(1, C, K) columns: column c's real sources are ``sources[c]``
+    (ascending), with random weights, then sentinels."""
+    rng = np.random.default_rng(seed)
+    ci = np.full((1, len(sources), K), n, dtype=np.int32)
+    cv = np.zeros((1, len(sources), K), dtype=np.float32)
+    for c, src in enumerate(sources):
+        w = rng.exponential(1.0, len(src))
+        ci[0, c, :len(src)] = src
+        cv[0, c, :len(src)] = w / w.sum()
+    return torch.as_tensor(ci), torch.as_tensor(cv)
+
+
+@pytest.mark.cuda
+def test_sparse_column_kernel_16384_distinct_ids(card):
+    """The worst case at K = 128: 128 sources with disjoint rows, 16,384
+    distinct ids and no duplicates, beside columns with half and a
+    quarter of the sources."""
+    n, K = 16500, 128
+    idx, val = _disjoint_rows(n, K, K, 21)
+    ci, cv = _columns(n, K, [np.arange(128), np.arange(64),
+                             np.arange(0, 128, 4), np.arange(1, 128, 2)], 22)
+    got, _ = _kernel_vs_plain(card, torch.as_tensor(idx),
+                              torch.as_tensor(val), ci, cv,
+                              torch.tensor([1.7]), n, K, 1e-4, True)
+    # the cap cut the 16,384 candidates to 128
+    assert bool((got[0][0, 0] < n).all())
+
+
+@pytest.mark.cuda
+def test_sparse_column_kernel_spills_past_the_shared_table(card):
+    """A column whose distinct ids pass 3/4 of the 8,192-slot shared
+    table (6,144) continues in the global workspace: 53 sources, 52 with
+    disjoint rows (6,656 ids; the switch comes at the 49th) and a last one
+    that meets ids of both the first (in shared memory) and the 52nd (in
+    the global table); beside columns just under and at the switch."""
+    n, K, rows = 7000, 128, 52
+    idx, val = _disjoint_rows(n, rows, K, 23)
+    idx[0, rows] = np.concatenate([np.arange(64, 128),
+                                   np.arange((rows - 1) * K,
+                                             (rows - 1) * K + 64)])
+    w = np.random.default_rng(24).exponential(1.0, K)
+    val[0, rows] = w / w.sum()
+    ci, cv = _columns(n, K, [np.arange(rows + 1), np.arange(40),
+                             np.arange(48), np.arange(49), np.arange(50),
+                             [0, rows]], 25)
+    _kernel_vs_plain(card, torch.as_tensor(idx), torch.as_tensor(val), ci,
+                     cv, torch.tensor([1.3]), n, K, 1e-4, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('expand', [True, False], ids=['expand', 'expand0'])
+def test_sparse_column_kernel_empty_and_single_entry_columns(card, expand):
+    """Columns whose sources are all sentinels, a column with one real
+    entry, and a source whose row has one real entry, among ordinary
+    columns."""
+    n, K = 500, 16
+    idx, val = _ell_case(31, 1, n, K)
+    idx[0, 7], val[0, 7] = n, 0.0
+    idx[0, 7, 0], val[0, 7, 0] = 123, 1.0          # one real entry
+    idx[0, 0], val[0, 0] = n, 0.0                  # only sentinels
+    idx[0, 300], val[0, 300] = n, 0.0
+    idx[0, 300, 0], val[0, 300, 0] = 7, 1.0        # one source: row 7
+    A_i, A_v = torch.as_tensor(idx), torch.as_tensor(val)
+    got, _ = _kernel_vs_plain(card, A_i if expand else None,
+                              A_v if expand else None, A_i, A_v,
+                              torch.tensor([2.0]), n, K, 1e-4, expand)
+    assert bool((got[0][0, 0] == n).all()) and bool((got[0][0, n] == n).all())
+    if expand:
+        assert got[0][0, 300, 0] == 123 and got[1][0, 300, 0] == 1.0
+        assert bool((got[0][0, 300, 1:] == n).all())
+    else:
+        assert got[0][0, 7, 0] == 123 and got[1][0, 7, 0] == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [64, 32, 16])
+def test_sparse_column_kernel_shrunk_K(card, K):
+    """The K the sweep shrinks to, on columns shaped like the sparse smoke
+    run's (rows of chromosomes of 1000 fragments)."""
+    from haphic_tpu_torch.kernels import sparse_column as kcol
+    B, n = 4, 3000
+    idx, val = kcol.seeded_iterate(K, B, n, K)
+    A_i, A_v = torch.as_tensor(idx), torch.as_tensor(val)
+    _kernel_vs_plain(card, A_i, A_v, A_i, A_v,
+                     torch.linspace(1.2, 2.8, B), n, K, 1e-4, True)
+
+
+@pytest.mark.cuda
+def test_sparse_column_kernel_expand0_capped(card):
+    """The first iteration's route with Kc = 256 random entries a column
+    capped to 128."""
+    B, n = 2, 3000
+    idx, val = _ell_case(41, B, n, 256, full=True)
+    _kernel_vs_plain(card, None, None, torch.as_tensor(idx),
+                     torch.as_tensor(val), torch.tensor([1.5, 2.5]), n, 128,
+                     1e-4, False)
+
+
+@pytest.mark.cuda
+def test_sparse_column_kernel_ids_past_2_to_the_20(card):
+    """Row ids above 2^20 (n = 2^20 + 7): no key packing narrower than the
+    ids."""
+    n, K = (1 << 20) + 7, 16
+    rng = np.random.default_rng(51)
+    rows = np.sort(rng.choice(np.arange(n - 400, n), 200, replace=False))
+    idx = np.full((1, n + 1, K), n, dtype=np.int32)
+    val = np.zeros((1, n + 1, K), dtype=np.float32)
+    for j in rows:
+        w = rng.exponential(1.0, K)
+        idx[0, j] = np.sort(rng.choice(rows, K, replace=False))
+        val[0, j] = w / w.sum()
+    A_i, A_v = torch.as_tensor(idx), torch.as_tensor(val)
+    cols = torch.as_tensor(rows[:64])
+    got, _ = _kernel_vs_plain(card, A_i, A_v, A_i[:, cols].contiguous(),
+                              A_v[:, cols].contiguous(), torch.tensor([2.0]),
+                              n, K, 1e-4, True)
+    assert int(got[0][got[0] < n].min()) >= n - 400
