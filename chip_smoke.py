@@ -14,9 +14,27 @@ Phases, each printing one JSON line:
              make_sim generator and sim flags), --ngen 500 instead of
              5000 (a cut, for time). The dense MCL sweep and the GA run
              on the card; the kernel launch counts are set to 0 just
-             before and read just after. The scaffolds must recover
-             the 8 simulated chromosomes as a partition.
-3. kernel    every kernel against its plain torch version on the card,
+             before and read just after (the dense sweep through the
+             mcl_column kernel). The scaffolds must recover the 8
+             simulated chromosomes as a partition.
+3. dense_step
+             the pipeline's first inflation batch (B = 6, n = 8000) as
+             its first run_mcl_partitions call gave it: one iteration
+             (the third: the torch.matmul expansion, then the column
+             pass with the convergence statistic) through mcl_column and
+             through its plain version, each timed with CUDA events, its
+             peak card memory and its device time from torch.profiler by
+             op and by kernel, the gemm apart. On that iteration's inputs
+             mcl_column against its plain version: values within rtol
+             1e-5 / atol 1e-8, equal nonzero sets and argmax rows
+             (columns with an entry within 1e-5 x pruning of pruning, or
+             whose two largest q lie within 1e-6 relative, excused and
+             counted), the statistic within 1e-7 and the same
+             convergence decision; both timed (the kernel's ms and
+             plain_ms). Then the whole batch through _mcl_batched with
+             the kernel and under plain_columns: equal iteration counts
+             and partitions.
+4. kernel    every kernel against its plain torch version on the card,
              at a small shape and at the shapes the pipeline gave it,
              with CUDA-event times and the least time the card could
              take for the same work. score_population: max relative
@@ -40,7 +58,7 @@ Phases, each printing one JSON line:
              (changed pairs; bound_touched_ms reads every touched
              pair); the figure that also reads the two slots of every
              pair stays beside it as bound_scan_ms.
-4. sparse_pipeline
+5. sparse_pipeline
              the same pipeline through the default `auto` route on 24
              chromosomes x 1000 contigs x 20 kb (480 Mb, n = 24,000
              fragments, past SPARSE_MIN_N) with 6,000,000 pairs, seed
@@ -52,7 +70,7 @@ Phases, each printing one JSON line:
              Prints n, K, the input columns over K, iterations per
              inflation, the K of each shrink per inflation batch, the
              sweep seconds, stage and wall seconds, peak card memory.
-5. sparse_step
+6. sparse_step
              the sparse engine on the card against the same engine on
              the CPU on a 96-fragment block matrix (equal partitions and
              iterations); then the sparse pipeline's first sweep step
@@ -70,7 +88,7 @@ Phases, each printing one JSON line:
              The step's arguments go to build/chip_smoke/sparse_step.pt
              for `python -m haphic_tpu_torch.kernels.sparse_column
              --iterate`.
-6. polyploid_pipeline
+7. polyploid_pipeline
              the pipeline phase's genome at half its contigs and pairs
              (8 x 500 contigs, 1,000,000 pairs: a cut, for time) made
              tetraploid
@@ -84,7 +102,7 @@ Phases, each printing one JSON line:
              chromosomes recovered. Prints the allelic and non-max
              pairs, allele groups, UL paths, stage and wall seconds,
              peak card memory.
-7. correct_pipeline
+8. correct_pipeline
              the pipeline phase's genome with 40 chimeric contigs
              (make_chimera_sim) and --correct_nrounds 2: at least 36
              chimeras broken (corrected_ctgs.txt), the MCL and the GA
@@ -93,7 +111,7 @@ Phases, each printing one JSON line:
              lies in. Prints the chimeras broken, correct_s (the
              correction pass, inside cluster_s.parse), stage and wall
              seconds, peak card memory.
-8. allhic    `cli.main(["allhic", group, clm, "--resume"])` on the card
+9. allhic    `cli.main(["allhic", group, clm, "--resume"])` on the card
              at the users' defaults (--npop 100 --ngen 5000 --seed 42) on
              the largest group of the pipeline phase (k = 1000 contigs,
              its group file and split CLM from 02.reassign), hot-started
@@ -106,7 +124,7 @@ Phases, each printing one JSON line:
              must score it within 1e-5 relative of that line. Prints the
              work, route, seconds, generations per second, launches and
              peak card memory.
-9. post      on the pipeline phase's output: plot's contact map
+10. post     on the pipeline phase's output: plot's contact map
              (`post.plot.contact_map`, the part of `plot` before
              drawing) of 04.build/scaffolds.agp and the 2M pairs at
              20 kb bins (8,040 bins, a 65M-cell int64 matrix), on the
@@ -121,7 +139,7 @@ Phases, each printing one JSON line:
              back (same contigs, order and orientation); and `refsort`
              with a PAF of every contig aligned whole to its simulated
              chromosome: each of the 8 scaffolds on its own chromosome.
-10. sim      `cli.main(["sim", "ga_study", "--ks", "50,200,500,1000",
+11. sim      `cli.main(["sim", "ga_study", "--ks", "50,200,500,1000",
              "--ngen", "5000", "--npop", "100", "--backend", "device"])`
              on the card (docs/GA_VALIDATION.md's sizes and settings):
              per k a truth rescoring and a cold and a hot GA run, every
@@ -148,7 +166,7 @@ Phases, each printing one JSON line:
              phase's tour must print its >GA5000 score, and `sim
              convert_agp_to_tour` on the pipeline's scaffolds.agp must
              list every W line's contig and orientation in order.
-11. mesh_pipeline
+12. mesh_pipeline
              the pipeline phase's genome, flags and cut through `python
              -m torch.distributed.run --standalone --nproc_per_node 2`
              with --use_mesh on: each rank is this script's worker
@@ -157,15 +175,16 @@ Phases, each printing one JSON line:
              counts set to 0 just before and read just after. On one
              card both ranks run on cuda:0 over gloo; with two cards,
              one each over NCCL. Ingest, the 20 inflations and the GA's
-             groups shard over the ranks. Each rank's MCL and GA must run
-             on the card with both kernels, one delta launch per delta
-             generation it reports; out_mesh/ and out_mesh.rank1/ must
-             equal the single-process out/ byte for byte (every
+             groups shard over the ranks. Each rank's MCL must run on the
+             card through mcl_column and its GA with both GA kernels, one
+             delta launch per delta generation it reports; out_mesh/ and
+             out_mesh.rank1/ must equal the single-process out/ byte for
+             byte (every
              01.cluster file, scaffolds.agp, scaffolds.raw.agp), and the
              8 chromosomes come back. Prints backend, world, wall, and per
              rank its stage seconds, seconds and bytes in collectives
              and peak card memory.
-12. mesh_sparse
+13. mesh_sparse
              the sparse pipeline's adjacency (n = 24,000, K = 128), its
              first inflation batch (4 of 20 inflations, a cut), through
              the column-sharded run_mcl_sparse on two torchrun ranks
@@ -174,22 +193,24 @@ Phases, each printing one JSON line:
              Prints each sharded step's ms, its all-gather ms and bytes,
              peak card memory and sparse_column launches per rank
              (counted from 0 just before its run).
-13. mesh_nccl
+14. mesh_nccl
              a one-rank NCCL group in this process, so that NCCL's
              collectives run on CUDA tensors even on one card: the
-             sharded dense sweep (its first 5 inflations at n = 8000),
-             the sharded sparse step (the sparse pipeline's first step,
-             through sparse_column) and the sharded GA (the pipeline's
+             sharded dense sweep (its first 5 inflations at n = 8000,
+             through mcl_column), the sharded sparse step (the sparse
+             pipeline's first step, through sparse_column) and the
+             sharded GA (the pipeline's
              own GA call: 7 groups, both kernels; launch counts set to 0
              just before and read just after each) against the meshless
              calls, bit-equal.
-14. kernels  one line listing every kernel (the line before the last):
+15. kernels  one line listing every kernel (the line before the last):
              `launches` sums the counts of every phase that drives a
              path (pipeline, sparse_pipeline, polyploid_pipeline,
              correct_pipeline, allhic, sim, mesh_pipeline over its two
              ranks, mesh_sparse over its two ranks, mesh_nccl),
              `launches_by_phase` lists them; sparse_column's ms,
-             plain_ms, bound_ms and max_abs_err are phase 5's.
+             plain_ms, bound_ms and max_abs_err are phase 6's,
+             mcl_column's phase 3's.
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
@@ -281,6 +302,11 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'haphic_tpu_torch/kernels/csrc/sparse_column.cu',
     'replaces': 'haphic_tpu/cluster/sparse_mcl.py:164',
+}, {
+    'name': 'mcl_column',
+    'route': 'cuda',
+    'source': 'haphic_tpu_torch/kernels/csrc/mcl_column.cu',
+    'replaces': 'haphic_tpu/cluster/mcl.py:86',
 }]
 # the GA's kernels: every pipeline phase launches both
 GA_KERNELS = ('score_population', 'delta_generation')
@@ -561,12 +587,13 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     """``genome`` (make_sim), then `cli.main(["pipeline", ...])` on the
     card with the flags it returns and the kernel launch counts set to 0
     just before and read just after. The MCL sweep must run on the card
-    on ``engine`` (the sparse one through sparse_column), the GA on the
-    card with both kernels, one
+    on ``engine`` (the sparse one through sparse_column, the dense one
+    through mcl_column), the GA on the card with both GA kernels, one
     delta_generation launch per delta generation the GA reports, and the
     scaffolds must recover the simulated chromosomes. Returns (sim
     seconds, wall seconds, metrics, launches, partition summary, output
     directory)."""
+    from haphic_tpu_torch.kernels import mcl_column as kmc
     from haphic_tpu_torch.kernels import sparse_column as kcol
     t0 = time.time()
     fa, pairs, flags = genome(os.path.join(WORK, sim_dir), **sim)
@@ -578,6 +605,7 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     kscore.score_population.launches = 0
     kdelta.delta_generation.launches = 0
     kcol.sparse_column.launches = 0
+    kmc.mcl_column.launches = 0
     t0 = time.time()
     rc = cli.main(['pipeline', fa, pairs, str(sim['nchrs']), '--outdir',
                    out, '--ngen', str(NGEN)] + SIM_FLAGS + flags)
@@ -585,7 +613,8 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     wall = time.time() - t0
     launches = {'score_population': kscore.score_population.launches,
                 'delta_generation': kdelta.delta_generation.launches,
-                'sparse_column': kcol.sparse_column.launches}
+                'sparse_column': kcol.sparse_column.launches,
+                'mcl_column': kmc.mcl_column.launches}
     logging.getLogger('haphic_tpu_torch').removeHandler(log)
     check(rc == 0, 'pipeline exit code {}'.format(rc))
     m = log.metrics
@@ -596,7 +625,7 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     check(m['ga_route'][-1] == 'cuda',
           'the GA ran on {}, not the card'.format(m['ga_route'][-1]))
     for kname in GA_KERNELS + (('sparse_column',) if engine == 'sparse'
-                               else ()):
+                               else ('mcl_column',)):
         check(launches[kname] > 0, 'kernel {} was not launched on the main '
               'path'.format(kname))
     # the delta generations the GA says it ran, one launch each
@@ -869,6 +898,128 @@ def phase_sparse_step(torch, sp, first_step):
           'top_device_kernels': kernels,
           'small_n_iters': got.n_iters.tolist(), 'column_stats': shapes,
           'sparse_column': dict(row, **cmp)})
+    return row
+
+
+def _dense_batch(torch, tmcl, dense_call):
+    """The first inflation batch of the dense pipeline's first
+    run_mcl_partitions call, rebuilt as cluster.mcl._sweep builds it:
+    (pre-expanded matrix, the batch's inflations, expansion, max_iter,
+    pruning)."""
+    kw = dense_call['kw']
+    ci, cj, cw, m = kw['coo']
+    a = tmcl.densify_coo(ci, cj, cw, int(m), DEVICE)
+    pre = tmcl._matpower(tmcl._colnorm(a), kw['expansion'])
+    del a
+    infl = [float(x) for x in dense_call['args'][1]]
+    B = tmcl._batch_size(len(infl), int(m))
+    return (pre, torch.as_tensor(np.asarray(infl[:B], np.float32),
+                                 device=DEVICE),
+            kw['expansion'], kw['max_iter'], float(kw['pruning']))
+
+
+def _gemm_split(busy_ms, kernels):
+    """(gemm ms, the rest's ms) of a profile's device ms and its
+    _device_ops kernel rows: cuBLAS's kernels carry 'gemm' in their
+    names."""
+    gemm = sum(k['ms'] for k in kernels if 'gemm' in k['name'].lower())
+    return gemm, busy_ms - gemm
+
+
+def _iteration_profile(torch, iteration):
+    """``iteration`` timed with CUDA events, its peak card memory over
+    what was resident, and its device time from torch.profiler by op and
+    by kernel, the cuBLAS gemm apart."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(torch, iteration, STEP_REPS)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        iteration()
+        torch.cuda.synchronize()
+    busy_ms, ops, kernels = _device_ops(torch, prof, 40)
+    gemm_ms, rest_ms = _gemm_split(busy_ms, kernels)
+    return {'iteration_ms': ms, 'profiled_device_ms': busy_ms,
+            'gemm_ms': gemm_ms, 'column_pass_ms': rest_ms,
+            'resident_bytes': resident, 'max_memory_allocated': peak,
+            'top_device_ops': ops[:TOP_OPS],
+            'top_device_kernels': kernels[:TOP_OPS]}
+
+
+def phase_dense_step(torch, tmcl, kmc, dense_call):
+    """The dense pipeline's first inflation batch (B = 6, n = 8000), as
+    its first run_mcl_partitions call gave it. One iteration (the third:
+    expansion by torch.matmul, then the column pass with the statistic)
+    through mcl_column and through its plain version: each timed with
+    CUDA events, its peak card memory, its device time by op and by
+    kernel with the gemm apart. On that iteration's inputs the kernel
+    against its plain version: values within rtol 1e-5 / atol 1e-8, equal
+    nonzero sets and argmax rows (columns with an entry within
+    1e-5·pruning of pruning or a near tie excused, counted), the
+    statistic within 1e-7 with the same decision; both timed. Then the
+    whole batch through _mcl_batched with the kernel and under
+    plain_columns: equal iteration counts and partitions. Returns the
+    kernel's row."""
+    pre, infl, expansion, max_iter, pruning = _dense_batch(torch, tmcl,
+                                                          dense_call)
+    B, n = infl.shape[0], pre.shape[0]
+    m = kmc.mcl_column(pre[None].expand(B, n, n), infl, pruning)[0]
+    m = kmc.mcl_column(tmcl._matpower(m, expansion), infl, pruning)[0]
+    line = {'phase': 'dense_step', 'B': B, 'n': n, 'expansion': expansion,
+            'reps': STEP_REPS}
+    for name, fn in (('kernel', kmc.mcl_column),
+                     ('plain', kmc.mcl_column_plain)):
+        torch.cuda.empty_cache()
+        line[name] = _iteration_profile(torch, lambda fn=fn: fn(
+            tmcl._matpower(m, expansion), infl, pruning, old=m))
+    # the kernel against its plain version on the iteration's inputs
+    e = tmcl._matpower(m, expansion)
+    got, stat = kmc.mcl_column(e, infl, pruning, old=m)
+    want, want_stat = kmc.mcl_column_plain(e, infl, pruning, old=m)
+    cmp = kmc.compare(got, want, kmc._inflate(e, infl.view(-1, 1, 1)),
+                      pruning)
+    del got, want
+    stat_err = float((stat - want_stat).abs().max())
+    check(cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0
+          and cmp['argmax_differ'] == 0 and stat_err <= 1e-7
+          and torch.equal(stat <= 1e-8, want_stat <= 1e-8),
+          "mcl_column disagrees with its plain version on the dense "
+          "pipeline's iteration: {}, statistic {} vs {}".format(
+              cmp, stat.tolist(), want_stat.tolist()))
+    col_ms, col_plain_ms = (
+        _time_ms(torch, lambda fn=fn: fn(e, infl, pruning, old=m), STEP_REPS)
+        for fn in (kmc.mcl_column, kmc.mcl_column_plain))
+    bound, bound_by = kmc.bound_ms(B, n, True)
+    del e, m
+    torch.cuda.empty_cache()
+    # the whole batch both ways
+    batch = {}
+    for name in ('kernel', 'plain'):
+        with (kmc.plain_columns(tmcl) if name == 'plain'
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            mm, iters, _ = tmcl._mcl_batched(pre, infl, expansion, max_iter,
+                                             pruning)
+            nz = (mm != 0).cpu().numpy()
+            batch[name] = {'s': time.time() - t0,
+                           'n_iters': iters.tolist(),
+                           'parts': [tmcl.interpret_result(x) for x in nz]}
+            del mm, nz
+    parts = batch['kernel'].pop('parts')
+    check(batch['kernel']['n_iters'] == batch['plain']['n_iters']
+          and parts == batch['plain'].pop('parts') and None not in parts,
+          'the first batch through the kernel: iterations {} and partitions '
+          'differ from the plain version\'s {}'.format(
+              batch['kernel']['n_iters'], batch['plain']['n_iters']))
+    row = {'max_abs_err': cmp['max_abs_err'], 'ms': col_ms,
+           'plain_ms': col_plain_ms, 'bound_ms': bound, 'bound_by': bound_by}
+    emit(dict(line, mcl_column=dict(row, **cmp, stat=stat.tolist(),
+                                    stat_max_abs_err=stat_err),
+              batch=batch, clusters=[len(p) for p in parts]))
     return row
 
 
@@ -1748,6 +1899,7 @@ def mesh_worker(kind, spec_path) -> int:
     import torch
     sys.path.insert(0, REPO)
     from haphic_tpu_torch.kernels import delta as kdelta
+    from haphic_tpu_torch.kernels import mcl_column as kmc
     from haphic_tpu_torch.kernels import score as kscore
     from haphic_tpu_torch.parallel import mesh as pmesh
     with open(spec_path) as f:
@@ -1761,13 +1913,15 @@ def mesh_worker(kind, spec_path) -> int:
         logging.getLogger('haphic_tpu_torch').addHandler(log)
         kscore.score_population.launches = 0
         kdelta.delta_generation.launches = 0
+        kmc.mcl_column.launches = 0
         t0 = time.time()
         rc = cli.main(spec['argv'])
         torch.cuda.synchronize()
         rec.update(rc=rc, wall_s=time.time() - t0, metrics=log.metrics,
                    launches={
                        'score_population': kscore.score_population.launches,
-                       'delta_generation': kdelta.delta_generation.launches},
+                       'delta_generation': kdelta.delta_generation.launches,
+                       'mcl_column': kmc.mcl_column.launches},
                    device=str(torch.cuda.current_device()),
                    max_memory_allocated=torch.cuda.max_memory_allocated())
     else:
@@ -1837,7 +1991,8 @@ def phase_mesh_pipeline(torch, out):
     script's worker, which calls the same cli.main): ingest, the
     inflations and the GA groups shard over the two ranks (both on
     cuda:0 over gloo on one card, one card each over NCCL on two).
-    Each rank's MCL and GA must run on the card with both kernels, one
+    Each rank's MCL and GA must run on the card with their kernels
+    (mcl_column, score_population, delta_generation), one
     delta launch per delta generation it reports; out_mesh/ and
     out_mesh.rank1/ must equal the single-process out/: every
     01.cluster file, scaffolds.agp and scaffolds.raw.agp; the 8
@@ -1852,7 +2007,8 @@ def phase_mesh_pipeline(torch, out):
     argv = ['pipeline', fa, pairs, str(SIM['nchrs']), '--outdir', mesh_out,
             '--ngen', str(NGEN), '--use_mesh', 'on'] + SIM_FLAGS
     wall, recs = _torchrun('pipeline', {'argv': argv}, 420)
-    launches = {'score_population': 0, 'delta_generation': 0}
+    launches = {'score_population': 0, 'delta_generation': 0,
+                'mcl_column': 0}
     ranks = []
     for r, rec in enumerate(recs):
         m = rec['metrics']
@@ -1973,6 +2129,7 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
     24,001, K = 128) and the sharded GA (the dense pipeline's call, its
     batch of 7 groups) against the meshless calls: bit-equal."""
     from haphic_tpu_torch.cluster import mcl as tmcl
+    from haphic_tpu_torch.kernels import mcl_column as kmc
     from haphic_tpu_torch.kernels import sparse_column as kcol
     from haphic_tpu_torch.parallel import mesh as pmesh
     store = os.path.join(WORK, 'nccl_store')
@@ -1990,13 +2147,18 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
         kw = dict(dense_call['kw'])
         kw.pop('device', None)
         infl = list(dense_call['args'][1])[:MESH_DENSE_B]
+        kmc.mcl_column.launches = 0
         t0 = time.time()
         got = pmesh.mcl_sweep_sharded_partitions(mesh, None, infl, **kw)
         torch.cuda.synchronize()
         t1 = time.time()
+        mcl_launches = kmc.mcl_column.launches
+        check(mcl_launches > 0, 'the sharded dense sweep launched no '
+              'mcl_column')
         want = tmcl.run_mcl_partitions(None, infl, device=DEVICE, **kw)
         line['dense'] = {'n': kw['coo'][3], 'inflations': infl,
                          'n_iters': got[1].tolist(), 'sharded_s': t1 - t0,
+                         'launches': mcl_launches,
                          'meshless_s': time.time() - t1}
         check(got[0] == want[0] and np.array_equal(got[1], want[1]),
               'sharded dense sweep differs from the meshless one')
@@ -2033,7 +2195,8 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
         secs = time.time() - t0
         launches = {'score_population': kscore.score_population.launches,
                     'delta_generation': kdelta.delta_generation.launches,
-                    'sparse_column': col_launches}
+                    'sparse_column': col_launches,
+                    'mcl_column': mcl_launches}
         want = ga_call['result']
         same = [np.array_equal(a.order, b.order)
                 and np.array_equal(a.ori, b.ori) and a.score == b.score
@@ -2065,6 +2228,7 @@ def main() -> int:
     from haphic_tpu_torch.cluster.sweep import SPARSE_MIN_N
     from haphic_tpu_torch.kernels import build as kbuild
     from haphic_tpu_torch.kernels import delta as kdelta
+    from haphic_tpu_torch.kernels import mcl_column as kmc
     from haphic_tpu_torch.kernels import score as kscore
     from haphic_tpu_torch.kernels import trace_ga
     from haphic_tpu_torch.order import optimize as topt
@@ -2075,15 +2239,17 @@ def main() -> int:
             _first_call(topt, 'optimize_tours', ga_call), \
             _recorded_launches(topt) as ga_launches:
         launches, big = phase_pipeline(torch, cli, kscore, kdelta)
+    main_rows = {'mcl_column': phase_dense_step(torch, tmcl, kmc,
+                                                dense_call[0])}
+    torch.cuda.empty_cache()
     # the largest score launch (most tours x records) of the pipeline
     main_score = max((b['score'] for b in ga_launches), key=lambda a:
                      a[0].shape[0] * a[0].shape[1] * a[3].shape[1])
     del ga_launches
-    main_rows = {
-        'score_population': phase_kernel(torch, kscore, main_score,
-                                         launches)[-1],
-        'delta_generation': phase_delta(torch, kdelta, topt, trace_ga,
-                                        big, launches)[-1]}
+    main_rows['score_population'] = phase_kernel(torch, kscore, main_score,
+                                                 launches)[-1]
+    main_rows['delta_generation'] = phase_delta(torch, kdelta, topt,
+                                                trace_ga, big, launches)[-1]
     torch.cuda.empty_cache()
     by_phase = {'pipeline': launches}
     with _first_call(sp, 'run_mcl_sparse', sparse_call):
@@ -2122,7 +2288,7 @@ def main() -> int:
         counts = {p: n.get(k['name'], 0) for p, n in by_phase.items()}
         check(sum(counts.values()) > 0, 'kernel {} was launched on no '
               'path'.format(k['name']))
-        # no single PyTorch call computes any of the three functions
+        # no single PyTorch call computes any of the four functions
         kernels.append(dict(k, launches=sum(counts.values()),
                             launches_by_phase=counts,
                             max_abs_err=row['max_abs_err'], ms=row['ms'],

@@ -11,6 +11,10 @@ on the leading axis, as there:
     converge— numpy.allclose semantics (|a-b| <= atol + rtol*|b|),
               checked from the third iteration, per-inflation freeze
 
+Inflate, prune and the convergence statistic are one column pass,
+kernels/mcl_column.py: a hand-written CUDA kernel on the card, its plain
+torch version on the CPU.
+
 Semantics parity notes (vs the reference `mcl`,
 scripts/HapHiC_cluster.py:1987-2062):
   * iteration 0 skips expansion (the sweep pre-expands once);
@@ -35,14 +39,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from haphic_tpu_torch.kernels.mcl_column import _colnorm, mcl_column
 from haphic_tpu_torch.runtime import resolve_device
 
 logger = logging.getLogger(__name__)
-
-
-def _colnorm(m: torch.Tensor) -> torch.Tensor:
-    s = m.sum(dim=-2, keepdim=True)
-    return m * torch.where(s > 0, 1.0 / s, torch.zeros_like(s))
 
 
 def _matpower(m: torch.Tensor, e: int) -> torch.Tensor:
@@ -50,27 +50,6 @@ def _matpower(m: torch.Tensor, e: int) -> torch.Tensor:
     for _ in range(e - 1):
         out = torch.matmul(out, m)
     return out
-
-
-def _prune(m: torch.Tensor, pruning: float) -> torch.Tensor:
-    # keep entries >= pruning, and always the per-column (first) argmax
-    keep = m >= pruning
-    keep.scatter_(-2, torch.argmax(m, dim=-2, keepdim=True), True)
-    return _colnorm(torch.where(keep, m, torch.zeros_like(m)))
-
-
-def _inflate(m: torch.Tensor, infl: torch.Tensor) -> torch.Tensor:
-    # 0**p = 0; power on strictly positive entries only
-    pos = m > 0
-    p = torch.where(pos, torch.exp(infl * torch.log(
-        torch.where(pos, m, torch.ones_like(m)))), torch.zeros_like(m))
-    return _colnorm(p)
-
-
-def _converged(new: torch.Tensor, old: torch.Tensor,
-               rtol: float = 1e-5, atol: float = 1e-8) -> torch.Tensor:
-    d = (new - old).abs() - rtol * old.abs()
-    return d.amax(dim=(-2, -1)) <= atol
 
 
 def _mcl_batched(pre_expanded: torch.Tensor, inflations: torch.Tensor,
@@ -84,10 +63,9 @@ def _mcl_batched(pre_expanded: torch.Tensor, inflations: torch.Tensor,
     """
     B = inflations.shape[0]
     n = pre_expanded.shape[-1]
-    infl = inflations[:, None, None]
     # iteration 0: inflate + prune only
-    m = _prune(_inflate(pre_expanded[None].expand(B, n, n), infl),
-               pruning)
+    m, _ = mcl_column(pre_expanded[None].expand(B, n, n), inflations,
+                      pruning)
     conv_at = torch.full((B,), max_iter, dtype=torch.int32,
                          device=m.device)
     converged = torch.zeros((B,), dtype=torch.bool, device=m.device)
@@ -96,14 +74,18 @@ def _mcl_batched(pre_expanded: torch.Tensor, inflations: torch.Tensor,
     while it < max_iter and active.numel():
         whole = active.numel() == B
         cur = m if whole else m[active]
-        new = _prune(_inflate(_matpower(cur, expansion), infl[active]),
-                     pruning)
+        new, stat = mcl_column(_matpower(cur, expansion),
+                               inflations[active], pruning,
+                               old=cur if it >= 2 else None)
         if whole:
             m = new
         else:
             m[active] = new
+        # the last iterate and the copy of the active ones are not needed
+        # past here: freed now, not when the next iteration rebinds them
+        del cur, new
         if it >= 2:
-            conv = _converged(new, cur)
+            conv = stat <= 1e-8
             conv_at[active[conv]] = it + 1
             converged[active[conv]] = True
             active = active[~conv]

@@ -23,7 +23,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), '..',
                                          '..'))
 BUILD_DIR = os.path.join(REPO_ROOT, 'build', 'haphic_tpu_torch')
-SOURCES = ('score_population', 'delta_generation', 'sparse_column')
+SOURCES = ('score_population', 'delta_generation', 'sparse_column',
+           'mcl_column')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v']
 

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (the tour scorer, the GA's
-delta generation and the sparse MCL column step) against their plain
-torch versions, on the card.
+delta generation, the sparse MCL column step and the dense MCL column
+pass) against their plain torch versions, on the card.
 CUDA kernels have no CPU mode, so these tests carry the `cuda` marker
 and skip on a host without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a card
@@ -8,7 +8,8 @@ host without them:
 
     HAPHIC_TEST_TPU=1 python -m pytest -m cuda tests/test_torch_kernels.py
 
-(add ``-k sparse`` for the column step's tests alone).
+(add ``-k sparse`` for the sparse column step's tests alone, ``-k
+mcl_column`` for the dense column pass's).
 (HAPHIC_TEST_TPU=1 keeps the repo's conftest.py from importing JAX.)
 """
 
@@ -737,3 +738,164 @@ def test_sparse_column_kernel_ids_past_2_to_the_20(card):
                               A_v[:, cols].contiguous(), torch.tensor([2.0]),
                               n, K, 1e-4, True)
     assert int(got[0][got[0] < n].min()) >= n - 400
+
+
+# --- the dense MCL column pass ------------------------------------------
+
+def _dense_case(seed, B, n, stride0=False):
+    """A (B, n, n) e (with ``stride0`` one matrix expanded over the
+    batch), a (B, n, n) old and (B,) inflations, on the host: sparse
+    entries with a wide range of values, as an expanded MCL iterate has."""
+    rng = np.random.default_rng(seed)
+    shape = (1 if stride0 else B, n, n)
+    e = (rng.random(shape, dtype=np.float32) ** 8
+         * (rng.random(shape) < 0.3)).astype(np.float32)
+    old = (rng.random((B, n, n), dtype=np.float32)
+           * (rng.random((B, n, n)) < 0.2)).astype(np.float32)
+    infl = np.linspace(1.1, 3.0, B, dtype=np.float32)
+    return e, old, infl
+
+
+def _planted(e):
+    """Columns with exact sums: 0 all zero; 1 five equal entries (q =
+    0.2, below a pruning of 0.25: only the first is kept); 2 four (q =
+    0.25, at it: all kept); 3 ten (q = 0.1); 4 two (q = 0.5)."""
+    e = e.copy()
+    e[:, :, :5] = 0
+    e[:, [3, 7, 11, 15, 19], 1] = 1.0
+    e[:, 5:9, 2] = 1.0
+    e[:, 10:20, 3] = 1.0
+    e[:, [2, 9], 4] = 1.0
+    return e
+
+
+def _dense_pair(card, e, old, infl, pruning, stride0=False):
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    B, n = infl.shape[0], e.shape[-1]
+    te = torch.as_tensor(e, device=card)
+    if stride0:
+        te = te[0][None].expand(B, n, n)
+    to = None if old is None else torch.as_tensor(old, device=card)
+    ti = torch.as_tensor(infl, device=card)
+    n0 = kmc.mcl_column.launches
+    got = kmc.mcl_column(te, ti, pruning, old=to)
+    want = kmc.mcl_column_plain(te, ti, pruning, old=to)
+    torch.cuda.synchronize()
+    assert kmc.mcl_column.launches == n0 + 1
+    q = kmc._inflate(te, ti.view(-1, 1, 1))
+    return got, want, kmc.compare(got[0], want[0], q, pruning)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,n,stride0', [
+    (1, 1000, False), (6, 1000, False), (1, 4097, False), (6, 4097, False),
+    (6, 1000, True), (6, 4097, True),
+], ids=['B1-n1000', 'B6-n1000', 'B1-n4097', 'B6-n4097', 'iter0-n1000',
+        'iter0-n4097'])
+def test_mcl_column_kernel_matches_plain(card, B, n, stride0):
+    """The kernel against its plain version: values within rtol 1e-5 /
+    atol 1e-8 and equal kept sets and argmax rows (columns with an entry
+    within 1e-5·pruning of pruning, or a near tie, excused and counted),
+    the statistic within 1e-7 with the same decision. Iteration 0 passes
+    one matrix expanded over the batch (batch stride 0) and no old."""
+    e, old, infl = _dense_case(B * n, B, n, stride0)
+    (new, stat), (pnew, pstat), cmp = _dense_pair(
+        card, e, None if stride0 else old, infl, 1e-4, stride0)
+    assert cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0 \
+        and cmp['argmax_differ'] == 0, cmp
+    assert cmp['columns_excused'] <= B * n // 100, cmp
+    assert bool(torch.isfinite(new).all())
+    if stride0:
+        assert stat is None and pstat is None
+    else:
+        assert float((stat - pstat).abs().max()) <= 1e-7
+        assert torch.equal(stat <= 1e-8, pstat <= 1e-8)
+
+
+@pytest.mark.cuda
+def test_mcl_column_kernel_planted_columns(card):
+    """Ties keep the first row, an all-zero column stays zero, entries
+    exactly at pruning are kept, a column whose largest q lies below
+    pruning keeps only its first argmax; these columns' sums are exact,
+    so kernel and plain version agree bit for bit there."""
+    e, old, infl = _dense_case(7, 3, 300)
+    e = _planted(e)
+    (new, _), (pnew, _), cmp = _dense_pair(card, e, old, infl, 0.25)
+    assert cmp['kept_differ'] == 0 and cmp['argmax_differ'] == 0, cmp
+    assert torch.equal(new[:, :, :5], pnew[:, :, :5])
+    want = torch.zeros((300, 5), device=card)
+    want[3, 1] = want[10, 3] = 1.0
+    want[5:9, 2] = 0.25
+    want[[2, 9], 4] = 0.5
+    assert all(torch.equal(new[b, :, :5], want) for b in range(3))
+
+
+@pytest.mark.cuda
+def test_mcl_column_kernel_batch_independent_and_repeatable(card):
+    """A (b, column)'s bits do not depend on the batch it is launched
+    in: alone, in a batch of 6 and in a permuted batch the same; a
+    repeat launch bit-equal."""
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    e, old, infl = _dense_case(11, 6, 1000)
+    te, to, ti = (torch.as_tensor(x, device=card) for x in (e, old, infl))
+    whole = kmc.mcl_column(te, ti, 1e-4, old=to)
+    again = kmc.mcl_column(te, ti, 1e-4, old=to)
+    assert torch.equal(whole[0], again[0]) and torch.equal(whole[1],
+                                                          again[1])
+    perm = torch.as_tensor([4, 1, 5, 0, 3, 2], device=card)
+    p = kmc.mcl_column(te[perm].contiguous(), ti[perm].contiguous(), 1e-4,
+                       old=to[perm].contiguous())
+    assert torch.equal(p[0], whole[0][perm]) and torch.equal(
+        p[1], whole[1][perm])
+    for b in range(6):
+        one = kmc.mcl_column(te[b:b + 1], ti[b:b + 1], 1e-4,
+                             old=to[b:b + 1])
+        assert torch.equal(one[0][0], whole[0][b])
+        assert torch.equal(one[1][0], whole[1][b])
+
+
+@pytest.mark.cuda
+def test_mcl_column_launched_every_dense_iteration(card):
+    """_mcl_batched on the card launches the kernel once an iteration,
+    and gives the iteration counts and partitions of its run under the
+    plain version."""
+    from haphic_tpu_torch.cluster import mcl as tmcl
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    rng = np.random.default_rng(3)
+    n = 1200
+    a = np.zeros((n, n), np.float32)
+    for blk in range(6):
+        s = slice(200 * blk, 200 * blk + 200)
+        w = rng.integers(5, 60, (200, 200)) * (rng.random((200, 200)) < 0.3)
+        a[s, s] += np.triu(w, 1) + np.triu(w, 1).T
+    a += np.eye(n, dtype=np.float32)
+    ta = torch.as_tensor(a, device=card)
+    pre = tmcl._matpower(tmcl._colnorm(ta), 2)
+    infl = torch.tensor([1.4, 2.0, 3.0], device=card)
+    n0 = kmc.mcl_column.launches
+    m, iters, conv = tmcl._mcl_batched(pre, infl, 2, 200, 1e-4)
+    assert kmc.mcl_column.launches - n0 == int(iters.max())
+    with kmc.plain_columns(tmcl):
+        pm, piters, pconv = tmcl._mcl_batched(pre, infl, 2, 200, 1e-4)
+    assert torch.equal(iters, piters) and torch.equal(conv, pconv)
+    got = [tmcl.interpret_result((m[b] != 0).cpu().numpy()) for b in range(3)]
+    want = [tmcl.interpret_result((pm[b] != 0).cpu().numpy())
+            for b in range(3)]
+    assert got == want and None not in got
+
+
+@pytest.mark.cuda
+def test_mcl_column_kernel_rejects_bad_input(card):
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    e, old, infl = _dense_case(5, 2, 64)
+    te, to, ti = (torch.as_tensor(x, device=card) for x in (e, old, infl))
+    bad = [(te.double(), ti, to),                      # f64
+           (te[:, :, :60], ti, None),                  # not square
+           (te, ti[:1], to),                           # infl's length
+           (te, ti.cpu(), to),                         # mixed devices
+           (te, ti, to.cpu()),
+           (te.transpose(1, 2), ti, to),               # column-major
+           (te, ti, to[:, :, :60])]                    # old's shape
+    for x, f, o in bad:
+        with pytest.raises(ValueError):
+            kmc.mcl_column(x, f, 1e-4, old=o)
