@@ -31,7 +31,8 @@ Phases, each printing one JSON line:
              whose two largest q lie within 1e-6 relative, excused and
              counted), the statistic within 1e-7 and the same
              convergence decision; both timed (the kernel's ms and
-             plain_ms). Then the whole batch through _mcl_batched with
+             plain_ms, its plan from mcl_column.plan(n) and the rate it
+             reached on the bytes it moves, tb_s). Then the whole batch through _mcl_batched with
              the kernel and under plain_columns: equal iteration counts
              and partitions.
 4. kernel    every kernel against its plain torch version on the card,
@@ -210,7 +211,7 @@ Phases, each printing one JSON line:
              ranks, mesh_sparse over its two ranks, mesh_nccl),
              `launches_by_phase` lists them; sparse_column's ms,
              plain_ms, bound_ms and max_abs_err are phase 6's,
-             mcl_column's phase 3's.
+             mcl_column's phase 3's (with its plan and tb_s).
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
@@ -993,6 +994,7 @@ def phase_dense_step(torch, tmcl, kmc, dense_call):
         _time_ms(torch, lambda fn=fn: fn(e, infl, pruning, old=m), STEP_REPS)
         for fn in (kmc.mcl_column, kmc.mcl_column_plain))
     bound, bound_by = kmc.bound_ms(B, n, True)
+    plan = kmc.plan(n)
     del e, m
     torch.cuda.empty_cache()
     # the whole batch both ways
@@ -1016,7 +1018,9 @@ def phase_dense_step(torch, tmcl, kmc, dense_call):
           'differ from the plain version\'s {}'.format(
               batch['kernel']['n_iters'], batch['plain']['n_iters']))
     row = {'max_abs_err': cmp['max_abs_err'], 'ms': col_ms,
-           'plain_ms': col_plain_ms, 'bound_ms': bound, 'bound_by': bound_by}
+           'plain_ms': col_plain_ms, 'bound_ms': bound, 'bound_by': bound_by,
+           'plan': plan._asdict(),
+           'tb_s': kmc.pass_bytes(B, n, True) / col_ms / 1e9}
     emit(dict(line, mcl_column=dict(row, **cmp, stat=stat.tolist(),
                                     stat_max_abs_err=stat_err),
               batch=batch, clusters=[len(p) for p in parts]))
@@ -2294,7 +2298,9 @@ def main() -> int:
                             max_abs_err=row['max_abs_err'], ms=row['ms'],
                             plain_ms=row['plain_ms'],
                             bound_ms=row['bound_ms'],
-                            bound_by=row['bound_by'], library_ms=None))
+                            bound_by=row['bound_by'], library_ms=None,
+                            **{x: row[x] for x in ('plan', 'tb_s')
+                               if x in row}))
     print(nvidia_smi(), flush=True)
     emit({'kernels': kernels})
     emit({'ok': True, 'device': {

@@ -899,3 +899,221 @@ def test_mcl_column_kernel_rejects_bad_input(card):
     for x, f, o in bad:
         with pytest.raises(ValueError):
             kmc.mcl_column(x, f, 1e-4, old=o)
+
+
+# --- the dense column kernel's plan: every width and cluster size ----------
+
+def _device_case(card, seed, B, n, with_old=True):
+    """(e, old, infl) made on the card from ``seed`` (a matrix of 4.9e9
+    entries is too slow to make on the host), row block by row block: e
+    as _dense_case's, sparse with a wide range of values."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    e = torch.empty((B, n, n), device=card)
+    old = torch.empty((B, n, n), device=card) if with_old else None
+    step = max(1, (1 << 26) // n)
+    for b in range(B):
+        for r in range(0, n, step):
+            shape = (min(step, n - r), n)
+            x = torch.rand(shape, generator=g, device=card).pow_(8)
+            x.mul_(torch.rand(shape, generator=g, device=card) < 0.3)
+            e[b, r:r + step] = x
+            if with_old:
+                x = torch.rand(shape, generator=g, device=card)
+                x.mul_(torch.rand(shape, generator=g, device=card) < 0.2)
+                old[b, r:r + step] = x
+    infl = torch.as_tensor(np.linspace(1.1, 3.0, B, dtype=np.float32),
+                           device=card)
+    return e, old, infl
+
+
+def _compare_by_columns(e, infl, pruning, old, got, stat):
+    """kmc.compare and the statistic's error of a kernel result (got,
+    stat) against the plain version computed a block of columns at a
+    time (the pass is column by column; the statistic a max), so that a
+    matrix of 70,000 rows needs no more than a few of its size."""
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    B, n = e.shape[0], e.shape[2]
+    cb = max(1, (1 << 27) // (B * n))
+    agg = {}
+    want_stat = None
+    for c0 in range(0, n, cb):
+        sl = slice(c0, c0 + cb)
+        q = kmc._inflate(e[:, :, sl], infl.view(-1, 1, 1))
+        want = kmc._prune(q, pruning)
+        for k, v in kmc.compare(got[:, :, sl], want, q, pruning).items():
+            agg[k] = max(agg.get(k, 0), v) if k == 'max_abs_err' \
+                else agg.get(k, 0) + v
+        if old is not None:
+            s = kmc._stat(want, old[:, :, sl])
+            want_stat = s if want_stat is None else torch.maximum(want_stat,
+                                                                  s)
+        del q, want
+    stat_err = None if old is None else _stat_err(stat, want_stat)
+    return agg, stat_err, want_stat
+
+
+def _stat_err(stat, want):
+    """The statistic's largest error; a NaN (a column sum whose reciprocal
+    overflows) must stand on both sides."""
+    if not torch.equal(stat.isnan(), want.isnan()):
+        return float('inf')
+    ok = ~want.isnan()
+    return float((stat[ok] - want[ok]).abs().max()) if ok.any() else 0.0
+
+
+def _assert_agrees(cmp, stat_err, B, n):
+    assert cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0 \
+        and cmp['argmax_differ'] == 0, cmp
+    assert cmp['columns_excused'] <= max(1, B * n // 100), cmp
+    assert stat_err is None or stat_err <= 1e-7, stat_err
+
+
+# n just below and just above each switch of plan(n), with the plan
+# (width, cluster) expected there; every n past a switch also leaves the
+# last CTA fewer rows than the others (rows not divisible by C)
+PLAN_CASES = [(512, 32, 1), (513, 32, 2), (1024, 32, 2), (1025, 32, 4),
+              (2048, 32, 4), (2049, 32, 8), (4096, 32, 8), (4097, 32, 16),
+              (8192, 32, 16), (8193, 16, 16), (16384, 16, 16),
+              (16385, 16, 16), (25600, 16, 16), (25601, 8, 16),
+              (70000, 8, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,W,C', PLAN_CASES,
+                         ids=['n{}-w{}c{}'.format(*c) for c in PLAN_CASES])
+def test_mcl_column_kernel_every_plan(card, n, W, C):
+    """Each width and cluster size plan(n) chooses, at n just below and
+    just above each switch (B = 1; from n = 16,385 slabs past
+    SLAB_TARGET; up to N_MAX = 70,000, 19.6 GB a matrix), against the
+    plain version with the statistic."""
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    pl = kmc.plan(n)
+    assert (pl.width, pl.cluster) == (W, C)
+    torch.cuda.empty_cache()
+    e, old, infl = _device_case(card, n, 1, n)
+    n0 = kmc.mcl_column.launches
+    got, stat = kmc.mcl_column(e, infl, 1e-4, old=old)
+    torch.cuda.synchronize()
+    assert kmc.mcl_column.launches == n0 + 1
+    cmp, stat_err, _ = _compare_by_columns(e, infl, 1e-4, old, got, stat)
+    _assert_agrees(cmp, stat_err, 1, n)
+    del e, old, got
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,n,stride0', [
+    (1, 19999, False), (6, 8000, True), (6, 8000, False), (3, 6007, False),
+    (4, 1, False), (4, 1, True)],
+    ids=['B1-n19999', 'iter0-n8000', 'B6-n8000', 'B3-n6007', 'B4-n1',
+         'iter0-n1'])
+def test_mcl_column_kernel_main_shapes(card, B, n, stride0):
+    """B = 1 at the dense route's largest default n (19,999), the
+    pipeline's shape (B = 6, n = 8000) with its stride-0 iteration 0,
+    ragged slabs (6007 = 15 * 376 + 367 rows) and one fragment."""
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    torch.cuda.empty_cache()
+    e, old, infl = _device_case(card, B * n + stride0, 1 if stride0 else B,
+                                n, with_old=not stride0)
+    if stride0:
+        infl = torch.as_tensor(np.linspace(1.1, 3.0, B, dtype=np.float32),
+                               device=card)
+        e = e[0][None].expand(B, n, n)
+    got, stat = kmc.mcl_column(e, infl, 1e-4, old=old)
+    torch.cuda.synchronize()
+    cmp, stat_err, want_stat = _compare_by_columns(e, infl, 1e-4, old, got,
+                                                   stat)
+    _assert_agrees(cmp, stat_err, B, n)
+    assert bool(torch.isfinite(got).all())
+    if n == 1:     # one entry a column: 1 where it is positive, else 0
+        assert torch.equal(got != 0, e > 0)
+        assert float((got - (e > 0).float()).abs().max()) <= 1e-6
+    if old is not None:
+        assert torch.equal(stat <= 1e-8, want_stat <= 1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,W,C', [(3, 32, 8), (5, 8, 16), (1, 16, 16),
+                                   (100, 16, 3)],
+                         ids=['n3-w32c8', 'n5-w8c16', 'n1-w16c16',
+                              'n100-w16c3'])
+def test_mcl_column_kernel_plan_past_the_rows(card, n, W, C):
+    """Plans plan(n) does not choose, launched as the wrapper launches:
+    clusters with more CTAs than rows (CTAs whose slab is empty), and a
+    cluster size that is no power of two. Against the plain version;
+    with a few rows and inflations up to 3, some column sums are so
+    small that their reciprocal overflows, and both versions give the
+    same NaN there (torch.argmax's order: NaN first)."""
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    e, old, infl = _dense_case(n * W + C, 3, n)
+    te, to, ti = (torch.as_tensor(x, device=card) for x in (e, old, infl))
+    got, stat = kmc._launch(te, ti, 1e-4, to, kmc._plan(W, C, n))
+    want, want_stat = kmc.mcl_column_plain(te, ti, 1e-4, old=to)
+    torch.cuda.synchronize()
+    cmp = kmc.compare(got, want, kmc._inflate(te, ti.view(-1, 1, 1)), 1e-4)
+    _assert_agrees(cmp, _stat_err(stat, want_stat), 3, n)
+
+
+@pytest.mark.cuda
+def test_mcl_column_kernel_bit_equal_at_the_pipeline_plan(card):
+    """At n = 8000 (32 columns a strip, clusters of 16): a (b, column)'s
+    bits alone, in a batch of 6, in a permuted batch and in a repeat
+    are the same."""
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    e, old, infl = _device_case(card, 8000, 6, 8000)
+    whole = kmc.mcl_column(e, infl, 1e-4, old=old)
+    again = kmc.mcl_column(e, infl, 1e-4, old=old)
+    assert torch.equal(whole[0], again[0]) and torch.equal(whole[1],
+                                                          again[1])
+    perm = torch.as_tensor([4, 1, 5, 0, 3, 2], device=card)
+    p = kmc.mcl_column(e[perm].contiguous(), infl[perm].contiguous(), 1e-4,
+                       old=old[perm].contiguous())
+    assert torch.equal(p[0], whole[0][perm]) and torch.equal(
+        p[1], whole[1][perm])
+    del p
+    for b in (0, 5):
+        one = kmc.mcl_column(e[b:b + 1], infl[b:b + 1], 1e-4,
+                             old=old[b:b + 1])
+        assert torch.equal(one[0][0], whole[0][b])
+        assert torch.equal(one[1][0], whole[1][b])
+
+
+@pytest.mark.cuda
+def test_mcl_column_kernel_tie_across_ranks(card):
+    """At n = 8000 every CTA holds 500 rows: equal largest entries in
+    rows 999 (rank 1) and 1000 (rank 2), and in rows 3999, 4000 and 7999
+    (ranks 7, 8 and 15), below the pruning: only the first row of each
+    column is kept; equal entries above it are all kept."""
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    n = 8000
+    assert kmc.plan(n).rows == 500
+    e, old, infl = _device_case(card, 17, 2, n)
+    e[:, :, :3] = 0
+    e[:, [999, 1000, 5000], 0] = 1.0     # q = 1/3 each, pruning 0.4
+    e[:, [3999, 4000, 7999], 1] = 1.0
+    e[:, [999, 1000], 2] = 1.0           # q = 0.5 each: both kept
+    got, stat = kmc.mcl_column(e, infl, 0.4, old=old)
+    torch.cuda.synchronize()
+    want = torch.zeros((n, 3), device=card)
+    want[999, 0] = want[3999, 1] = 1.0
+    want[[999, 1000], 2] = 0.5
+    assert all(torch.equal(got[b, :, :3], want) for b in range(2))
+    cmp, stat_err, _ = _compare_by_columns(e, infl, 0.4, old, got, stat)
+    _assert_agrees(cmp, stat_err, 2, n)
+
+
+@pytest.mark.cuda
+def test_mcl_column_kernel_raises_past_its_plan(card):
+    """n = N_MAX + 1 on the card: a ValueError naming the limit, and no
+    launch."""
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    n = kmc.N_MAX + 1
+    torch.cuda.empty_cache()
+    e = torch.empty((1, n, n), device=card)
+    infl = torch.ones(1, device=card)
+    n0 = kmc.mcl_column.launches
+    with pytest.raises(ValueError, match='N_MAX = 70000'):
+        kmc.mcl_column(e, infl, 1e-4)
+    assert kmc.mcl_column.launches == n0
+    del e
+    torch.cuda.empty_cache()

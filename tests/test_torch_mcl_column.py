@@ -244,3 +244,102 @@ def test_mcl_batched_computes_what_it_computed_before(expansion):
     assert bool(want[2].all())
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# the kernel's plan (kmc.plan): a function of n alone
+
+SWITCHES = [512, 1024, 2048, 4096, 8192, 16384, 25600, kmc.N_MAX]
+
+
+def _slabs(pl, n):
+    """The (first row, rows) of each CTA's slab, as the kernel computes
+    them: rank k starts at k * rows and holds at most rows of the n."""
+    return [(k * pl.rows, max(0, min(pl.rows, n - k * pl.rows)))
+            for k in range(pl.cluster)]
+
+
+def test_plan_slabs_cover_every_row_once_for_every_n():
+    """For every n from 1 to N_MAX the slabs, in rank order, tile the
+    rows 0 .. n - 1: each starts where the one before it ended."""
+    for n in range(1, kmc.N_MAX + 1):
+        pl = kmc.plan(n)
+        end = 0
+        for lo, rows in _slabs(pl, n):
+            assert lo == end or rows == 0, (n, pl)
+            end = lo + rows if rows else end
+        assert end == n, (n, pl)
+
+
+@pytest.mark.parametrize('switch', SWITCHES)
+def test_plan_rows_covered_once_near_switches(switch):
+    """Near each switch, every row of every slab is held by exactly one
+    thread of exactly one CTA: thread row group g of G = 256 / width
+    takes the slab's rows g, g + G, ... (the kernel's kmax)."""
+    for n in range(max(1, switch - 40), min(kmc.N_MAX, switch + 40) + 1):
+        pl = kmc.plan(n)
+        G = kmc.THREADS // pl.width
+        count = np.zeros(n, np.int64)
+        for lo, rows in _slabs(pl, n):
+            for g in range(G):
+                kmax = (rows - g + G - 1) // G if rows > g else 0
+                count[lo + g + G * np.arange(kmax)] += 1
+        assert (count == 1).all(), (n, pl)
+
+
+def test_plan_shared_memory_widths_and_clusters():
+    """Every n's slab and head fit a CTA's 232,448 bytes; widths are 8,
+    16 or 32 columns (32-byte sectors), clusters 1 to 16 CTAs; slabs up
+    to n = 16,384 leave three CTAs an SM, up to 25,600 two."""
+    for n in range(1, kmc.N_MAX + 1):
+        pl = kmc.plan(n)
+        assert pl.smem == kmc.HEAD + pl.rows * pl.width * 4
+        assert pl.smem <= 232448
+        assert pl.width in (8, 16, 32) and pl.cluster in (1, 2, 4, 8, 16)
+        assert pl.rows == -(-n // pl.cluster)
+        if n <= 16384:
+            assert 3 * pl.smem <= 228 * 1024 - 3 * 1024
+        elif n <= 25600:
+            assert 2 * pl.smem <= 228 * 1024 - 2 * 1024
+
+
+@pytest.mark.parametrize('n,want', [
+    (1, (32, 1, 1)), (512, (32, 1, 512)), (513, (32, 2, 257)),
+    (3000, (32, 8, 375)), (8000, (32, 16, 500)), (8193, (16, 16, 513)),
+    (12000, (16, 16, 750)), (19999, (16, 16, 1250)), (25601, (8, 16, 1601)),
+    (70000, (8, 16, 4375))])
+def test_plan_is_a_function_of_n(n, want):
+    """The same plan at every call and in any order of calls, from n
+    alone (its one parameter), pinned at the switches."""
+    import inspect
+    assert list(inspect.signature(kmc.plan).parameters) == ['n']
+    first = kmc.plan(n)
+    kmc.plan(max(1, n - 1))
+    kmc.plan(min(kmc.N_MAX, n + 1))
+    assert kmc.plan(n) == first
+    assert (first.width, first.cluster, first.rows) == want
+
+
+@pytest.mark.parametrize('n', [0, -1, kmc.N_MAX + 1, 10 ** 6])
+def test_plan_raises_past_its_capacity(n):
+    with pytest.raises(ValueError, match='N_MAX = 70000'):
+        kmc.plan(n)
+
+
+def test_stat_parts_one_a_cta():
+    for n in (1, 8000, 19999, 70000):
+        pl = kmc.plan(n)
+        assert kmc.stat_parts(n, pl) == -(-n // pl.width) * pl.cluster
+
+
+def test_compare_counts_a_one_sided_nan():
+    """kmc.compare: a NaN on both sides agrees (a column sum whose
+    reciprocal overflows gives NaN in both versions), a NaN on one side
+    only is outside the tolerance."""
+    want = torch.tensor([[[0.5, float('nan')], [0.5, 0.0]]])
+    q = want.clone()
+    same = kmc.compare(want.clone(), want, q, PRUNING)
+    assert same['outside_tol'] == 0 and same['max_abs_err'] == 0.0
+    got = want.clone()
+    got[0, 0, 0] = float('nan')
+    one = kmc.compare(got, want, q, PRUNING)
+    assert one['outside_tol'] == 1 and one['max_abs_err'] == float('inf')
