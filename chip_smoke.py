@@ -65,9 +65,10 @@ Phases, each printing one JSON line:
              fragments, past SPARSE_MIN_N) with 6,000,000 pairs, seed
              17, the same flags and cut: the MCL sweep must run on the
              sparse top-K engine on the card through the sparse_column
-             kernel, the GA and its kernels on the card (launch counts
-             of all three set to 0 just before and read just after), and
-             the scaffolds must recover the 24 chromosomes.
+             kernel and the col_allclose kernel (its convergence
+             statistic), the GA and its kernels on the card (launch
+             counts of all four set to 0 just before and read just
+             after), and the scaffolds must recover the 24 chromosomes.
              Prints n, K, the input columns over K, iterations per
              inflation, the K of each shrink per inflation batch, the
              sweep seconds, stage and wall seconds, peak card memory.
@@ -77,15 +78,24 @@ Phases, each printing one JSON line:
              iterations); then the sparse pipeline's first sweep step
              (B=4, n+1, K=128, from the first-iteration state), rerun
              with the arguments the pipeline gave it, timed with CUDA
-             events (and again through the plain version of the column
-             pass), its peak card memory, and its device time from
-             torch.profiler split by op and by kernel, each with its
-             share. Then sparse_column against its plain version on
-             that step's columns: equal sets of entries above 1e-6,
-             values within rtol 1e-5 / atol 1e-7; both timed over the
-             step's chunks (the kernel's ms and plain_ms); and the
-             step's column shapes (sparse_column.column_stats: real
-             sources, real candidates, distinct ids, capped columns).
+             events (and again through the plain versions of the column
+             pass and the statistic), its peak card memory, and its
+             device time from torch.profiler split by op and by kernel,
+             each with its share (no sort or cummax may be left in it).
+             Then sparse_column against its plain version on that
+             step's columns: equal sets of entries above 1e-6, values
+             within rtol 1e-5 / atol 1e-7; both timed over the step's
+             chunks (the kernel's ms and plain_ms); and the step's
+             column shapes (sparse_column.column_stats: real sources,
+             real candidates, distinct ids, capped columns). Then
+             col_allclose against its plain version on the step's own
+             columns (old: the iterate's, new: sparse_column's output):
+             the same -inf columns, the others within 1e-9 absolute, the
+             same convergence decision (<= 1e-8) for each inflation;
+             over the step's chunks, the kernel's launches timed (ms),
+             the wrapper as the sweep calls it, with the order flag the
+             host loop reads (wrapper_ms), and the plain version
+             (plain_ms); its bound from the step's real entries.
              The step's arguments go to build/chip_smoke/sparse_step.pt
              for `python -m haphic_tpu_torch.kernels.sparse_column
              --iterate`.
@@ -192,14 +202,15 @@ Phases, each printing one JSON line:
              (`--mesh-worker sparse`) against the meshless run on the
              card: iterates, iteration counts and K shrinks bit-equal.
              Prints each sharded step's ms, its all-gather ms and bytes,
-             peak card memory and sparse_column launches per rank
-             (counted from 0 just before its run).
+             peak card memory and sparse_column and col_allclose
+             launches per rank (counted from 0 just before its run).
 14. mesh_nccl
              a one-rank NCCL group in this process, so that NCCL's
              collectives run on CUDA tensors even on one card: the
              sharded dense sweep (its first 5 inflations at n = 8000,
              through mcl_column), the sharded sparse step (the sparse
-             pipeline's first step, through sparse_column) and the
+             pipeline's first step, through sparse_column and
+             col_allclose) and the
              sharded GA (the pipeline's
              own GA call: 7 groups, both kernels; launch counts set to 0
              just before and read just after each) against the meshless
@@ -209,9 +220,9 @@ Phases, each printing one JSON line:
              path (pipeline, sparse_pipeline, polyploid_pipeline,
              correct_pipeline, allhic, sim, mesh_pipeline over its two
              ranks, mesh_sparse over its two ranks, mesh_nccl),
-             `launches_by_phase` lists them; sparse_column's ms,
-             plain_ms, bound_ms and max_abs_err are phase 6's,
-             mcl_column's phase 3's (with its plan and tb_s).
+             `launches_by_phase` lists them; sparse_column's and
+             col_allclose's ms, plain_ms, bound_ms and max_abs_err are
+             phase 6's, mcl_column's phase 3's (with its plan and tb_s).
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
@@ -260,6 +271,8 @@ CHIMERAS = 40
 CORRECT_NROUNDS = 2
 MIN_BROKEN = 36          # chimeras that must be broken
 STEP_REPS = 3            # timed sparse sweep steps
+STAT_TOL = 1e-9          # col_allclose against its plain version, absolute
+CONVERGED = 1e-8         # the sweep's convergence threshold on the statistic
 TOP_OPS = 12             # ops and kernels listed for the sparse step
 SIM_FLAGS = ['--Nx', '100', '--RE_site_cutoff', '0',
              '--density_lower', '0', '--density_upper', '1',
@@ -308,6 +321,11 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'haphic_tpu_torch/kernels/csrc/mcl_column.cu',
     'replaces': 'haphic_tpu/cluster/mcl.py:86',
+}, {
+    'name': 'col_allclose',
+    'route': 'cuda',
+    'source': 'haphic_tpu_torch/kernels/csrc/col_allclose.cu',
+    'replaces': 'haphic_tpu/cluster/sparse_mcl.py:114',
 }]
 # the GA's kernels: every pipeline phase launches both
 GA_KERNELS = ('score_population', 'delta_generation')
@@ -588,12 +606,14 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     """``genome`` (make_sim), then `cli.main(["pipeline", ...])` on the
     card with the flags it returns and the kernel launch counts set to 0
     just before and read just after. The MCL sweep must run on the card
-    on ``engine`` (the sparse one through sparse_column, the dense one
-    through mcl_column), the GA on the card with both GA kernels, one
-    delta_generation launch per delta generation the GA reports, and the
-    scaffolds must recover the simulated chromosomes. Returns (sim
+    on ``engine`` (the sparse one through sparse_column and
+    col_allclose, the dense one through mcl_column), the GA on the card
+    with both GA kernels, one delta_generation launch per delta
+    generation the GA reports, and the scaffolds must recover the
+    simulated chromosomes. Returns (sim
     seconds, wall seconds, metrics, launches, partition summary, output
     directory)."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
     from haphic_tpu_torch.kernels import mcl_column as kmc
     from haphic_tpu_torch.kernels import sparse_column as kcol
     t0 = time.time()
@@ -606,6 +626,7 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     kscore.score_population.launches = 0
     kdelta.delta_generation.launches = 0
     kcol.sparse_column.launches = 0
+    kca.col_allclose.launches = 0
     kmc.mcl_column.launches = 0
     t0 = time.time()
     rc = cli.main(['pipeline', fa, pairs, str(sim['nchrs']), '--outdir',
@@ -615,7 +636,8 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     launches = {'score_population': kscore.score_population.launches,
                 'delta_generation': kdelta.delta_generation.launches,
                 'sparse_column': kcol.sparse_column.launches,
-                'mcl_column': kmc.mcl_column.launches}
+                'mcl_column': kmc.mcl_column.launches,
+                'col_allclose': kca.col_allclose.launches}
     logging.getLogger('haphic_tpu_torch').removeHandler(log)
     check(rc == 0, 'pipeline exit code {}'.format(rc))
     m = log.metrics
@@ -625,8 +647,8 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     check(mcl == 'cuda', 'the MCL sweep ran on {}, not the card'.format(mcl))
     check(m['ga_route'][-1] == 'cuda',
           'the GA ran on {}, not the card'.format(m['ga_route'][-1]))
-    for kname in GA_KERNELS + (('sparse_column',) if engine == 'sparse'
-                               else ('mcl_column',)):
+    for kname in GA_KERNELS + (('sparse_column', 'col_allclose')
+                               if engine == 'sparse' else ('mcl_column',)):
         check(launches[kname] > 0, 'kernel {} was not launched on the main '
               'path'.format(kname))
     # the delta generations the GA says it ran, one launch each
@@ -747,11 +769,11 @@ def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
     first = []
     step = sp._sweep_step
 
-    def recording(*args):
+    def recording(*args, **kw):
         if not first:
             # the host loop updates `active` in place after each step
             first.append(args[:3] + (args[3].copy(),) + args[4:])
-        return step(*args)
+        return step(*args, **kw)
 
     sp._sweep_step = recording
     try:
@@ -821,12 +843,18 @@ def phase_sparse_step(torch, sp, first_step):
     """The sparse pipeline's first sweep step (its first inflation
     batch, from its first-iteration state), again with the arguments
     the pipeline gave it, timed with CUDA events and profiled by op;
-    the same step through the plain version of the column pass, timed.
-    Before it, the engine on the card against the engine on the
-    CPU on a small block matrix: equal partitions and iterations. Then
-    sparse_column held against its plain version on the step's columns
-    (equal kept sets above KEPT, values within RTOL/ATOL) and both timed
-    over the step's chunks. Returns the kernel's row."""
+    the same step through the plain versions of the column pass and the
+    statistic, timed; the statistic's sort and cummax must be gone from
+    the step's device ops. Before it, the engine on the card against the
+    engine on the CPU on a small block matrix: equal partitions and
+    iterations. Then sparse_column held against its plain version on the
+    step's columns (equal kept sets above KEPT, values within RTOL/ATOL),
+    and col_allclose against its plain version on the step's own column
+    pairs (the iterate's columns, sparse_column's output): the same -inf
+    columns, the others within STAT_TOL, the same convergence decision
+    (<= CONVERGED) for each inflation; each pair timed over the step's
+    chunks. Returns the two kernels' rows."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
     from haphic_tpu_torch.kernels import sparse_column as kcol
     i, j, w = _block_coo(96, 4, 2)
     infl = [1.2, 1.5, 2.0, 2.8]
@@ -851,9 +879,12 @@ def phase_sparse_step(torch, sp, first_step):
                 'expansion': int(expansion)},
                os.path.join(WORK, 'sparse_step.pt'))
 
+    # col_allclose's order flag, passed and read as the host loop does
+    flag = torch.zeros(1, dtype=torch.int32, device=si.device)
+
     def step():
         return sp._sweep_step(si, sv, f, active, n, K, chunk, pruning,
-                              expansion)
+                              expansion, bad=flag)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -861,9 +892,10 @@ def phase_sparse_step(torch, sp, first_step):
     peak = torch.cuda.max_memory_allocated()
     ni, nv, stat, max_nnz = step()
     check(bool(torch.isfinite(nv).all()) and int(max_nnz) <= K
-          and bool((ni[:, n] == n).all()),
-          'sparse step output: not finite, too wide or sentinel set')
-    with kcol.plain_columns(sp):
+          and bool((ni[:, n] == n).all()) and int(flag) == 0,
+          'sparse step output: not finite, too wide, sentinel set or out '
+          'of ELL order')
+    with kcol.plain_columns(sp), kca.plain_stat(sp):
         plain_step_ms = _time_ms(torch, step, STEP_REPS)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -871,6 +903,12 @@ def phase_sparse_step(torch, sp, first_step):
         step()
         torch.cuda.synchronize()
     busy_ms, ops, kernels = _device_ops(torch, prof, TOP_OPS)
+    # the plain statistic's sort and scans, which the kernel replaces
+    stat_ops = {e.key: e.count for e in prof.key_averages()
+                if e.key in ('aten::sort', 'aten::cummax',
+                             'aten::_cummax_helper')}
+    check(not stat_ops, "the step still runs the plain statistic's ops: "
+          '{}'.format(stat_ops))
     # the kernel against its plain version on the step's own columns
     sel = torch.as_tensor(np.flatnonzero(active), device=si.device)
     A_i, A_v, fa = si[sel], sv[sel], f[sel]
@@ -883,7 +921,35 @@ def phase_sparse_step(torch, sp, first_step):
     check(cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0,
           "sparse_column disagrees with its plain version on the "
           "pipeline's step: {}".format(cmp))
-    del kout, pout
+    del pout
+    # the statistic on the step's own column pairs, chunk by chunk: the
+    # wrapper as the sweep calls it (its checks, its kernel, the order
+    # flag), the kernel's launches alone and the plain version
+    stats = [lambda fn=fn, kw=kw: kca.step_stats(fn, A_i, A_v, *kout, n,
+                                                 chunk, **kw)
+             for fn, kw in ((kca.col_allclose, {'bad': flag}),
+                            (kca._launch, {'bad': flag}),
+                            (kca.col_allclose_plain, {}))]
+    kst, pst = stats[0](), stats[2]()
+    check(int(flag) == 0, "col_allclose found the step's columns out of "
+          'ELL order')
+    scmp = kca.compare(kst, pst)
+    decide = [(x.amax(dim=1) <= CONVERGED).tolist() for x in (kst, pst)]
+    check(scmp['inf_differ'] == 0 and scmp['max_abs_err'] <= STAT_TOL
+          and decide[0] == decide[1], "col_allclose disagrees with its "
+          "plain version on the pipeline's step: {}, converged {} vs {}"
+          .format(scmp, decide[0], decide[1]))
+    scmp.update(equal_columns=int((kst == pst).sum()),
+                columns=kst.numel(), stat=kst.amax(dim=1).tolist(),
+                converged=decide[0])
+    stat_ms = _time_ms(torch, stats[1], STEP_REPS)
+    scmp['wrapper_ms'] = _time_ms(torch, stats[0], STEP_REPS)
+    stat_plain_ms = _time_ms(torch, stats[2], STEP_REPS)
+    sbound, sbound_by = kca.bound_ms(A_i, kout[0], n)
+    del kout, kst, pst
+    srow = {'max_abs_err': scmp['max_abs_err'], 'ms': stat_ms,
+            'plain_ms': stat_plain_ms, 'bound_ms': sbound,
+            'bound_by': sbound_by}
     shapes = kcol.column_stats(A_i, A_v, n, K, chunk)
     col_ms = _time_ms(torch, cols[0], STEP_REPS)
     col_plain_ms = _time_ms(torch, cols[1], STEP_REPS)
@@ -898,8 +964,9 @@ def phase_sparse_step(torch, sp, first_step):
           'max_memory_allocated': peak, 'top_device_ops': ops,
           'top_device_kernels': kernels,
           'small_n_iters': got.n_iters.tolist(), 'column_stats': shapes,
-          'sparse_column': dict(row, **cmp)})
-    return row
+          'sparse_column': dict(row, **cmp),
+          'col_allclose': dict(srow, **scmp)})
+    return row, srow
 
 
 def _dense_batch(torch, tmcl, dense_call):
@@ -1930,6 +1997,7 @@ def mesh_worker(kind, spec_path) -> int:
                    max_memory_allocated=torch.cuda.max_memory_allocated())
     else:
         from haphic_tpu_torch.cluster import sparse_mcl as sp
+        from haphic_tpu_torch.kernels import col_allclose as kca
         from haphic_tpu_torch.kernels import sparse_column as kcol
         pmesh.init_distributed('cuda')
         mesh = pmesh.make_mesh('cuda')
@@ -1937,11 +2005,11 @@ def mesh_worker(kind, spec_path) -> int:
         steps = []
         step = sp._sharded_sweep_step
 
-        def timed(m, idx, *rest):
+        def timed(m, idx, *rest, **kw):
             torch.cuda.synchronize()
             st0 = dict(m.stats)
             t0 = time.perf_counter()
-            out = step(m, idx, *rest)
+            out = step(m, idx, *rest, **kw)
             torch.cuda.synchronize()
             steps.append({
                 'ms': (time.perf_counter() - t0) * 1e3,
@@ -1954,6 +2022,7 @@ def mesh_worker(kind, spec_path) -> int:
         sp._sharded_sweep_step = timed
         torch.cuda.reset_peak_memory_stats()
         kcol.sparse_column.launches = 0
+        kca.col_allclose.launches = 0
         t0 = time.time()
         res = sp.run_mcl_sparse(d['i'], d['j'], d['w'], int(d['n']),
                                 d['inflations'].tolist(), K=int(d['K']),
@@ -1961,7 +2030,8 @@ def mesh_worker(kind, spec_path) -> int:
                                 max_iter=int(d['max_iter']),
                                 pruning=float(d['pruning']), mesh=mesh)
         sweep_s = time.time() - t0
-        launches = {'sparse_column': kcol.sparse_column.launches}
+        launches = {'sparse_column': kcol.sparse_column.launches,
+                    'col_allclose': kca.col_allclose.launches}
         np.save('{}.idx{}.npy'.format(spec_path, rank), res.idx)
         np.save('{}.val{}.npy'.format(spec_path, rank), res.val)
         rec.update(rc=0, sweep_s=sweep_s, n_iters=res.n_iters.tolist(),
@@ -2070,8 +2140,8 @@ def phase_mesh_sparse(torch, sp, call):
     against the meshless run on the same input: iterates, iteration
     counts and K shrinks bit-equal. Prints each sharded step's ms and
     all-gather ms and bytes, the peak memory per rank. Returns the
-    sparse_column launches summed over the ranks (counted in each rank
-    from 0 just before its run_mcl_sparse)."""
+    sparse_column and col_allclose launches summed over the ranks
+    (counted in each rank from 0 just before its run_mcl_sparse)."""
     (i, j, w, n, infl), kw = call['args'], call['kw']
     infl = list(infl)[:MESH_SPARSE_B]
     coo = os.path.join(WORK, 'mesh_sparse_coo.npz')
@@ -2088,11 +2158,12 @@ def phase_mesh_sparse(torch, sp, call):
     meshless_s = time.time() - t0
     spec = os.path.join(WORK, 'mesh_sparse.json')
     ranks = []
-    launches = {'sparse_column': 0}
+    launches = {'sparse_column': 0, 'col_allclose': 0}
     for r, rec in enumerate(recs):
-        n_r = rec['launches']['sparse_column']
-        check(n_r > 0, 'rank {} launched no sparse_column'.format(r))
-        launches['sparse_column'] += n_r
+        for kname in launches:
+            n_r = rec['launches'][kname]
+            check(n_r > 0, 'rank {} launched no {}'.format(r, kname))
+            launches[kname] += n_r
         idx = np.load('{}.idx{}.npy'.format(spec, r))
         val = np.load('{}.val{}.npy'.format(spec, r))
         diff = int((idx != want.idx).sum() + (val != want.val).sum())
@@ -2133,6 +2204,7 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
     24,001, K = 128) and the sharded GA (the dense pipeline's call, its
     batch of 7 groups) against the meshless calls: bit-equal."""
     from haphic_tpu_torch.cluster import mcl as tmcl
+    from haphic_tpu_torch.kernels import col_allclose as kca
     from haphic_tpu_torch.kernels import mcl_column as kmc
     from haphic_tpu_torch.kernels import sparse_column as kcol
     from haphic_tpu_torch.parallel import mesh as pmesh
@@ -2170,14 +2242,17 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
         si, sv, f, active, n, K, chunk, pruning, expansion = step_args
         si, sv, f = si.to(DEVICE), sv.to(DEVICE), f.to(DEVICE)
         kcol.sparse_column.launches = 0
+        kca.col_allclose.launches = 0
         t0 = time.time()
         g = sp._sharded_sweep_step(mesh, si, sv, f, active, n, K, chunk,
                                    pruning, expansion)
         torch.cuda.synchronize()
         t1 = time.time()
         col_launches = kcol.sparse_column.launches
-        check(col_launches > 0, 'the sharded sparse step launched no '
-              'sparse_column')
+        stat_launches = kca.col_allclose.launches
+        check(col_launches > 0 and stat_launches > 0, 'the sharded sparse '
+              'step launched sparse_column {} and col_allclose {} times'
+              .format(col_launches, stat_launches))
         w_ = sp._sweep_step(si, sv, f, active, n, K, chunk, pruning,
                             expansion)
         torch.cuda.synchronize()
@@ -2187,6 +2262,7 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
               'sharded sparse step differs from the meshless one')
         line['sparse_step'] = {'B': int(si.shape[0]), 'n_plus_1': n + 1,
                                'K': K, 'launches': col_launches,
+                               'stat_launches': stat_launches,
                                'sharded_s': t1 - t0,
                                'meshless_s': time.time() - t1}
         del si, sv, g, w_
@@ -2200,7 +2276,8 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
         launches = {'score_population': kscore.score_population.launches,
                     'delta_generation': kdelta.delta_generation.launches,
                     'sparse_column': col_launches,
-                    'mcl_column': mcl_launches}
+                    'mcl_column': mcl_launches,
+                    'col_allclose': stat_launches}
         want = ga_call['result']
         same = [np.array_equal(a.order, b.order)
                 and np.array_equal(a.ori, b.ori) and a.score == b.score
@@ -2260,7 +2337,8 @@ def main() -> int:
         first_step, by_phase['sparse_pipeline'] = phase_sparse_pipeline(
             torch, cli, kscore, kdelta, sp, SPARSE_MIN_N)
     sparse_call[0].pop('result')
-    main_rows['sparse_column'] = phase_sparse_step(torch, sp, first_step)
+    main_rows['sparse_column'], main_rows['col_allclose'] = \
+        phase_sparse_step(torch, sp, first_step)
     # on the host: its tensors would count in the next peaks
     step_args = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
                       for x in first_step)
@@ -2292,7 +2370,7 @@ def main() -> int:
         counts = {p: n.get(k['name'], 0) for p, n in by_phase.items()}
         check(sum(counts.values()) > 0, 'kernel {} was launched on no '
               'path'.format(k['name']))
-        # no single PyTorch call computes any of the four functions
+        # no single PyTorch call computes any of the five functions
         kernels.append(dict(k, launches=sum(counts.values()),
                             launches_by_phase=counts,
                             max_abs_err=row['max_abs_err'], ms=row['ms'],

@@ -29,19 +29,26 @@ iteration, 2K in the convergence merge):
            reference; exact when K ≥ the column's true support
   prune    threshold + keep-column-max + renormalize
            (reference prune semantics, scripts/HapHiC_cluster.py:1987)
-  converge numpy.allclose semantics via a 2K sorted merge of old/new
+  converge numpy.allclose semantics over the union of the old and new
+           columns' row ids
 
 Expand through prune are one call of kernels.sparse_column.sparse_column
-per column chunk: the hand-written CUDA kernel on the card, and on the
-CPU its plain version, the torch composition described below (the
-functions _expand, _dedupe_sorted and _inflate_cap_prune live there).
-The convergence statistic stays in torch here.
+per column chunk, and the convergence statistic one call of
+kernels.col_allclose.col_allclose: each the hand-written CUDA kernel on
+the card, and on the CPU its plain version, the torch composition
+described below (the functions _expand, _dedupe_sorted and
+_inflate_cap_prune live in kernels/sparse_column.py, the statistic's
+sort and run sums in kernels/col_allclose.py).
 
 Where JAX vmaps the per-column functions and streams columns through a
 lax.scan, the port loops over fixed column chunks on the host, writing
-into preallocated (B, n+1, K) outputs; nothing in that loop syncs with
-the card. Converged inflations leave the computed batch (as in the
-port's dense sweep) but stay in the K-shrink statistic.
+into preallocated (B, n+1, K) outputs. The loop waits for the card once
+a chunk, in sparse_column's check of the ELL order of the chunk's
+columns (a bool of a tensor on the card). col_allclose checks the order
+of the old and the new columns in its kernel, into a flag on the card
+that the host loop reads with the iteration's statistic (``bad``).
+Converged inflations leave the computed batch (as in the port's dense
+sweep) but stay in the K-shrink statistic.
 
 With a mesh (parallel/mesh.py) the column axis is sharded: N = n+1 is
 padded with sentinel columns to a multiple of the world, each rank
@@ -79,8 +86,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from haphic_tpu_torch.kernels.sparse_column import (
-    _shift_left, _shift_right, _sort_by_id, sparse_column)
+from haphic_tpu_torch.kernels.col_allclose import (
+    col_allclose, col_allclose_plain, raise_if_unordered)
+from haphic_tpu_torch.kernels.sparse_column import sparse_column
 from haphic_tpu_torch.parallel.mesh import all_gather_cols, all_reduce_max
 from haphic_tpu_torch.runtime import resolve_device
 
@@ -88,38 +96,8 @@ logger = logging.getLogger(__name__)
 
 DEFAULT_K = 128
 
-
-# ---------------------------------------------------------------------------
-# convergence statistic, over the last axis of (..., L) tensors
-# ---------------------------------------------------------------------------
-
-
-def _col_allclose_stat(old_idx, old_val, new_idx, new_val, n: int,
-                       rtol: float = 1e-5) -> torch.Tensor:
-    """max over rows of |new - old| - rtol·|old| for each column pair
-    (numpy.allclose semantics of the dense path, b = old). Inputs
-    (..., K); returns (...)."""
-    ci = torch.cat([old_idx, new_idx], dim=-1)
-    dv = torch.cat([-old_val, new_val], dim=-1)
-    ov = torch.cat([old_val, torch.zeros_like(new_val)], dim=-1)
-    ci, dv, ov = _sort_by_id(ci, dv, ov)
-    # f64 prefixes, as in _dedupe_sorted: a run of an unchanged entry
-    # then differences to exactly 0 on the CPU and the card alike
-    s_d = torch.cumsum(dv, dim=-1, dtype=torch.float64)
-    s_o = torch.cumsum(ov, dim=-1, dtype=torch.float64)
-    is_last = ci != _shift_left(ci, n + 1)
-    # cumsum of ov is nondecreasing; dv's is not -> recover run sums by
-    # differencing consecutive last positions
-    zo = torch.where(is_last, s_o, 0.0)
-    o_run = s_o - torch.cummax(_shift_right(zo, 0.0), dim=-1).values
-    pos = torch.arange(ci.shape[-1], device=ci.device).expand_as(ci)
-    idx_pos = torch.where(is_last, pos, -1)
-    prev_last = _shift_right(torch.cummax(idx_pos, dim=-1).values, -1)
-    d_prev = torch.where(prev_last >= 0, torch.gather(
-        s_d, -1, prev_last.clamp(min=0)), 0.0)
-    stat = torch.abs(s_d - d_prev) - rtol * o_run
-    return torch.where(is_last & (ci < n), stat, -torch.inf).amax(
-        dim=-1).to(old_val.dtype)
+# the convergence statistic's plain version, under its JAX name
+_col_allclose_stat = col_allclose_plain
 
 
 # ---------------------------------------------------------------------------
@@ -146,14 +124,16 @@ def _first_iteration(idx0: torch.Tensor, val0: torch.Tensor,
 
 def _sweep_cols(A_i, A_v, infl, n: int, K: int, chunk: int,
                 pruning: float, expansion: int, c0: int = 0,
-                c1: Optional[int] = None):
+                c1: Optional[int] = None,
+                bad: Optional[torch.Tensor] = None):
     """Expand→inflate→cap→prune for columns [c0, c1) of A (default: all
     of them) against the whole of A, in fixed column chunks. A_i/A_v:
     (B, N, K) per-inflation matrices; infl (B,). Returns (new_i, new_v,
     stat): (B, c1 - c0, K) columns and stat (B,) the per-inflation max
     allclose statistic over them, left on the card. The math is per
     column, so the chunk size and the block do not change the
-    results."""
+    results. ``bad``: col_allclose's order flag, read by the caller (None:
+    col_allclose reads its own, once a chunk)."""
     B, N = A_i.shape[0], A_i.shape[1]
     c1 = N if c1 is None else c1
     new_i = A_i.new_empty((B, c1 - c0, A_i.shape[2]))
@@ -172,7 +152,7 @@ def _sweep_cols(A_i, A_v, infl, n: int, K: int, chunk: int,
         ni, nv = sparse_column(A_i, A_v, di, dv, infl, n, K, pruning,
                                expand=True)
         del di, dv
-        stat = _col_allclose_stat(ci, cv, ni, nv, n)
+        stat = col_allclose(ci, cv, ni, nv, n, bad=bad)
         maxstat = torch.maximum(maxstat, stat.amax(dim=-1))
         new_i[:, s - c0:e - c0] = ni
         new_v[:, s - c0:e - c0] = nv
@@ -181,16 +161,18 @@ def _sweep_cols(A_i, A_v, infl, n: int, K: int, chunk: int,
 
 def _sweep_step(idx: torch.Tensor, val: torch.Tensor,
                 inflations: torch.Tensor, active: np.ndarray, n: int,
-                K: int, chunk: int, pruning: float, expansion: int):
+                K: int, chunk: int, pruning: float, expansion: int,
+                bad: Optional[torch.Tensor] = None):
     """One MCL iteration for the whole inflation batch on one card.
     Returns (new_idx, new_val, stat, max_nnz), all on the card, where
     stat is the per-inflation allclose statistic vs the input (≤1e-8 ⇒
     converged; -inf for frozen inflations, which the caller never
     reads). Frozen inflations (active=False, a host bool array) are not
-    computed and pass through unchanged; the inputs are not modified."""
+    computed and pass through unchanged; the inputs are not modified.
+    ``bad`` as in _sweep_cols."""
     sel = torch.as_tensor(np.flatnonzero(active), device=idx.device)
     ni, nv, st = _sweep_cols(idx[sel], val[sel], inflations[sel], n, K,
-                             chunk, pruning, expansion)
+                             chunk, pruning, expansion, bad=bad)
     ni[:, n] = n
     nv[:, n] = 0.0
     new_idx, new_val = idx.clone(), val.clone()
@@ -208,7 +190,7 @@ def _sweep_step(idx: torch.Tensor, val: torch.Tensor,
 def _sharded_sweep_step(mesh, idx: torch.Tensor, val: torch.Tensor,
                         inflations: torch.Tensor, active: np.ndarray,
                         n: int, K: int, chunk: int, pruning: float,
-                        expansion: int):
+                        expansion: int, bad: Optional[torch.Tensor] = None):
     """The multi-card twin of _sweep_step (the JAX package's
     _sharded_sweep_step, haphic_tpu/cluster/sparse_mcl.py:250-289).
     idx/val: this rank's (B, M, K) block of columns [rank·M, rank·M +
@@ -216,15 +198,17 @@ def _sharded_sweep_step(mesh, idx: torch.Tensor, val: torch.Tensor,
     all-gathered into the whole iterate A, this rank's columns go
     through _sweep_cols against it, and the statistic and the widest
     support are max-reduced over the ranks (one collective), so every
-    rank gets the same (stat, max_nnz) and takes the same decisions.
-    Returns (new_idx, new_val) blocks and (stat, max_nnz) reduced."""
+    rank gets the same (stat, max_nnz) and takes the same decisions; the
+    order flag ``bad`` (as in _sweep_cols), where given, is reduced in the
+    same collective. Returns (new_idx, new_val) blocks and (stat,
+    max_nnz) reduced."""
     B, M = idx.shape[0], idx.shape[1]
     sel = torch.as_tensor(np.flatnonzero(active), device=idx.device)
     A_i = all_gather_cols(mesh, idx[sel])
     A_v = all_gather_cols(mesh, val[sel])
     c0 = mesh.rank * M
     ni, nv, st = _sweep_cols(A_i, A_v, inflations[sel], n, K, chunk,
-                             pruning, expansion, c0, c0 + M)
+                             pruning, expansion, c0, c0 + M, bad)
     del A_i, A_v
     if c0 <= n < c0 + M:
         ni[:, n - c0] = n
@@ -235,8 +219,12 @@ def _sharded_sweep_step(mesh, idx: torch.Tensor, val: torch.Tensor,
     stat = torch.full((B,), -torch.inf, device=val.device)
     stat[sel] = st
     max_nnz = (new_val > 0).sum(dim=-1).amax()
-    red = all_reduce_max(mesh, torch.cat([stat.double(),
-                                          max_nnz.double().view(1)]))
+    parts = [stat.double(), max_nnz.double().view(1)]
+    if bad is not None:
+        parts.append(bad.double())
+    red = all_reduce_max(mesh, torch.cat(parts))
+    if bad is not None:
+        bad.copy_(red[B + 1:])
     return new_idx, new_val, red[:B], red[B]
 
 
@@ -271,20 +259,25 @@ def _run_sweep_batch(idx0: torch.Tensor, val0: torch.Tensor,
     active = np.ones(B, dtype=bool)
     conv_at = np.full(B, max_iter, dtype=np.int32)
     n_shrinks = 0
+    # col_allclose's order flag, set on the card, read with the decisions
+    bad = torch.zeros(1, dtype=torch.int32, device=idx.device)
     t0 = time.time()
     for it in range(1, max_iter):
         cur_chunk = min(chunk, _auto_chunk(B, K, n))
         if mesh is None:
             idx, val, stat, max_nnz = _sweep_step(
                 idx, val, infl, active, n, K, cur_chunk, float(pruning),
-                expansion)
+                expansion, bad=bad)
         else:
             idx, val, stat, max_nnz = _sharded_sweep_step(
                 mesh, idx, val, infl, active, n, K, cur_chunk,
-                float(pruning), expansion)
-        # the one host sync of an iteration: stat and max_nnz together
-        # (max_nnz <= K is exact in f64)
-        got = torch.cat([stat.double(), max_nnz.double().view(1)]).cpu()
+                float(pruning), expansion, bad=bad)
+        # the iteration's decisions in one read from the card: stat,
+        # max_nnz (<= K, exact in f64) and the order flag together;
+        # sparse_column's order check also waits for it, once a chunk
+        got = torch.cat([stat.double(), max_nnz.double().view(1),
+                         bad.double()]).cpu()
+        raise_if_unordered(int(got[B + 1]), n)
         stat_h, nz = got[:B].numpy(), int(got[B])
         if it >= 2:
             newly = active & (stat_h <= 1e-8)

@@ -21,7 +21,8 @@
 //      > 0, kept; renormalized;
 //   6. written in ascending id, padded with (n, 0).
 //
-// The convergence statistic (_col_allclose_stat) stays in torch.
+// The convergence statistic (_col_allclose_stat) is a kernel of its own,
+// csrc/col_allclose.cu.
 //
 // The kernel relies on the ELL layout every call site passes (the wrapper
 // checks it): each column of ci, and with expand each column of A_i,

@@ -24,7 +24,7 @@ kernel (csrc/sparse_column.cu) on CUDA tensors and runs
 ``sparse_column_plain``, the torch composition ``_expand`` then
 ``_inflate_cap_prune`` (moved here from cluster/sparse_mcl.py), on CPU
 tensors; nothing else picks the plain version. The convergence
-statistic stays in torch (``sparse_mcl._col_allclose_stat``). On both
+statistic is a kernel of its own (kernels/col_allclose.py). On both
 devices the columns of ci, and with ``expand`` those of A_i, must be in
 ELL order (ascending distinct ids below n, then sentinels n), or it
 raises ValueError: the kernel's dedupe relies on it.

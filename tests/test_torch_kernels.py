@@ -1117,3 +1117,253 @@ def test_mcl_column_kernel_raises_past_its_plan(card):
     assert kmc.mcl_column.launches == n0
     del e
     torch.cuda.empty_cache()
+
+
+# --- the sparse MCL convergence statistic -------------------------------
+
+STAT_KINDS = ('identical', 'same_ids', 'disjoint', 'partial', 'old_only',
+              'new_only', 'sentinel_only')
+# (Ko, Kn): equal widths at K = 1, 5, 16, 128, and unequal ones
+STAT_WIDTHS = [(1, 1), (5, 5), (16, 16), (128, 128), (16, 5), (5, 16),
+               (128, 16), (1, 128)]
+
+
+def _stat_case(seed, B, C, Ko, Kn, n):
+    """(old_i, old_v, new_i, new_v) ELL column pairs, (B, C, Ko) and
+    (B, C, Kn), numpy. Column g = b·C + c is of kind STAT_KINDS[g % 7]:
+    the same ids and values on both sides, the same ids with other
+    values, disjoint ids, ids drawn from one small pool (a partial
+    overlap), real ids in old only, in new only, or in neither (−inf).
+    Values are log-uniform in [1e-12, 1], each side's sum at most 1."""
+    rng = np.random.default_rng(seed)
+    oi = np.full((B, C, Ko), n, np.int32)
+    ov = np.zeros((B, C, Ko), np.float32)
+    ni = np.full((B, C, Kn), n, np.int32)
+    nv = np.zeros((B, C, Kn), np.float32)
+
+    def vals(m):
+        v = 10.0 ** rng.uniform(-12, 0, m)
+        return (v / max(1.0, v.sum())).astype(np.float32)
+    for b in range(B):
+        for c in range(C):
+            kind = STAT_KINDS[(b * C + c) % len(STAT_KINDS)]
+            mo = int(rng.integers(1, Ko + 1))
+            mn = int(rng.integers(1, Kn + 1))
+            if kind in ('identical', 'same_ids'):
+                mo = mn = min(mo, mn)
+                ido = idn = np.sort(rng.choice(n, mo, replace=False))
+            elif kind == 'disjoint':
+                ids = rng.choice(n, mo + mn, replace=False)
+                ido, idn = np.sort(ids[:mo]), np.sort(ids[mo:])
+            else:
+                pool = min(n, Ko + Kn)
+                ido = np.sort(rng.choice(pool, min(mo, pool), replace=False))
+                idn = np.sort(rng.choice(pool, min(mn, pool), replace=False))
+                if kind in ('new_only', 'sentinel_only'):
+                    ido = ido[:0]
+                if kind in ('old_only', 'sentinel_only'):
+                    idn = idn[:0]
+            vo = vals(len(ido))
+            vn = vo.copy() if kind == 'identical' else vals(len(idn))
+            oi[b, c, :len(ido)], ov[b, c, :len(ido)] = ido, vo
+            ni[b, c, :len(idn)], nv[b, c, :len(idn)] = idn, vn
+    return oi, ov, ni, nv
+
+
+def _stat_pair(card, args, n):
+    """The kernel (one launch) and the plain version on the same columns
+    on the card: (got, want), after checking the −inf columns equal and
+    the others within 1e-9 absolute."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    args = [torch.as_tensor(x).to(card) for x in args]
+    n0 = kca.col_allclose.launches
+    got = kca.col_allclose(*args, n)
+    want = kca.col_allclose_plain(*args, n)
+    torch.cuda.synchronize()
+    assert kca.col_allclose.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == args[0].shape[:2]
+    cmp = kca.compare(got, want)
+    assert cmp['inf_differ'] == 0 and cmp['max_abs_err'] <= 1e-9, cmp
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('Ko,Kn', STAT_WIDTHS)
+def test_col_allclose_kernel_matches_plain(card, Ko, Kn):
+    B, C, n = 3, 70, 4000
+    got, _ = _stat_pair(card, _stat_case(Ko * 1000 + Kn, B, C, Ko, Kn, n), n)
+    kinds = torch.arange(B * C, device=card).view(B, C) % len(STAT_KINDS)
+    sentinel_only = kinds == STAT_KINDS.index('sentinel_only')
+    assert bool((got[sentinel_only] == -torch.inf).all())
+    assert bool(torch.isfinite(got[~sentinel_only]).all())
+
+
+@pytest.mark.cuda
+def test_col_allclose_kernel_old_as_a_strided_slice(card):
+    """old as _sweep_cols passes it, the slice A[:, s:e] of the whole
+    (B, N, K) iterate (batch stride N·K), new a slice of a wider block
+    too: the same bits as on contiguous copies."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    B, C, K, n, s = 4, 300, 32, 2000, 111
+    oi, ov, ni, nv = _stat_case(8, B, C, K, K, n)
+    A_i = torch.full((B, C + 400, K), n, dtype=torch.int32, device=card)
+    A_v = torch.zeros((B, C + 400, K), device=card)
+    A_i[:, s:s + C], A_v[:, s:s + C] = torch.as_tensor(oi), torch.as_tensor(
+        ov)
+    W_i = torch.full((B, C + 9, K), n, dtype=torch.int32, device=card)
+    W_v = torch.zeros((B, C + 9, K), device=card)
+    W_i[:, 9:], W_v[:, 9:] = torch.as_tensor(ni), torch.as_tensor(nv)
+    got = kca.col_allclose(A_i[:, s:s + C], A_v[:, s:s + C], W_i[:, 9:],
+                           W_v[:, 9:], n)
+    flat, _ = _stat_pair(card, (oi, ov, ni, nv), n)
+    assert torch.equal(got, flat)
+
+
+@pytest.mark.cuda
+def test_col_allclose_kernel_no_columns(card):
+    """C = 0: a (B, 0) result and no launch."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    oi, ov, ni, nv = (torch.as_tensor(x, device=card)[:, :0]
+                      for x in _stat_case(9, 2, 3, 8, 8, 50))
+    n0 = kca.col_allclose.launches
+    got = kca.col_allclose(oi, ov, ni, nv, 50)
+    assert tuple(got.shape) == (2, 0) and kca.col_allclose.launches == n0
+
+
+@pytest.mark.cuda
+def test_col_allclose_kernel_at_the_smoke_shape(card):
+    """B = 4, C = N = 24,001, K = 128: a seeded iterate shaped like the
+    sparse smoke run's as old, its sparse_column step as new, in one
+    launch; and the chunked statistic (step_stats) the same bits."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    from haphic_tpu_torch.kernels import sparse_column as kcol
+    B, n, K = 4, 24000, 128
+    idx, val = kcol.seeded_iterate(3, B, n, K)
+    A_i, A_v = torch.as_tensor(idx, device=card), torch.as_tensor(
+        val, device=card)
+    infl = torch.linspace(1.2, 2.0, B, device=card)
+    new = kcol.step_columns(kcol.sparse_column, A_i, A_v, infl, n, K, 2048,
+                            1e-4)
+    got, want = _stat_pair(card, (A_i, A_v) + new, n)
+    assert bool((got[:, n] == -torch.inf).all())
+    assert bool(torch.isfinite(got[:, :n]).all())
+    chunked = kca.step_stats(kca.col_allclose, A_i, A_v, *new, n, 2048)
+    assert torch.equal(chunked, got)
+    decide = [(x.amax(dim=1) <= 1e-8).tolist() for x in (got, want)]
+    assert decide[0] == decide[1]
+
+
+@pytest.mark.cuda
+def test_col_allclose_kernel_repeat_and_block_bit_equal(card):
+    """Two launches give the same bits, and a block of columns gives the
+    bits of the same columns inside the whole launch (as the mesh's
+    column blocks need)."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    B, C, K, n = 2, 500, 64, 3000
+    args = [torch.as_tensor(x, device=card)
+            for x in _stat_case(12, B, C, K, K, n)]
+    whole = kca.col_allclose(*args, n)
+    again = kca.col_allclose(*args, n)
+    block = kca.col_allclose(*(t[:, 123:401] for t in args), n)
+    one = kca.col_allclose(*(t[1:, 7:8] for t in args), n)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, again)
+    assert torch.equal(whole[:, 123:401], block)
+    assert torch.equal(whole[1:, 7:8], one)
+
+
+@pytest.mark.cuda
+def test_sweep_step_launches_the_statistic_kernel(card):
+    """_sweep_step launches the statistic once a chunk on the card, and
+    its per-inflation statistic is the max of the kernel's over the
+    step's columns."""
+    from haphic_tpu_torch.cluster import sparse_mcl as tsp
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    B, n, K, chunk = 2, 300, 32, 128
+    idx, val = _ell_case(6, B, n, K)
+    si, sv = torch.as_tensor(idx, device=card), torch.as_tensor(
+        val, device=card)
+    infl = torch.tensor([1.6, 2.4], device=card)
+    n0 = kca.col_allclose.launches
+    ni, nv, stat, _ = tsp._sweep_step(si, sv, infl, np.ones(B, dtype=bool),
+                                      n, K, chunk, 1e-4, 2)
+    assert kca.col_allclose.launches == n0 + -(-(n + 1) // chunk)
+    want = kca.col_allclose_plain(si, sv, ni, nv, n).amax(dim=1)
+    assert torch.equal(stat, want)
+    # with the host loop's order flag: the same bits, the flag clear
+    flag = torch.zeros(1, dtype=torch.int32, device=card)
+    again = tsp._sweep_step(si, sv, infl, np.ones(B, dtype=bool), n, K,
+                            chunk, 1e-4, 2, bad=flag)
+    assert all(torch.equal(a, b) for a, b in zip((ni, nv, stat), again))
+    assert int(flag) == 0
+
+
+@pytest.mark.cuda
+def test_col_allclose_kernel_rejects_bad_input(card):
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    oi, ov, ni, nv = (torch.as_tensor(x, device=card)
+                      for x in _stat_case(13, 2, 20, 8, 8, 100))
+    bad_order = ni.clone()
+    bad_order[0, 3, :2] = bad_order[0, 3, [1, 0]]
+    bad = [(oi.long(), ov, ni, nv), (oi, ov.double(), ni, nv),
+           (oi, ov, ni.cpu(), nv), (oi, ov, ni[:, :10], nv[:, :10]),
+           (oi.transpose(1, 2), ov.transpose(1, 2), ni, nv)]
+    n0 = kca.col_allclose.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            kca.col_allclose(*args, 100)
+    assert kca.col_allclose.launches == n0
+    # the order is the kernel's to check: it launches, then the wrapper
+    # reads its flag and raises
+    with pytest.raises(ValueError):
+        kca.col_allclose(oi, ov, bad_order, nv, 100)
+    assert kca.col_allclose.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', [
+    'old_unsorted', 'old_repeated', 'old_after_sentinel', 'new_unsorted',
+    'new_repeated', 'new_after_sentinel', 'old_negative', 'new_above_n'])
+def test_col_allclose_kernel_flags_a_column_out_of_order(card, kind):
+    """With the caller's flag the wrapper does not raise: the kernel sets
+    the flag to 1 on any column out of ELL order, and leaves it clear on
+    the ordered columns, whose results stay the same bits."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    n = 100
+    args = [torch.as_tensor(x, device=card)
+            for x in _stat_case(17, 2, 20, 8, 8, n)]
+    flag = torch.zeros(1, dtype=torch.int32, device=card)
+    want = kca.col_allclose(*args, n, bad=flag)
+    assert int(flag) == 0
+    side = 0 if kind.startswith('old') else 2
+    ids = args[side].clone()
+    col = ids[0, 3]                        # a partial overlap
+    real = int((col < n).sum())
+    assert real >= 2 and real < ids.shape[2]
+    if kind.endswith('unsorted'):
+        col[[0, real - 1]] = col[[real - 1, 0]].clone()
+    elif kind.endswith('repeated'):
+        col[real - 1] = col[0]
+    elif kind.endswith('after_sentinel'):
+        col[-1] = min(set(range(n)) - set(col.tolist()))
+    elif kind.endswith('negative'):
+        col[0] = -1
+    else:
+        col[-1] = n + 1
+    args[side] = ids
+    got = kca.col_allclose(*args, n, bad=flag)
+    assert int(flag) == 1
+    keep = torch.ones_like(got, dtype=torch.bool)
+    keep[0, 3] = False
+    assert torch.equal(got[keep], want[keep])
+
+
+def test_col_allclose_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrapper runs the plain version and launches
+    nothing."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    args = [torch.as_tensor(x) for x in _stat_case(14, 2, 30, 16, 5, 200)]
+    n0 = kca.col_allclose.launches
+    got = kca.col_allclose(*args, 200)
+    assert kca.col_allclose.launches == n0
+    assert torch.equal(got, kca.col_allclose_plain(*args, 200))
