@@ -15,8 +15,11 @@ Phases, each printing one JSON line:
              5000 (a cut, for time). The dense MCL sweep and the GA run
              on the card; the kernel launch counts are set to 0 just
              before and read just after (the dense sweep through the
-             mcl_column kernel). The scaffolds must recover the 8
-             simulated chromosomes as a partition.
+             mcl_column kernel; the GA through its three kernels, one
+             delta_generation launch per delta generation and one
+             rescore_population launch per rescoring call it reports,
+             `ga_delta_gens` and `ga_rescores`). The scaffolds must
+             recover the 8 simulated chromosomes as a partition.
 3. dense_step
              the pipeline's first inflation batch (B = 6, n = 8000) as
              its first run_mcl_partitions call gave it: one iteration
@@ -59,6 +62,18 @@ Phases, each printing one JSON line:
              (changed pairs; bound_touched_ms reads every touched
              pair); the figure that also reads the two slots of every
              pair stays beside it as bound_scan_ms.
+             rescore_population (the GA cycle's rescoring: caches,
+             contributions, row sums), at a small shape and on the
+             arguments of the dense pipeline's largest batch's first
+             rescoring (G = 7, P = 100, k = 1024, R = 196,608), in caches
+             mode against rescore_plain: L_slot, startsx, the six caches
+             and the contributions bit-equal; each score within half an
+             ulp of the exact (f64) sum of the plain version's f32
+             contributions plus the f64 sums' own error; scores mode
+             equal to caches mode; a repeat bit-identical; the rows of
+             groups [2, 5) launched alone bit-equal to the same rows of
+             the whole launch. Timed in both modes (ms, plain_ms,
+             bound_ms: bytes in caches mode, operations in scores mode).
 5. sparse_pipeline
              the same pipeline through the default `auto` route on 24
              chromosomes x 1000 contigs x 20 kb (480 Mb, n = 24,000
@@ -127,9 +142,10 @@ Phases, each printing one JSON line:
              the largest group of the pipeline phase (k = 1000 contigs,
              its group file and split CLM from 02.reassign), hot-started
              from that pipeline's own 03.sort tour: the GA must run on
-             the card (work above NATIVE_MAX_WORK) with both kernels
-             (launch counts set to 0 just before and read just after,
-             one delta launch per delta generation the GA reports), the
+             the card (work above NATIVE_MAX_WORK) with its three
+             kernels (launch counts set to 0 just before and read just
+             after, one delta launch per delta generation and one
+             rescoring launch per rescoring call the GA reports), the
              tour must be a permutation of the group, its >GA5000 score
              at least the hot start's, and `--resume --skipGA` on it
              must score it within 1e-5 relative of that line. Prints the
@@ -154,21 +170,24 @@ Phases, each printing one JSON line:
              "--ngen", "5000", "--npop", "100", "--backend", "device"])`
              on the card (docs/GA_VALIDATION.md's sizes and settings):
              per k a truth rescoring and a cold and a hot GA run, every
-             one on the card with both kernels (launch counts set to 0
-             just before and read just after: one score launch per GA
-             call, one delta launch per delta generation the GA
-             reports). Every run's history may fall by no more than
-             1e-6 of its score (f32 rounding when a window rescores its
+             one on the card with the GA's three kernels (launch counts
+             set to 0 just before and read just after: one score launch
+             per GA call, one delta launch per delta generation and one
+             rescoring launch per rescoring call the GA reports).
+             Every run's history may fall by no more than 1e-6 of its
+             score (f32 rounding when a window rescores its
              caches) and every run ends above its start; every hot run
              reaches 0.9 of the truth's score and Spearman >= 0.9
              against the simulated order (the hot start's own Spearman
              is above 0.9 already: adjacent swaps barely move it, flips
              not at all, so the score bar is the one a GA that stood
              still would fail). The arguments of every GA call's score
-             launch and of each run's SIM_CHECK_GEN-th delta launch are
-             kept on the host, and after the study each kernel is rerun
-             on them against its plain version (the checks of phase 3)
-             at the shapes the study gave it. Prints one line per run
+             launch, of its first rescoring launch and of each run's
+             SIM_CHECK_GEN-th delta launch are kept on the host, and
+             after the study each kernel is rerun on them against its
+             plain version (the checks of phase 4) at the shapes the
+             study gave it (the rescoring at P = 100 and, on the truth's
+             population, P = 4). Prints one line per run
              (k, start, records, scores, start and final Spearman,
              seconds, generations per second), one per checked GA call,
              then the launches, seconds and peak card memory. Then two
@@ -187,8 +206,9 @@ Phases, each printing one JSON line:
              card both ranks run on cuda:0 over gloo; with two cards,
              one each over NCCL. Ingest, the 20 inflations and the GA's
              groups shard over the ranks. Each rank's MCL must run on the
-             card through mcl_column and its GA with both GA kernels, one
-             delta launch per delta generation it reports; out_mesh/ and
+             card through mcl_column and its GA with its three kernels,
+             one delta launch per delta generation and one rescoring
+             launch per rescoring call it reports; out_mesh/ and
              out_mesh.rank1/ must equal the single-process out/ byte for
              byte (every
              01.cluster file, scaffolds.agp, scaffolds.raw.agp), and the
@@ -212,9 +232,10 @@ Phases, each printing one JSON line:
              pipeline's first step, through sparse_column and
              col_allclose) and the
              sharded GA (the pipeline's
-             own GA call: 7 groups, both kernels; launch counts set to 0
-             just before and read just after each) against the meshless
-             calls, bit-equal.
+             own GA call: 7 groups, the GA's three kernels, one launch
+             per delta generation and per rescoring call it reports;
+             launch counts set to 0 just before and read just after
+             each) against the meshless calls, bit-equal.
 15. kernels  one line listing every kernel (the line before the last):
              `launches` sums the counts of every phase that drives a
              path (pipeline, sparse_pipeline, polyploid_pipeline,
@@ -222,7 +243,9 @@ Phases, each printing one JSON line:
              ranks, mesh_sparse over its two ranks, mesh_nccl),
              `launches_by_phase` lists them; sparse_column's and
              col_allclose's ms, plain_ms, bound_ms and max_abs_err are
-             phase 6's, mcl_column's phase 3's (with its plan and tb_s).
+             phase 6's, mcl_column's phase 3's (with its plan and tb_s),
+             rescore_population's phase 4's main_path row in caches mode
+             (its scores mode beside them as `scores`).
 
 The last line is {"ok": true, "device": {...}}. The script exits
 non-zero, printing no result, when CUDA is unavailable, when the
@@ -326,9 +349,53 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'haphic_tpu_torch/kernels/csrc/col_allclose.cu',
     'replaces': 'haphic_tpu/cluster/sparse_mcl.py:114',
+}, {
+    'name': 'rescore_population',
+    'route': 'cuda',
+    'source': 'haphic_tpu_torch/kernels/csrc/rescore_population.cu',
+    'replaces': 'haphic_tpu/order/optimize.py:911',
 }]
-# the GA's kernels: every pipeline phase launches both
-GA_KERNELS = ('score_population', 'delta_generation')
+# the GA's kernels: every phase that drives a GA launches all three
+GA_KERNELS = ('score_population', 'delta_generation', 'rescore_population')
+
+
+def kernel_wrappers():
+    """{kernel name: its wrapper}, each wrapper carrying its launch
+    count as ``launches``."""
+    from haphic_tpu_torch.kernels import col_allclose as kca
+    from haphic_tpu_torch.kernels import delta as kdelta
+    from haphic_tpu_torch.kernels import mcl_column as kmc
+    from haphic_tpu_torch.kernels import rescore as krs
+    from haphic_tpu_torch.kernels import score as kscore
+    from haphic_tpu_torch.kernels import sparse_column as kcol
+    return {'score_population': kscore.score_population,
+            'delta_generation': kdelta.delta_generation,
+            'sparse_column': kcol.sparse_column,
+            'mcl_column': kmc.mcl_column,
+            'col_allclose': kca.col_allclose,
+            'rescore_population': krs.rescore}
+
+
+def zero_launches(names):
+    for fn in (kernel_wrappers()[n] for n in names):
+        fn.launches = 0
+
+
+def read_launches(names) -> dict:
+    wrappers = kernel_wrappers()
+    return {n: wrappers[n].launches for n in names}
+
+
+def check_ga_launches(launches, delta_gens, rescores, what):
+    """One delta_generation launch per delta generation and one
+    rescore_population launch per rescoring call, as the GA reports
+    them (``ga_delta_gens``, ``ga_rescores``)."""
+    check(launches['delta_generation'] == delta_gens,
+          '{}: delta_generation launched {} times for {} delta generations'
+          .format(what, launches['delta_generation'], delta_gens))
+    check(launches['rescore_population'] == rescores,
+          '{}: rescore_population launched {} times for {} rescoring calls'
+          .format(what, launches['rescore_population'], rescores))
 
 
 T0 = time.time()
@@ -601,21 +668,19 @@ def phase_env(torch, kbuild):
                         for n, p in paths.items()}})
 
 
-def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
+def _drive_pipeline(torch, cli, sim, sim_dir, out_dir,
                     engine, genome=make_sim, chrom_of=chrom_of_name):
     """``genome`` (make_sim), then `cli.main(["pipeline", ...])` on the
     card with the flags it returns and the kernel launch counts set to 0
     just before and read just after. The MCL sweep must run on the card
     on ``engine`` (the sparse one through sparse_column and
     col_allclose, the dense one through mcl_column), the GA on the card
-    with both GA kernels, one delta_generation launch per delta
-    generation the GA reports, and the scaffolds must recover the
+    with its three kernels, one delta_generation launch per delta
+    generation and one rescore_population launch per rescoring call the
+    GA reports, and the scaffolds must recover the
     simulated chromosomes. Returns (sim
     seconds, wall seconds, metrics, launches, partition summary, output
     directory)."""
-    from haphic_tpu_torch.kernels import col_allclose as kca
-    from haphic_tpu_torch.kernels import mcl_column as kmc
-    from haphic_tpu_torch.kernels import sparse_column as kcol
     t0 = time.time()
     fa, pairs, flags = genome(os.path.join(WORK, sim_dir), **sim)
     sim_s = time.time() - t0
@@ -623,21 +688,14 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
     log = MetricsLog()
     logging.getLogger('haphic_tpu_torch').addHandler(log)
     torch.cuda.reset_peak_memory_stats()
-    kscore.score_population.launches = 0
-    kdelta.delta_generation.launches = 0
-    kcol.sparse_column.launches = 0
-    kca.col_allclose.launches = 0
-    kmc.mcl_column.launches = 0
+    names = [k['name'] for k in KERNELS]
+    zero_launches(names)
     t0 = time.time()
     rc = cli.main(['pipeline', fa, pairs, str(sim['nchrs']), '--outdir',
                    out, '--ngen', str(NGEN)] + SIM_FLAGS + flags)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {'score_population': kscore.score_population.launches,
-                'delta_generation': kdelta.delta_generation.launches,
-                'sparse_column': kcol.sparse_column.launches,
-                'mcl_column': kmc.mcl_column.launches,
-                'col_allclose': kca.col_allclose.launches}
+    launches = read_launches(names)
     logging.getLogger('haphic_tpu_torch').removeHandler(log)
     check(rc == 0, 'pipeline exit code {}'.format(rc))
     m = log.metrics
@@ -651,11 +709,10 @@ def _drive_pipeline(torch, cli, kscore, kdelta, sim, sim_dir, out_dir,
                                if engine == 'sparse' else ('mcl_column',)):
         check(launches[kname] > 0, 'kernel {} was not launched on the main '
               'path'.format(kname))
-    # the delta generations the GA says it ran, one launch each
-    want = sum(m['ga_delta_gens'])
-    check(launches['delta_generation'] == want,
-          'delta_generation launched {} times for {} delta generations'
-          .format(launches['delta_generation'], want))
+    # the delta generations and rescorings the GA says it ran, one
+    # launch each
+    check_ga_launches(launches, sum(m['ga_delta_gens']),
+                      sum(m['ga_rescores']), 'pipeline')
     agp = os.path.join(out, '04.build', 'scaffolds.agp')
     check(os.path.exists(agp), 'no {}'.format(agp))
     part = check_partition(agp, sim['nchrs'], chrom_of)
@@ -671,6 +728,7 @@ def _run_line(torch, m, sim_s, wall, launches, part):
             'cluster_files_s': m['cluster_files_s'][-1],
             'ga_route': m['ga_route'][-1],
             'ga_delta_gens': sum(m['ga_delta_gens']),
+            'ga_rescores': sum(m['ga_rescores']),
             'stage_s': m['stage_secs'][-1],
             'cluster_s': m['cluster_secs'][-1], 'ga_s': m['ga_secs'][-1],
             'wall_s': wall,
@@ -678,9 +736,9 @@ def _run_line(torch, m, sim_s, wall, launches, part):
             'launches': launches, **part}
 
 
-def phase_pipeline(torch, cli, kscore, kdelta):
+def phase_pipeline(torch, cli):
     sim_s, wall, m, launches, part, _ = _drive_pipeline(
-        torch, cli, kscore, kdelta, SIM, 'sim', 'out', 'dense')
+        torch, cli, SIM, 'sim', 'out', 'dense')
     batches = m['ga_batch']
     emit({'phase': 'pipeline', 'sim': SIM, 'mcl_batches': m['batches'][-1],
           'mcl_iters_per_inflation': m['n_iters'][-1],
@@ -691,14 +749,14 @@ def phase_pipeline(torch, cli, kscore, kdelta):
     return launches, big
 
 
-def phase_polyploid_pipeline(torch, cli, kscore, kdelta):
+def phase_polyploid_pipeline(torch, cli):
     """The tetraploid genome (make_polyploid_sim) with
     --remove_allelic_links 4 --remove_concentrated_links --gfa (four
     haplotypes) --ul: allelic pairs found and removed through the clique
     search, the UL paths found, and the 8 chromosomes recovered with
     the MCL and the GA on the card."""
     sim_s, wall, m, launches, part, _ = _drive_pipeline(
-        torch, cli, kscore, kdelta, POLY_SIM, 'poly_sim', 'poly_out', 'dense',
+        torch, cli, POLY_SIM, 'poly_sim', 'poly_out', 'dense',
         genome=make_polyploid_sim)
     allelic = m['allelic'][-1]
     check(allelic['n_allelic_pairs'] > 0, 'no allelic pair was removed')
@@ -730,7 +788,7 @@ def _chimera_chrom_of(table, ctg_len):
     return chrom_of
 
 
-def phase_correct_pipeline(torch, cli, kscore, kdelta):
+def phase_correct_pipeline(torch, cli):
     """make_sim's genome with CHIMERAS chimeric contigs and
     --correct_nrounds 2: at least MIN_BROKEN chimeras broken (from
     corrected_ctgs.txt), and the 8 chromosomes recovered with the MCL
@@ -745,7 +803,7 @@ def phase_correct_pipeline(torch, cli, kscore, kdelta):
 
     chrom_of = _chimera_chrom_of(table, SIM['ctg_len'])
     sim_s, wall, m, launches, part, out = _drive_pipeline(
-        torch, cli, kscore, kdelta, SIM, 'chimera_sim', 'chimera_out',
+        torch, cli, SIM, 'chimera_sim', 'chimera_out',
         'dense', genome=genome, chrom_of=chrom_of)
     with open(os.path.join(out, '01.cluster', 'corrected_ctgs.txt')) as f:
         broken = {line.split(':')[0] for line in f if line.strip()}
@@ -760,7 +818,7 @@ def phase_correct_pipeline(torch, cli, kscore, kdelta):
     return launches
 
 
-def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
+def phase_sparse_pipeline(torch, cli, sp, sparse_min_n):
     """The default route past SPARSE_MIN_N: the same pipeline on a
     genome of SPARSE_SIM['nchrs'] * SPARSE_SIM['ctgs_per_chr'] one-
     fragment contigs runs the sparse top-K MCL engine. Returns the
@@ -778,7 +836,7 @@ def phase_sparse_pipeline(torch, cli, kscore, kdelta, sp, sparse_min_n):
     sp._sweep_step = recording
     try:
         sim_s, wall, m, launches, part, _ = _drive_pipeline(
-            torch, cli, kscore, kdelta, SPARSE_SIM, 'sparse_sim',
+            torch, cli, SPARSE_SIM, 'sparse_sim',
             'sparse_out', 'sparse')
     finally:
         sp._sweep_step = step
@@ -1122,7 +1180,7 @@ def _recorded_tours(topt):
         topt.optimize_tour = optimize_tour
 
 
-def phase_allhic(torch, cli, kscore, kdelta, topt, out):
+def phase_allhic(torch, cli, topt, out):
     """`allhic --resume` at its defaults on the card, on the largest
     group of the pipeline run in ``out``, hot-started from its 03.sort
     tour; then `--resume --skipGA` rescores the result."""
@@ -1149,18 +1207,17 @@ def phase_allhic(torch, cli, kscore, kdelta, topt, out):
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            kscore.score_population.launches = 0
-            kdelta.delta_generation.launches = 0
+            zero_launches(GA_KERNELS)
             t0 = time.time()
             rc = cli.main(['allhic', group, clm, '--resume'])
             torch.cuda.synchronize()
             secs = time.time() - t0
-            launches = {'score_population': kscore.score_population.launches,
-                        'delta_generation': kdelta.delta_generation.launches}
+            launches = read_launches(GA_KERNELS)
             peak = torch.cuda.max_memory_allocated()
             check(rc == 0, 'allhic exit code {}'.format(rc))
             m = {k: v[-1] for k, v in log.metrics.items()}
             delta_gens = m.get('ga_delta_gens')
+            rescores = m.get('ga_rescores')
             with open(tour, 'rb') as f:
                 ga_bytes = f.read()
             rc = cli.main(['allhic', group, clm, '--resume', '--skipGA'])
@@ -1173,9 +1230,7 @@ def phase_allhic(torch, cli, kscore, kdelta, topt, out):
           'allhic ran its GA on {}, not the card'.format(m['ga_route']))
     for kname, n in launches.items():
         check(n > 0, 'kernel {} was not launched by allhic'.format(kname))
-    check(launches['delta_generation'] == delta_gens,
-          'delta_generation launched {} times for {} delta generations'
-          .format(launches['delta_generation'], delta_gens))
+    check_ga_launches(launches, delta_gens, rescores, 'allhic')
     names = sorted(c for c, _, __ in parse_group_file(group))
     final = parse_tour_file(os.path.join(run_dir, prefix + '.tour.sav'))
     check(sorted(c for c, _ in final) == names
@@ -1203,6 +1258,7 @@ def phase_allhic(torch, cli, kscore, kdelta, topt, out):
           'records': m['records'][0], 'ga_work': m['ga_work'],
           'ga_route': m['ga_route'], 'ga_batch': m['ga_batch'],
           'ngen': ALLHIC_NGEN, 'ga_delta_gens': delta_gens,
+          'ga_rescores': rescores,
           'hot_score': hot_score, 'ga_score': ga_score,
           'skip_ga_score': skip.score, 'skip_ga_rel_err': rel,
           'skip_ga_route': skip_route, 'wall_s': secs,
@@ -1363,14 +1419,17 @@ def _recorded_launches(topt):
     one entry per score_population call (on the delta route the GA
     scores each group once, at its batch's start, one launch per group;
     in `sim` a GA call is one group, so there an entry is a GA call):
-    'score' that call's arguments, 'delta' those of the
+    'score' that call's arguments, 'rescore' those of the first rescore
+    call after it (the batch's first rescoring: its whole G; without
+    the ``caches`` flag) or None, 'delta' those of the
     SIM_CHECK_GEN-th delta_generation call after it ((state before the
     step, move, (la, lb, d, w))) or None, 'n_delta' its delta calls,
-    'copy_s' the seconds the copies took. The GA reaches score_population by its
-    module's name and the delta kernel's wrapper as _dgen's default
-    `step`; both are restored on leaving."""
+    'copy_s' the seconds the copies took. The GA reaches score_population
+    and rescore by their module's names and the delta kernel's wrapper
+    as _dgen's default `step`; all are restored on leaving."""
     batches = []
-    score, defaults = topt.score_population, topt._dgen.__defaults__
+    score, rescore = topt.score_population, topt.rescore
+    defaults = topt._dgen.__defaults__
     (step,) = defaults
 
     def host(xs):
@@ -1378,9 +1437,18 @@ def _recorded_launches(topt):
 
     def recording_score(*args):
         t0 = time.time()
-        batches.append({'score': host(args), 'delta': None, 'n_delta': 0})
+        batches.append({'score': host(args), 'rescore': None, 'delta': None,
+                        'n_delta': 0})
         batches[-1]['copy_s'] = time.time() - t0
         return score(*args)
+
+    def recording_rescore(*args, caches):
+        b = batches[-1]
+        if b['rescore'] is None:
+            t0 = time.time()
+            b['rescore'] = host(args)
+            b['copy_s'] += time.time() - t0
+        return rescore(*args, caches=caches)
 
     def recording_step(state, move, la, lb, d, w, *rest, **kw):
         b = batches[-1]
@@ -1392,20 +1460,35 @@ def _recorded_launches(topt):
         return step(state, move, la, lb, d, w, *rest, **kw)
 
     topt.score_population = recording_score
+    topt.rescore = recording_rescore
     topt._dgen.__defaults__ = (recording_step,)
     try:
         yield batches
     finally:
         topt.score_population = score
+        topt.rescore = rescore
         topt._dgen.__defaults__ = defaults
 
 
-def _check_sim_launches(torch, kscore, kdelta, topt, what, batch):
+def _check_sim_launches(torch, kscore, kdelta, krs, topt, what, batch):
     """Each kernel rerun on the arguments one GA call gave it
-    (_recorded_launches) and held against its plain version, as phase 3
-    holds them: score_population within REL_TOL relative; the delta
-    generation by _check_delta, then its commit by _check_commit under
-    the plain version's acceptance and under all rows accepted."""
+    (_recorded_launches) and held against its plain version, as phase 4
+    holds them: score_population within REL_TOL relative; the rescoring
+    by _check_rescore (on the score call's population, with la and lb
+    from its records, where the call ran no rescoring: the truth's
+    skip_ga call at P = 4); the delta generation by _check_delta, then
+    its commit by _check_commit under the plain version's acceptance and
+    under all rows accepted."""
+    if batch['rescore'] is not None:
+        args = [x.to(DEVICE) for x in batch['rescore']]
+    else:
+        order, ori, lengths, pa, pb, d, w = [x.to(DEVICE)
+                                             for x in batch['score']]
+        Li = lengths.to(torch.int32)
+        args = [order, ori, lengths, pa, pb, torch.gather(Li, 1, pa.long()),
+                torch.gather(Li, 1, pb.long()), d, w]
+    rescore_row = _check_rescore(torch, krs, args, what)
+    del args
     args = [x.to(DEVICE) for x in batch['score']]
     got = kscore.score_population(*args)
     want = kscore.score_population_plain(*args)
@@ -1420,7 +1503,8 @@ def _check_sim_launches(torch, kscore, kdelta, topt, what, batch):
                                 'R_pad': args[3].shape[1],
                                 'max_abs_err': float((got - want).abs()
                                                      .max()),
-                                'max_rel_err': rel}}
+                                'max_rel_err': rel},
+           'rescore_population': rescore_row}
     del args, got, want
     if batch['delta'] is None:
         return row
@@ -1454,7 +1538,7 @@ def _check_sim_launches(torch, kscore, kdelta, topt, what, batch):
     return row
 
 
-def phase_sim(torch, cli, kscore, kdelta, topt, out, allhic_tour):
+def phase_sim(torch, cli, kscore, kdelta, krs, topt, out, allhic_tour):
     """`sim ga_study` on the card at GA_VALIDATION's sizes with the
     torch GA forced (--backend device), each kernel then rerun against
     its plain version on arguments the study gave it; then two host
@@ -1473,8 +1557,7 @@ def phase_sim(torch, cli, kscore, kdelta, topt, out, allhic_tour):
                 _recorded_launches(topt) as batches:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            kscore.score_population.launches = 0
-            kdelta.delta_generation.launches = 0
+            zero_launches(GA_KERNELS)
             t0 = time.time()
             rc = cli.main(['sim', 'ga_study', '--ks',
                            ','.join(map(str, SIM_KS)), '--ngen',
@@ -1483,9 +1566,7 @@ def phase_sim(torch, cli, kscore, kdelta, topt, out, allhic_tour):
                            '--device', DEVICE, '--out', tsv])
             torch.cuda.synchronize()
             secs = time.time() - t0
-            launches = {
-                'score_population': kscore.score_population.launches,
-                'delta_generation': kdelta.delta_generation.launches}
+            launches = read_launches(GA_KERNELS)
             peak = torch.cuda.max_memory_allocated()
     finally:
         logging.getLogger('haphic_tpu_torch').removeHandler(log)
@@ -1498,9 +1579,10 @@ def phase_sim(torch, cli, kscore, kdelta, topt, out, allhic_tour):
           'score_population launched {} times for {} GA calls'.format(
               launches['score_population'], len(calls)))
     delta_gens = sum(log.metrics['ga_delta_gens'])
-    check(launches['delta_generation'] == delta_gens > 0,
-          'delta_generation launched {} times for {} delta generations'
-          .format(launches['delta_generation'], delta_gens))
+    rescores = sum(log.metrics['ga_rescores'])
+    check(delta_gens > 0 and rescores > 0, 'ga_study reports {} delta '
+          'generations and {} rescorings'.format(delta_gens, rescores))
+    check_ga_launches(launches, delta_gens, rescores, 'sim')
     copy_s = sum(b['copy_s'] for b in batches)
     with open(tsv) as f:
         head, *rows = [line.rstrip('\n').split('\t') for line in f]
@@ -1557,12 +1639,13 @@ def phase_sim(torch, cli, kscore, kdelta, topt, out, allhic_tour):
     emit({'phase': 'sim', 'ks': SIM_KS, 'ngen': SIM_NGEN,
           'npop': SIM_NPOP, 'ga_route': DEVICE, 'seconds': secs - copy_s,
           'recording_copy_s': copy_s, 'launches': launches,
-          'ga_delta_gens': delta_gens, 'max_memory_allocated': peak})
-    # both kernels against their plain versions on what the study gave
+          'ga_delta_gens': delta_gens, 'ga_rescores': rescores,
+          'max_memory_allocated': peak})
+    # the kernels against their plain versions on what the study gave
     # them (these launches are not counted above)
     for i, batch in enumerate(batches):
         k, what = SIM_KS[i // 3], ('truth', 'cold', 'hot')[i % 3]
-        row = _check_sim_launches(torch, kscore, kdelta, topt,
+        row = _check_sim_launches(torch, kscore, kdelta, krs, topt,
                                   'sim k={} {}'.format(k, what), batch)
         emit({'phase': 'sim_kernels', 'k': k, 'start': what, **row})
     del batches
@@ -1675,6 +1758,95 @@ def phase_kernel(torch, kscore, main_args, launches):
               'main_path_launches': launches['score_population'], **row})
         rows.append(row)
         del args, got, want
+    return rows
+
+
+def _rescore_inputs(torch, G, P, k, R, seed):
+    """A random population and records as _Records hands them to
+    rescore (la, lb gathered from the lengths)."""
+    order, ori, lengths, pa, pb, d, w = _score_inputs(torch, G, P, k, R,
+                                                      seed)
+    Li = lengths.to(torch.int32)
+    return [order, ori, lengths, pa, pb, torch.gather(Li, 1, pa.long()),
+            torch.gather(Li, 1, pb.long()), d, w]
+
+
+def _check_rescore(torch, krs, args, what):
+    """rescore_population against its plain version on ``args``: in
+    caches mode L_slot, startsx, the six caches and the contributions
+    bit-equal, and each score within half an f32 ulp of the exact (f64)
+    sum of the plain version's f32 contributions, plus the f64 sums' own
+    error (R * 2^-53 of the contributions' magnitudes each); scores
+    mode gives the caches mode's scores; a repeat gives the same bits;
+    and, where the launch has five groups or more, the rows of groups
+    [2, 5) launched alone are the same bits. Returns the errors."""
+    got = krs.rescore(*args, caches=True)
+    want = krs.rescore_plain(*args, caches=True)
+    torch.cuda.synchronize()
+    for n, (a, b) in enumerate(zip(got[:-1], want[:-1])):
+        check(torch.equal(a, b), 'rescore kernel differs in field {} ({})'
+              .format(n, what))
+    c = want[-2].double()
+    exact, mag = c.sum(dim=2), c.abs().sum(dim=2)
+    del c
+    ks = got[-1].abs()
+    half_ulp = 0.5 * (torch.nextafter(ks, torch.full_like(ks, np.inf))
+                      - ks).double()
+    bound = half_ulp + 2.0 * args[3].shape[1] * 2.0 ** -53 * mag
+    exact_err = (got[-1].double() - exact).abs()
+    check(bool((exact_err <= bound).all()), 'rescore kernel scores are not '
+          'the exact sum rounded once ({}): max error / bound {}'.format(
+              what, float((exact_err / bound).max())))
+    check(torch.equal(krs.rescore(*args, caches=False), got[-1]),
+          'rescore kernel: scores mode differs from caches mode ({})'
+          .format(what))
+    again = krs.rescore(*args, caches=True)
+    check(all(torch.equal(a, b) for a, b in zip(again, got)),
+          'rescore kernel is not repeatable ({})'.format(what))
+    del again
+    if args[0].shape[0] >= 5:
+        part = krs.rescore(*[x[2:5].contiguous() for x in args],
+                           caches=False)
+        check(torch.equal(part, got[-1][2:5]), 'rescore kernel: groups '
+              '[2, 5) launched alone differ ({})'.format(what))
+    G, P, k = args[0].shape
+    return {'G': G, 'P': P, 'k_pad': k, 'R_pad': args[3].shape[1],
+            'max_abs_err': float((got[-1] - want[-1]).abs().max()),
+            'max_err_over_exact_bound': float((exact_err / bound).max()),
+            'rows_differing_from_plain': int((got[-1] != want[-1]).sum())}
+
+
+def phase_rescore(torch, krs, main_args, launches):
+    """rescore_population held against its plain version
+    (_check_rescore) and timed in both modes, at a small shape and
+    ('main_path') on the host copy ``main_args`` of the arguments of the
+    dense pipeline's largest batch's first rescoring."""
+    rows = []
+    cases = [('small', lambda: _rescore_inputs(torch, 6, 6, 32, 1000, 0)),
+             ('main_path', lambda: [x.to(DEVICE) for x in main_args])]
+    for label, make in cases:
+        args = make()
+        G, P, k = args[0].shape
+        R = args[3].shape[1]
+        row = {'shape': label,
+               **_check_rescore(torch, krs, args, label + ' shape')}
+        for mode, caches in (('scores', False), ('caches', True)):
+            ms = _time_ms(torch, lambda: krs.rescore(*args, caches=caches),
+                          20)
+            plain_ms = _time_ms(
+                torch, lambda: krs.rescore_plain(*args, caches=caches), 3)
+            bound, by = krs.bound_ms(G, P, k, R, caches)
+            row[mode] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+                         'bound_by': by}
+        # the line's main figures: caches mode (the bytes the delta
+        # kernel then reads are written here)
+        row.update({x: row['caches'][x]
+                    for x in ('ms', 'plain_ms', 'bound_ms', 'bound_by')})
+        emit({'phase': 'kernel', 'name': 'rescore_population',
+              'main_path_launches': launches['rescore_population'], **row})
+        rows.append(row)
+        del args
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1969,9 +2141,6 @@ def mesh_worker(kind, spec_path) -> int:
     rank's record to <spec>.rank<r>."""
     import torch
     sys.path.insert(0, REPO)
-    from haphic_tpu_torch.kernels import delta as kdelta
-    from haphic_tpu_torch.kernels import mcl_column as kmc
-    from haphic_tpu_torch.kernels import score as kscore
     from haphic_tpu_torch.parallel import mesh as pmesh
     with open(spec_path) as f:
         spec = json.load(f)
@@ -1982,17 +2151,13 @@ def mesh_worker(kind, spec_path) -> int:
         from haphic_tpu_torch import cli
         log = MetricsLog()
         logging.getLogger('haphic_tpu_torch').addHandler(log)
-        kscore.score_population.launches = 0
-        kdelta.delta_generation.launches = 0
-        kmc.mcl_column.launches = 0
+        names = GA_KERNELS + ('mcl_column',)
+        zero_launches(names)
         t0 = time.time()
         rc = cli.main(spec['argv'])
         torch.cuda.synchronize()
         rec.update(rc=rc, wall_s=time.time() - t0, metrics=log.metrics,
-                   launches={
-                       'score_population': kscore.score_population.launches,
-                       'delta_generation': kdelta.delta_generation.launches,
-                       'mcl_column': kmc.mcl_column.launches},
+                   launches=read_launches(names),
                    device=str(torch.cuda.current_device()),
                    max_memory_allocated=torch.cuda.max_memory_allocated())
     else:
@@ -2066,8 +2231,9 @@ def phase_mesh_pipeline(torch, out):
     inflations and the GA groups shard over the two ranks (both on
     cuda:0 over gloo on one card, one card each over NCCL on two).
     Each rank's MCL and GA must run on the card with their kernels
-    (mcl_column, score_population, delta_generation), one
-    delta launch per delta generation it reports; out_mesh/ and
+    (mcl_column, score_population, delta_generation,
+    rescore_population), one delta launch per delta generation and one
+    rescoring launch per rescoring call it reports; out_mesh/ and
     out_mesh.rank1/ must equal the single-process out/: every
     01.cluster file, scaffolds.agp and scaffolds.raw.agp; the 8
     chromosomes come back. Returns the launches summed over the
@@ -2081,8 +2247,7 @@ def phase_mesh_pipeline(torch, out):
     argv = ['pipeline', fa, pairs, str(SIM['nchrs']), '--outdir', mesh_out,
             '--ngen', str(NGEN), '--use_mesh', 'on'] + SIM_FLAGS
     wall, recs = _torchrun('pipeline', {'argv': argv}, 420)
-    launches = {'score_population': 0, 'delta_generation': 0,
-                'mcl_column': 0}
+    launches = dict.fromkeys(GA_KERNELS + ('mcl_column',), 0)
     ranks = []
     for r, rec in enumerate(recs):
         m = rec['metrics']
@@ -2096,15 +2261,14 @@ def phase_mesh_pipeline(torch, out):
         for kname, n in rec['launches'].items():
             check(n > 0, 'rank {} launched no {}'.format(r, kname))
             launches[kname] += n
-        check(rec['launches']['delta_generation'] == sum(m['ga_delta_gens']),
-              'rank {}: {} delta launches for {} delta generations'.format(
-                  r, rec['launches']['delta_generation'],
-                  sum(m['ga_delta_gens'])))
+        check_ga_launches(rec['launches'], sum(m['ga_delta_gens']),
+                          sum(m['ga_rescores']), 'rank {}'.format(r))
         ranks.append({'rank': r, 'device': mesh['device'],
                       'backend': mesh['backend'],
                       'mcl_shard': m['mcl_shard'][-1],
                       'ga_batches': m['ga_batch'],
                       'ga_delta_gens': sum(m['ga_delta_gens']),
+                      'ga_rescores': sum(m['ga_rescores']),
                       'launches': rec['launches'],
                       'stage_s': m['stage_secs'][-1],
                       'cluster_s': m['cluster_secs'][-1],
@@ -2195,8 +2359,7 @@ def phase_mesh_sparse(torch, sp, call):
     return launches
 
 
-def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
-                    step_args):
+def phase_mesh_nccl(torch, sp, topt, dense_call, ga_call, step_args):
     """A one-rank NCCL group in this process, so that NCCL's collectives
     run on CUDA tensors on the card even with one card: the sharded
     dense sweep (its first MESH_DENSE_B inflations, n = 8000), the
@@ -2268,16 +2431,23 @@ def phase_mesh_nccl(torch, sp, topt, kscore, kdelta, dense_call, ga_call,
         del si, sv, g, w_
         # GA
         kw = dict(ga_call['kw'], mesh=mesh)
-        kscore.score_population.launches = 0
-        kdelta.delta_generation.launches = 0
+        log = MetricsLog()
+        logging.getLogger('haphic_tpu_torch').addHandler(log)
+        zero_launches(GA_KERNELS)
         t0 = time.time()
-        res = topt.optimize_tours(*ga_call['args'], **kw)
+        try:
+            res = topt.optimize_tours(*ga_call['args'], **kw)
+        finally:
+            logging.getLogger('haphic_tpu_torch').removeHandler(log)
         secs = time.time() - t0
-        launches = {'score_population': kscore.score_population.launches,
-                    'delta_generation': kdelta.delta_generation.launches,
-                    'sparse_column': col_launches,
-                    'mcl_column': mcl_launches,
-                    'col_allclose': stat_launches}
+        launches = dict(read_launches(GA_KERNELS),
+                        sparse_column=col_launches, mcl_column=mcl_launches,
+                        col_allclose=stat_launches)
+        for kname in GA_KERNELS:
+            check(launches[kname] > 0, 'the sharded GA launched no {}'
+                  .format(kname))
+        check_ga_launches(launches, sum(log.metrics['ga_delta_gens']),
+                          sum(log.metrics['ga_rescores']), 'sharded GA')
         want = ga_call['result']
         same = [np.array_equal(a.order, b.order)
                 and np.array_equal(a.ori, b.ori) and a.score == b.score
@@ -2310,6 +2480,7 @@ def main() -> int:
     from haphic_tpu_torch.kernels import build as kbuild
     from haphic_tpu_torch.kernels import delta as kdelta
     from haphic_tpu_torch.kernels import mcl_column as kmc
+    from haphic_tpu_torch.kernels import rescore as krs
     from haphic_tpu_torch.kernels import score as kscore
     from haphic_tpu_torch.kernels import trace_ga
     from haphic_tpu_torch.order import optimize as topt
@@ -2319,23 +2490,30 @@ def main() -> int:
     with _first_call(tmcl, 'run_mcl_partitions', dense_call), \
             _first_call(topt, 'optimize_tours', ga_call), \
             _recorded_launches(topt) as ga_launches:
-        launches, big = phase_pipeline(torch, cli, kscore, kdelta)
+        launches, big = phase_pipeline(torch, cli)
     main_rows = {'mcl_column': phase_dense_step(torch, tmcl, kmc,
                                                 dense_call[0])}
     torch.cuda.empty_cache()
     # the largest score launch (most tours x records) of the pipeline
     main_score = max((b['score'] for b in ga_launches), key=lambda a:
                      a[0].shape[0] * a[0].shape[1] * a[3].shape[1])
+    # the largest batch's first rescoring
+    main_rescore = max((b['rescore'] for b in ga_launches
+                        if b['rescore'] is not None), key=lambda a:
+                       a[0].shape[0] * a[0].shape[1] * a[3].shape[1])
     del ga_launches
     main_rows['score_population'] = phase_kernel(torch, kscore, main_score,
                                                  launches)[-1]
+    main_rows['rescore_population'] = phase_rescore(torch, krs, main_rescore,
+                                                    launches)[-1]
+    del main_rescore
     main_rows['delta_generation'] = phase_delta(torch, kdelta, topt,
                                                 trace_ga, big, launches)[-1]
     torch.cuda.empty_cache()
     by_phase = {'pipeline': launches}
     with _first_call(sp, 'run_mcl_sparse', sparse_call):
         first_step, by_phase['sparse_pipeline'] = phase_sparse_pipeline(
-            torch, cli, kscore, kdelta, sp, SPARSE_MIN_N)
+            torch, cli, sp, SPARSE_MIN_N)
     sparse_call[0].pop('result')
     main_rows['sparse_column'], main_rows['col_allclose'] = \
         phase_sparse_step(torch, sp, first_step)
@@ -2345,39 +2523,38 @@ def main() -> int:
     del first_step
     torch.cuda.empty_cache()
     by_phase['polyploid_pipeline'] = phase_polyploid_pipeline(
-        torch, cli, kscore, kdelta)
+        torch, cli)
     torch.cuda.empty_cache()
     by_phase['correct_pipeline'] = phase_correct_pipeline(
-        torch, cli, kscore, kdelta)
+        torch, cli)
     torch.cuda.empty_cache()
     out = os.path.join(WORK, 'out')
     by_phase['allhic'], allhic_tour = phase_allhic(
-        torch, cli, kscore, kdelta, topt, out)
+        torch, cli, topt, out)
     torch.cuda.empty_cache()
     phase_post(torch, out, os.path.join(WORK, 'sim'), SIM)
     torch.cuda.empty_cache()
-    by_phase['sim'] = phase_sim(torch, cli, kscore, kdelta, topt, out,
+    by_phase['sim'] = phase_sim(torch, cli, kscore, kdelta, krs, topt, out,
                                 allhic_tour)
     torch.cuda.empty_cache()
     by_phase['mesh_pipeline'] = phase_mesh_pipeline(torch, out)
     by_phase['mesh_sparse'] = phase_mesh_sparse(torch, sp, sparse_call[0])
     by_phase['mesh_nccl'] = phase_mesh_nccl(
-        torch, sp, topt, kscore, kdelta, dense_call[0], ga_call[0],
-        step_args)
+        torch, sp, topt, dense_call[0], ga_call[0], step_args)
     kernels = []
     for k in KERNELS:
         row = main_rows[k['name']]
         counts = {p: n.get(k['name'], 0) for p, n in by_phase.items()}
         check(sum(counts.values()) > 0, 'kernel {} was launched on no '
               'path'.format(k['name']))
-        # no single PyTorch call computes any of the five functions
+        # no single PyTorch call computes any of the six functions
         kernels.append(dict(k, launches=sum(counts.values()),
                             launches_by_phase=counts,
                             max_abs_err=row['max_abs_err'], ms=row['ms'],
                             plain_ms=row['plain_ms'],
                             bound_ms=row['bound_ms'],
                             bound_by=row['bound_by'], library_ms=None,
-                            **{x: row[x] for x in ('plan', 'tb_s')
+                            **{x: row[x] for x in ('plan', 'tb_s', 'scores')
                                if x in row}))
     print(nvidia_smi(), flush=True)
     emit({'kernels': kernels})

@@ -32,6 +32,14 @@ the random population ``--gens`` times with
 ``score_population`` under the profiler: CUDA-event ms per call and the
 device time of each of its kernels (table, partial sums, reduction).
 
+With ``--pipeline`` it then traces one whole window of the GA
+(``optimize._evolve_delta_impl``, WINDOW_GENS generations: 20 cycles
+of three rescoring calls, crossover, mutation, selection and 24 delta
+generations) on that batch (``trace_window``): its host-clock time and
+peak card memory; its device busy ms, device operations, host syncs and
+idle share under the profiler; and the same split by phase, in a third
+run with the card synchronised around each step of the cycle.
+
 Each result is one JSON line naming the card (`nvidia-smi` name and
 power limit). With ``--out`` the Chrome traces are written there.
 """
@@ -51,6 +59,8 @@ import torch
 
 # generations the pipeline's batch evolves before it is traced
 WARM_GENS = 100
+# generations of the traced window: the GA's default log_every
+WINDOW_GENS = 500
 
 def _nvidia_smi() -> str:
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -247,6 +257,157 @@ def trace(label: str, rec, state, gen, step, gens: int,
     }
 
 
+class _WindowMarks:
+    """While installed, each step of ``optimize._evolve_delta_impl``'s
+    cycle runs inside a profiler range named 'window:<phase>', with the
+    card synchronised on entering and before leaving, so that all the
+    device work a step launches lies inside its range: the three
+    rescoring calls (parents, offspring, the selected population),
+    crossover, mutation, selection with re-seeding, and the delta
+    generations. A step called from inside another marked step (the
+    rescoring's caches call) stays in the outer step's range."""
+
+    def __init__(self, opt, sync):
+        self.opt, self.sync = opt, sync
+        self.depth = 0
+        self.scored = 0
+        self.saved = []
+
+    def _wrap(self, fn, label):
+        def run(*args, **kw):
+            if self.depth:
+                return fn(*args, **kw)
+            name = label() if callable(label) else label
+            self.depth += 1
+            self.sync()
+            try:
+                with torch.profiler.record_function('window:' + name):
+                    out = fn(*args, **kw)
+                    self.sync()
+            finally:
+                self.depth -= 1
+            return out
+        return run
+
+    def _scores_label(self):
+        self.scored += 1
+        return ('rescore_parents', 'rescore_offspring')[
+            (self.scored - 1) % 2]
+
+    def __enter__(self):
+        opt, rec = self.opt, self.opt._Records
+        for owner, name, label in (
+                (rec, 'cache_scores', self._scores_label),
+                (rec, 'caches', 'rescore_selected'),
+                (opt, '_ox_crossover', 'crossover'),
+                (opt, '_mutate', 'mutation'),
+                (opt, '_select', 'select_reseed'),
+                (opt, '_reseed', 'select_reseed'),
+                (opt, '_dgen', 'delta_generations')):
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn, label))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        self.saved = []
+
+
+_SYNC_CALLS = ('cudaStreamSynchronize', 'cudaEventSynchronize', 'cudaMemcpy')
+
+
+def _window_profile(prof, wall_us: float) -> dict:
+    """Device busy ms, device operations, host syncs and the idle share
+    of one profiled window, then the same per marked phase (the device
+    operations that start inside the phase's ranges). The card
+    synchronisations of the marks themselves (cudaDeviceSynchronize)
+    are not counted as host syncs."""
+    ranges, dev, syncs = {}, [], []
+    for e in prof.events():
+        if e.name.startswith('window:'):
+            if getattr(e.device_type, 'name', '') != 'CUDA':
+                ranges.setdefault(e.name[7:], []).append(
+                    (e.time_range.start, e.time_range.end))
+        elif getattr(e.device_type, 'name', '') == 'CUDA':
+            dev.append((e.time_range.start, e.time_range.end))
+        elif e.name in _SYNC_CALLS:
+            syncs.append(e.time_range.start)
+    dev.sort()
+    busy_us, _ = _busy_and_gaps(dev)
+    out = {'wall_ms': wall_us / 1e3, 'device_busy_ms': busy_us / 1e3,
+           'idle_share': 1.0 - busy_us / wall_us, 'device_ops': len(dev),
+           'host_syncs': len(syncs)}
+    if not ranges:
+        return out
+    phases, owned = {}, 0
+    for name, rs in sorted(ranges.items()):
+        rs.sort()
+        mine = [iv for iv in dev if any(s <= iv[0] <= e for s, e in rs)]
+        owned += len(mine)
+        busy, _ = _busy_and_gaps(mine)
+        pwall = sum(e - s for s, e in rs)
+        phases[name] = {
+            'calls': len(rs), 'wall_ms': pwall / 1e3,
+            'device_ms': busy / 1e3, 'device_ops': len(mine),
+            'idle_share': 1.0 - busy / pwall if pwall > 0 else None,
+            'host_syncs': sum(1 for t in syncs
+                              if any(s <= t <= e for s, e in rs))}
+    out['phases'] = phases
+    out['unmarked_device_ops'] = len(dev) - owned
+    return out
+
+
+def trace_window(rec, order, ori, seed: int, ngen: int,
+                 mutprob: float = 0.2) -> dict:
+    """One whole ``_evolve_delta_impl`` window of ``ngen`` generations
+    from (order, ori), three times from the same start and draws: timed
+    by the host clock, under the profiler (its device busy share, device
+    operations and host syncs), and under the profiler with each step
+    of the cycle marked (``_WindowMarks``), split by phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from haphic_tpu_torch.order import optimize as opt
+    G = order.shape[0]
+
+    def sync():
+        if order.is_cuda:
+            torch.cuda.synchronize()
+
+    def window():
+        gen = torch.Generator(device=order.device)
+        gen.manual_seed(seed)
+        return opt._evolve_delta_impl(opt._Draws(gen, G), rec, order.clone(),
+                                      ori.clone(), mutprob, ngen)
+
+    def run():
+        sync()
+        t0 = time.perf_counter()
+        res = window()
+        sync()
+        return res, (time.perf_counter() - t0) * 1e6
+    run()                                             # warm-up
+    if order.is_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    res, wall_us = run()
+    peak = torch.cuda.max_memory_allocated() if order.is_cuda else None
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        res_p, prof_us = run()
+    plain = _window_profile(prof, prof_us)
+    with _WindowMarks(opt, sync), profile(activities=acts) as prof:
+        res_m, marked_us = run()
+    marked = _window_profile(prof, marked_us)
+    same = all(torch.equal(a, b) for r in (res_p, res_m)
+               for a, b in zip(res, r))
+    return {'path': 'window', 'shape': dict(zip('GPk', order.shape),
+                                            R=rec.pa.shape[1]),
+            'ngen': ngen, 'wall_ms': wall_us / 1e3,
+            'max_memory_allocated': peak, 'profiled': plain,
+            'marked': marked, 'runs_equal': same}
+
+
 def _event_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -386,6 +547,10 @@ def main(argv=None) -> int:
             row = trace_score(rec, state[0], state[1], args.gens)
             print(json.dumps(dict(row, nvidia_smi=card, shape=bshape)),
                   flush=True)
+        else:
+            row = trace_window(rec, state[0], state[1], args.seed,
+                               WINDOW_GENS)
+            print(json.dumps(dict(row, nvidia_smi=card)), flush=True)
         del rec, state
         torch.cuda.empty_cache()
     return 0

@@ -22,10 +22,12 @@ group axis. Each log_every window is a run of delta-scored cycles: one
 full-scored (mu+lambda) generation with OX crossover, mutation, stable
 top-P selection and a half-elitist reset, then GA_SYNC_EVERY-1 greedy
 generations whose moves are scored as explicit deltas from per-record
-endpoint caches updated in closed form (exact int32 coordinates). Two
+endpoint caches updated in closed form (exact int32 coordinates). Three
 hand-written CUDA kernels in haphic_tpu_torch.kernels carry it: the
-population scorer (initial scores, skip_ga, the full-rescore window)
-and each delta generation after its draw (delta_generation: one launch
+population scorer (initial scores, skip_ga, the full-rescore window),
+the cycle's rescoring (rescore: the parents' and the offspring's scores,
+then the selected population's caches, contributions and scores) and
+each delta generation after its draw (delta_generation: one launch
 scores, accepts and commits the moves, caches and slot tables in
 place).
 
@@ -38,11 +40,11 @@ test can hand the same draws to both packages.
 With a mesh (parallel/mesh.py) each rank evolves its contiguous share
 of the groups of every batch. A group's result must not depend on that
 share: every rank draws the whole batch's numbers from the batch's one
-generator and keeps its rows (``_Draws``), and the two reductions whose
-rounding on the card follows the batch's group count (the score
-kernel's record chunking, a torch sum's block layout) run one group at
-a time (``_Records.score``, ``_group_sums``). Every other step is per
-group: selection, re-seeding, crossover, the delta kernel.
+generator and keeps its rows (``_Draws``), and the score kernel, whose
+record chunking follows the batch's group count, runs one group at a
+time (``_Records.score``). Every other step is per group: selection,
+re-seeding, crossover, the rescoring kernel (its record chunk depends
+on k alone) and the delta kernel.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ from haphic_tpu_torch.kernels.delta import (  # noqa: F401 (tests)
     apply_move as _apply_move, contrib_from_cache as _contrib_from_cache,
     delta_generation, endpoint_update as _endpoint_update,
     move_scalars as _move_scalars, move_src as _move_src)
+from haphic_tpu_torch.kernels.rescore import (  # noqa: F401 (tests)
+    build_caches as _build_caches, group_sums as _group_sums,
+    inverse as _inverse, rescore)
 from haphic_tpu_torch.kernels.score import score_population
 from haphic_tpu_torch.parallel.mesh import all_gather_object, shard_range
 from haphic_tpu_torch.runtime import resolve_device
@@ -262,14 +267,6 @@ def _pad_records(p: TourProblem, chunk: int):
 # Permutation helpers. Shapes carry a leading group axis: (G, P, k).
 # ---------------------------------------------------------------------------
 
-def _inverse(order: torch.Tensor) -> torch.Tensor:
-    """pos_of[g, p, c] = slot of contig c (scatter of the slot ids)."""
-    k = order.shape[-1]
-    slots = torch.arange(k, dtype=order.dtype, device=order.device)
-    return torch.empty_like(order).scatter_(
-        -1, order.long(), slots.expand(order.shape).contiguous())
-
-
 def _take(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[..., i] = vals[..., idx[..., i]] along the last axis."""
     return torch.gather(vals, -1, idx.long())
@@ -421,29 +418,6 @@ def _ox_crossover(gen, order, ori, xoprob: float):
 # ---------------------------------------------------------------------------
 
 
-def _build_caches(order, ori, lengths, pa, pb):
-    """Per-record endpoint caches + slot tables from the population.
-    Returns (L_slot (G,P,k) int32, startsx (G,P,k+1) int32 slot starts
-    with a total-length sentinel, posA, sA, oA, posB, sB, oB (G,P,R)),
-    all coordinates exact int32."""
-    G, P, k = order.shape
-    R = pa.shape[1]
-    Li = lengths.to(torch.int32)
-    idx = order.long()
-    L_slot = torch.gather(Li[:, None, :].expand(G, P, k), 2, idx)
-    startsx = torch.cat([
-        torch.zeros((G, P, 1), dtype=torch.int32, device=order.device),
-        torch.cumsum(L_slot, dim=2, dtype=torch.int32)], dim=2)
-    pos_of = _inverse(order)
-    start_of = torch.empty_like(L_slot).scatter_(2, idx, startsx[..., :k])
-    ori_of = torch.empty_like(ori).scatter_(2, idx, ori)
-    iA = pa.long()[:, None, :].expand(G, P, R)
-    iB = pb.long()[:, None, :].expand(G, P, R)
-    caches = [torch.gather(t, 2, ix) for ix in (iA, iB)
-              for t in (pos_of, start_of, ori_of)]
-    return (L_slot, startsx) + tuple(caches)
-
-
 # one full-scored (mu+lambda) + OX-crossover generation every
 # GA_SYNC_EVERY generations; the rest are delta-scored greedy moves
 GA_SYNC_EVERY = int(os.environ.get('HAPHIC_GA_SYNC_EVERY', 25))
@@ -457,16 +431,6 @@ _DELTA_SPAN_GAIN = float(os.environ.get('HAPHIC_GA_DELTA_SPAN_GAIN',
 # rows that each cycle's full generation re-seeds from the incumbent:
 # 'half' (the bottom half), 'all' (every row but the best) or 'none'
 _GA_RESET = os.environ.get('HAPHIC_GA_RESET', 'half')
-
-
-def _group_sums(contrib: torch.Tensor) -> torch.Tensor:
-    """(G, P) row sums of (G, P, R) contributions, one reduction per
-    group. On the card a torch sum's block layout follows its output
-    count, so a batched sum could round a row differently in a batch of
-    another group count; per group, a row's sum does not depend on the
-    groups beside it. On the CPU the rows sum in the same order either
-    way."""
-    return torch.stack([c.sum(dim=1) for c in contrib.unbind(0)])
 
 
 class _Records:
@@ -492,14 +456,23 @@ class _Records:
 
     def caches(self, order, ori):
         """(L_slot, startsx, posA, sA, oA, posB, sB, oB, contrib,
-        scores) of the population, from exact int32 caches."""
-        c = _build_caches(order, ori, self.lengths, self.pa, self.pb)
-        contrib = _contrib_from_cache(*c[2:], self.la, self.lb, self.d,
-                                      self.w)
-        return c + (contrib, _group_sums(contrib))
+        scores) of the population, from exact int32 caches: the
+        rescoring kernel (plain on CPU), one launch."""
+        _Records.rescores += 1
+        return rescore(order, ori, self.lengths, self.pa, self.pb, self.la,
+                       self.lb, self.d, self.w, caches=True)
 
     def cache_scores(self, order, ori):
-        return self.caches(order, ori)[-1]
+        """(G, P) scores of the population, by the same kernel without
+        writing the caches."""
+        _Records.rescores += 1
+        return rescore(order, ori, self.lengths, self.pa, self.pb, self.la,
+                       self.lb, self.d, self.w, caches=False)
+
+
+# rescoring calls (caches and cache_scores) made so far; optimize_tours
+# logs each batch's share as `ga_rescores`
+_Records.rescores = 0
 
 
 def _dgen(gen, rec: _Records, state, step=delta_generation):
@@ -792,6 +765,7 @@ def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
 
         done = 0
         n_delta = _delta_step.generations
+        n_rescore = _Records.rescores
         # windows run back to back; each window's best stays on the
         # device until the last one has been queued
         window_best = []
@@ -802,8 +776,11 @@ def optimize_tours(problems: Sequence[TourProblem], npop: int = 100,
             done += step
             window_best.append((done, scores[:, 0]))
         n_delta = _delta_step.generations - n_delta
-        logger.info('GA batch: %d delta generations', n_delta,
-                    extra={'metrics': {'ga_delta_gens': n_delta}})
+        n_rescore = _Records.rescores - n_rescore
+        logger.info('GA batch: %d delta generations, %d rescorings',
+                    n_delta, n_rescore,
+                    extra={'metrics': {'ga_delta_gens': n_delta,
+                                       'ga_rescores': n_rescore}})
         for gen_done, best_t in window_best:
             best = best_t.cpu().numpy()
             for t in range(G):

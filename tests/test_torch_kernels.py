@@ -1,15 +1,17 @@
 """The port's hand-written CUDA kernels (the tour scorer, the GA's
-delta generation, the sparse MCL column step and the dense MCL column
-pass) against their plain torch versions, on the card.
-CUDA kernels have no CPU mode, so these tests carry the `cuda` marker
-and skip on a host without a card. This file
+delta generation and its cycle's rescoring, the sparse MCL column step
+and its convergence statistic, and the dense MCL column pass) against
+their plain torch versions, on the card. CUDA kernels have no CPU mode,
+so these tests carry the `cuda` marker and skip on a host without a
+card. This file
 imports neither JAX nor the JAX package, so it also runs on a card
 host without them:
 
     HAPHIC_TEST_TPU=1 python -m pytest -m cuda tests/test_torch_kernels.py
 
 (add ``-k sparse`` for the sparse column step's tests alone, ``-k
-mcl_column`` for the dense column pass's).
+mcl_column`` for the dense column pass's, ``-k rescore`` for the GA
+cycle's rescoring).
 (HAPHIC_TEST_TPU=1 keeps the repo's conftest.py from importing JAX.)
 """
 
@@ -1367,3 +1369,143 @@ def test_col_allclose_cpu_tensors_take_the_plain_version():
     got = kca.col_allclose(*args, 200)
     assert kca.col_allclose.launches == n0
     assert torch.equal(got, kca.col_allclose_plain(*args, 200))
+
+
+# --- the GA cycle's rescoring ----------------------------------------------
+
+def _rescore_case(seed, G, P, k, R, pad=0, dev='cuda'):
+    """A population and records as rescore takes them (la, lb gathered
+    from the lengths); the last ``pad`` records are padding (pa = pb =
+    0, d = 0, w = 0), and some distances are negative, so that the
+    clamp at 1 is reached."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lengths = torch.randint(1000, 500000, (G, k), generator=g, device=dev)
+    pa = torch.randint(0, k, (G, R), generator=g, device=dev,
+                       dtype=torch.int32)
+    pb = torch.randint(0, k, (G, R), generator=g, device=dev,
+                       dtype=torch.int32)
+    d = torch.randint(-5000, 100000, (G, 4, R), generator=g,
+                      device=dev).float()
+    w = torch.rand((G, R), generator=g, device=dev)
+    if pad:
+        for x in (pa, pb, d, w):
+            x[..., R - pad:] = 0
+    order = torch.argsort(torch.rand((G, P, k), generator=g, device=dev),
+                          dim=2).to(torch.int32)
+    ori = torch.randint(0, 2, (G, P, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    Li = lengths.to(torch.int32)
+    la = torch.gather(Li, 1, pa.long())
+    lb = torch.gather(Li, 1, pb.long())
+    return [order, ori, lengths, pa, pb, la, lb, d, w]
+
+
+def _check_rescore(args):
+    """Kernel against plain version in caches mode: L_slot, startsx, the
+    six caches and the contributions bit-equal; each score within half
+    an ulp of the exact sum of the plain version's f32 contributions
+    plus the f64 sums' own error; scores mode gives the same scores."""
+    from haphic_tpu_torch.kernels import rescore as krs
+    n0 = krs.rescore.launches
+    got = krs.rescore(*args, caches=True)
+    want = krs.rescore_plain(*args, caches=True)
+    scores = krs.rescore(*args, caches=False)
+    torch.cuda.synchronize()
+    assert krs.rescore.launches == n0 + 2
+    for n, (a, b) in enumerate(zip(got[:-1], want[:-1])):
+        assert a.dtype == b.dtype and torch.equal(a, b), n
+    c = want[-2].double()
+    exact, mag = c.sum(dim=2), c.abs().sum(dim=2)
+    del c
+    ks = got[-1].abs()
+    half = 0.5 * (torch.nextafter(ks, torch.full_like(ks, np.inf))
+                  - ks).double()
+    bound = half + 2.0 * args[3].shape[1] * 2.0 ** -53 * mag
+    assert bool(((got[-1].double() - exact).abs() <= bound).all())
+    assert torch.equal(scores, got[-1])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('G,P,k,R,pad', [
+    (3, 6, 32, 1000, 50),        # one tile, one chunk, padding records
+    (2, 8, 64, 5001, 0),         # R not a multiple of the 2048 chunk
+    (1, 4, 500, 3000, 0),        # P = 4 (sim ga_study's truth rescoring)
+    (2, 37, 300, 9000, 7),       # tiles of 16, a partial last tile
+    (1, 3, 13000, 700, 0),       # tables past shared memory: global path
+    (1, 2, 2, 40, 0),            # k = 2
+], ids=['small', 'ragged-R', 'P4', 'tiles', 'global', 'k2'])
+def test_rescore_kernel_matches_plain(card, G, P, k, R, pad):
+    _check_rescore(_rescore_case(G * k + R, G, P, k, R, pad))
+
+
+@pytest.mark.cuda
+def test_rescore_kernel_at_the_smoke_batch(card):
+    """The dense pipeline's largest GA batch: G = 7, P = 100, k_pad =
+    1024, R_pad = 196,608."""
+    _check_rescore(_rescore_case(5, 7, 100, 1024, 196608, 1000))
+
+
+@pytest.mark.cuda
+def test_rescore_kernel_rows_do_not_depend_on_the_batch(card):
+    """A row's scores are the same bits whether its group is launched
+    with the others, in a slice of groups or alone, and on a repeat."""
+    from haphic_tpu_torch.kernels import rescore as krs
+    args = _rescore_case(6, 7, 12, 256, 20000)
+    whole = krs.rescore(*args, caches=True)
+    part = krs.rescore(*[x[2:5].contiguous() for x in args], caches=True)
+    alone = krs.rescore(*[x[4:5].contiguous() for x in args], caches=False)
+    again = krs.rescore(*args, caches=True)
+    torch.cuda.synchronize()
+    for a, b in zip(part, whole):
+        assert torch.equal(a, b[2:5])
+    assert torch.equal(alone, whole[-1][4:5])
+    for a, b in zip(again, whole):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rescore_kernel_rejects_bad_input(card):
+    from haphic_tpu_torch.kernels import rescore as krs
+    args = _rescore_case(7, 1, 4, 16, 100)
+    bad = list(args)
+    bad[0] = args[0].to(torch.int64)                # dtype
+    with pytest.raises(ValueError):
+        krs.rescore(*bad, caches=False)
+    bad = list(args)
+    bad[7] = args[7].cpu()                          # device
+    with pytest.raises(ValueError):
+        krs.rescore(*bad, caches=True)
+    bad = list(args)
+    bad[5] = args[5][:, :50]                        # shape
+    with pytest.raises(ValueError):
+        krs.rescore(*bad, caches=True)
+    bad = list(args)
+    bad[8] = torch.rand((1, 200), device='cuda')[:, ::2]  # not contiguous
+    with pytest.raises(ValueError):
+        krs.rescore(*bad, caches=False)
+
+
+@pytest.mark.cuda
+def test_rescore_kernel_in_a_ga_run_on_the_card(card, caplog):
+    """A GA run on the card goes through the score kernel, the delta
+    kernel and the rescoring kernel, the last two once per delta
+    generation and once per rescoring call the GA reports."""
+    import logging
+    from haphic_tpu_torch.kernels import rescore as krs
+    problem, true_order, true_ori = _sim_chromosome_problem(4)
+    caplog.set_level(logging.INFO, logger='haphic_tpu_torch')
+    n = (kscore.score_population.launches, kdelta.delta_generation.launches,
+         krs.rescore.launches)
+    res = topt.optimize_tour(problem, npop=32, ngen=300, seed=2,
+                             log_every=100, backend='device', device='cuda')
+    metrics = [getattr(r, 'metrics', {}) for r in caplog.records]
+    gens = sum(m['ga_delta_gens'] for m in metrics if 'ga_delta_gens' in m)
+    rescores = sum(m['ga_rescores'] for m in metrics if 'ga_rescores' in m)
+    assert kscore.score_population.launches > n[0]
+    assert kdelta.delta_generation.launches - n[1] == gens > 0
+    assert krs.rescore.launches - n[2] == rescores == 3 * 12
+    scores = [s for _, s in res.history]
+    assert all(b >= a - 1e-6 * abs(a) for a, b in zip(scores, scores[1:]))
+    assert sorted(res.order.tolist()) == list(range(problem.k))

@@ -12,9 +12,10 @@ call on the card again in a process of its own that imports only that
 checkout: once on the delta route (the default) and once with
 HAPHIC_GA_NO_DELTA=1 (every generation scored in full by the score
 kernel). Each turn prints one JSON line: per pipeline and route, the
-GA's seconds, the launches of both kernels, and a hash of the results
-(orders, orientations, scores), so that the two checkouts' outputs can
-be compared. Last, B's process prints one line that times, at the
+GA's seconds and peak card memory, the launches of the GA's kernels
+(the rescoring kernel's where the checkout has it), and a hash of the
+results (orders, orientations, scores), so that the two checkouts'
+outputs can be compared. Last, B's process prints one line that times, at the
 dense pipeline's largest GA batch, the batch's score as one kernel
 launch against one launch per group, and the (G, P, R) contribution
 sum three ways (one f32 sum, one f32 sum per group, one f64 sum rounded
@@ -37,8 +38,6 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke as cs
 from haphic_tpu_torch import cli
 from haphic_tpu_torch.kernels import build as kbuild
-from haphic_tpu_torch.kernels import delta as kdelta
-from haphic_tpu_torch.kernels import score as kscore
 from haphic_tpu_torch.order import optimize as topt
 cs.WORK = sys.argv[2]
 cs.phase_env(torch, kbuild)
@@ -46,8 +45,8 @@ for name, sim, engine in (('dense', cs.SIM, 'dense'),
                           ('sparse', cs.SPARSE_SIM, 'sparse')):
     keep = []
     with cs._first_call(topt, 'optimize_tours', keep):
-        cs._drive_pipeline(torch, cli, kscore, kdelta, sim, name + '_sim',
-                           name + '_out', engine)
+        cs._drive_pipeline(torch, cli, sim, name + '_sim', name + '_out',
+                           engine)
     kw = dict(keep[0]['kw'])
     if kw.get('mesh', 0) is None:
         kw.pop('mesh')
@@ -64,6 +63,10 @@ from haphic_tpu_torch.kernels import build as kbuild
 from haphic_tpu_torch.kernels import delta as kdelta
 from haphic_tpu_torch.kernels import score as kscore
 from haphic_tpu_torch.order import optimize as topt
+try:                        # a checkout from before the rescoring kernel
+    from haphic_tpu_torch.kernels import rescore as krs
+except ImportError:
+    krs = None
 kbuild.build()
 calls = {}
 for name in sys.argv[3].split(','):
@@ -79,7 +82,10 @@ for name, (args, kw) in calls.items():
         os.environ['HAPHIC_GA_NO_DELTA'] = flag
         kscore.score_population.launches = 0
         kdelta.delta_generation.launches = 0
+        if krs is not None:
+            krs.rescore.launches = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         res = topt.optimize_tours(*args, **kw)
         torch.cuda.synchronize()
@@ -91,6 +97,8 @@ for name, (args, kw) in calls.items():
         out[name + '_' + route] = {
             'ga_s': secs, 'score_launches': kscore.score_population.launches,
             'delta_launches': kdelta.delta_generation.launches,
+            'rescore_launches': None if krs is None else krs.rescore.launches,
+            'max_memory_allocated': torch.cuda.max_memory_allocated(),
             'results_sha256': h.hexdigest()}
 os.environ.pop('HAPHIC_GA_NO_DELTA')
 print(json.dumps(out), flush=True)
