@@ -72,8 +72,10 @@ Phases, each printing one JSON line:
              contributions plus the f64 sums' own error; scores mode
              equal to caches mode; a repeat bit-identical; the rows of
              groups [2, 5) launched alone bit-equal to the same rows of
-             the whole launch. Timed in both modes (ms, plain_ms,
-             bound_ms: bytes in caches mode, operations in scores mode).
+             the whole launch. Timed in both modes (ms by CUDA events,
+             device_ms by torch.profiler, plain_ms, bound_ms: bytes in
+             caches mode, operations in scores mode); no device kernel
+             but the rescoring kernel, one a call, in either mode.
 5. sparse_pipeline
              the same pipeline through the default `auto` route on 24
              chromosomes x 1000 contigs x 20 kb (480 Mb, n = 24,000
@@ -86,7 +88,8 @@ Phases, each printing one JSON line:
              after), and the scaffolds must recover the 24 chromosomes.
              Prints n, K, the input columns over K, iterations per
              inflation, the K of each shrink per inflation batch, the
-             sweep seconds, stage and wall seconds, peak card memory.
+             sweep seconds, stage and wall seconds, peak card memory;
+             col_allclose launched once per sweep step.
 6. sparse_step
              the sparse engine on the card against the same engine on
              the CPU on a 96-fragment block matrix (equal partitions and
@@ -107,10 +110,11 @@ Phases, each printing one JSON line:
              columns (old: the iterate's, new: sparse_column's output):
              the same -inf columns, the others within 1e-9 absolute, the
              same convergence decision (<= 1e-8) for each inflation;
-             over the step's chunks, the kernel's launches timed (ms),
-             the wrapper as the sweep calls it, with the order flag the
-             host loop reads (wrapper_ms), and the plain version
-             (plain_ms); its bound from the step's real entries.
+             over all the step's columns in one call, as the sweep
+             calls it (one launch a step): the kernel's launch timed
+             (ms, and device_ms by torch.profiler), the wrapper with the
+             order flag the host loop reads (wrapper_ms), and the plain
+             version (plain_ms); its bound from the step's real entries.
              The step's arguments go to build/chip_smoke/sparse_step.pt
              for `python -m haphic_tpu_torch.kernels.sparse_column
              --iterate`.
@@ -223,7 +227,8 @@ Phases, each printing one JSON line:
              card: iterates, iteration counts and K shrinks bit-equal.
              Prints each sharded step's ms, its all-gather ms and bytes,
              peak card memory and sparse_column and col_allclose
-             launches per rank (counted from 0 just before its run).
+             launches per rank (counted from 0 just before its run; one
+             col_allclose launch per rank per step).
 14. mesh_nccl
              a one-rank NCCL group in this process, so that NCCL's
              collectives run on CUDA tensors even on one card: the
@@ -825,12 +830,14 @@ def phase_sparse_pipeline(torch, cli, sp, sparse_min_n):
     arguments of the engine's first sweep step, as the pipeline passed
     them, for phase_sparse_step, and the launch counts."""
     first = []
+    steps = [0]
     step = sp._sweep_step
 
     def recording(*args, **kw):
         if not first:
             # the host loop updates `active` in place after each step
             first.append(args[:3] + (args[3].copy(),) + args[4:])
+        steps[0] += 1
         return step(*args, **kw)
 
     sp._sweep_step = recording
@@ -841,6 +848,9 @@ def phase_sparse_pipeline(torch, cli, sp, sparse_min_n):
     finally:
         sp._sweep_step = step
     check(first, 'the sparse engine ran no sweep step')
+    check(launches['col_allclose'] == steps[0], 'col_allclose launched {} '
+          'times in {} sweep steps'.format(launches['col_allclose'],
+                                          steps[0]))
     check(m['n'][-1] >= sparse_min_n, 'n={} is below SPARSE_MIN_N={}'
           .format(m['n'][-1], sparse_min_n))
     emit({'phase': 'sparse_pipeline', 'sim': SPARSE_SIM, 'K': m['K'][-1],
@@ -848,7 +858,8 @@ def phase_sparse_pipeline(torch, cli, sp, sparse_min_n):
           'mcl_batches': m['batches'][-1],
           'mcl_iters_per_inflation': m['n_iters'][-1],
           'k_steps_per_batch': m['k_steps'][-1],
-          'sweep_s': m['sweep_s'][-1], 'interpret_s': m['interpret_s'][-1],
+          'sweep_s': m['sweep_s'][-1], 'sweep_steps': steps[0],
+          'interpret_s': m['interpret_s'][-1],
           'clusters_per_inflation': m['clusters_per_inflation'][-1],
           **_run_line(torch, m, sim_s, wall, launches, part)})
     return first[0], launches
@@ -911,7 +922,9 @@ def phase_sparse_step(torch, sp, first_step):
     pairs (the iterate's columns, sparse_column's output): the same -inf
     columns, the others within STAT_TOL, the same convergence decision
     (<= CONVERGED) for each inflation; each pair timed over the step's
-    chunks. Returns the two kernels' rows."""
+    chunks, the statistic in one call over all of the step's columns, as
+    the sweep calls it (one launch a step). Returns the two kernels'
+    rows."""
     from haphic_tpu_torch.kernels import col_allclose as kca
     from haphic_tpu_torch.kernels import sparse_column as kcol
     i, j, w = _block_coo(96, 4, 2)
@@ -948,7 +961,10 @@ def phase_sparse_step(torch, sp, first_step):
     torch.cuda.reset_peak_memory_stats()
     ms = _time_ms(torch, step, STEP_REPS)
     peak = torch.cuda.max_memory_allocated()
+    n0 = kca.col_allclose.launches
     ni, nv, stat, max_nnz = step()
+    check(kca.col_allclose.launches == n0 + 1, 'a sweep step launched '
+          'col_allclose {} times'.format(kca.col_allclose.launches - n0))
     check(bool(torch.isfinite(nv).all()) and int(max_nnz) <= K
           and bool((ni[:, n] == n).all()) and int(flag) == 0,
           'sparse step output: not finite, too wide, sentinel set or out '
@@ -980,11 +996,11 @@ def phase_sparse_step(torch, sp, first_step):
           "sparse_column disagrees with its plain version on the "
           "pipeline's step: {}".format(cmp))
     del pout
-    # the statistic on the step's own column pairs, chunk by chunk: the
-    # wrapper as the sweep calls it (its checks, its kernel, the order
-    # flag), the kernel's launches alone and the plain version
+    # the statistic on the step's own column pairs in one call, as the
+    # sweep calls it: the wrapper (its checks, its kernel, the order
+    # flag), the kernel's launch alone and the plain version
     stats = [lambda fn=fn, kw=kw: kca.step_stats(fn, A_i, A_v, *kout, n,
-                                                 chunk, **kw)
+                                                 **kw)
              for fn, kw in ((kca.col_allclose, {'bad': flag}),
                             (kca._launch, {'bad': flag}),
                             (kca.col_allclose_plain, {}))]
@@ -1001,6 +1017,9 @@ def phase_sparse_step(torch, sp, first_step):
                 columns=kst.numel(), stat=kst.amax(dim=1).tolist(),
                 converged=decide[0])
     stat_ms = _time_ms(torch, stats[1], STEP_REPS)
+    scmp['device_ms'] = _one_kernel_a_call(
+        torch, stats[1], STEP_REPS, "the step's statistic",
+        'col_allclose_kernel')
     scmp['wrapper_ms'] = _time_ms(torch, stats[0], STEP_REPS)
     stat_plain_ms = _time_ms(torch, stats[2], STEP_REPS)
     sbound, sbound_by = kca.bound_ms(A_i, kout[0], n)
@@ -1716,6 +1735,41 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _profiled_kernels(torch, fn, reps):
+    """(mean device ms of a kernel, the kernels captured, their names) of
+    ``reps`` calls of ``fn`` after a warm-up, by torch.profiler (memory
+    copies and sets apart). The profiler may miss some or all of the
+    profiled kernels, so a caller that launches one kernel a call can
+    only check that every captured kernel is that one and that there
+    are at most ``reps``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if getattr(e.device_type, 'name', '') == 'CUDA'
+               and 'memcpy' not in e.name.lower()
+               and 'memset' not in e.name.lower()]
+    us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    return (us / 1e3 / max(1, len(kernels)), len(kernels),
+            sorted({e.name for e in kernels}))
+
+
+def _one_kernel_a_call(torch, fn, reps, what, name):
+    """The device ms of ``fn``'s one kernel a call (``_profiled_kernels``;
+    None where the profiler captured none), after checking that the
+    profiler saw no kernel but ``name`` and at most one a call. The
+    wrapper's launch count, not the profiler, shows that it launched."""
+    ms, n, names = _profiled_kernels(torch, fn, reps)
+    check(n <= reps and all(name in x for x in names),
+          '{}: {} calls ran {} device kernels: {}'.format(what, reps, n,
+                                                         names))
+    return ms if n else None
+
+
 def phase_kernel(torch, kscore, main_args, launches):
     """score_population held against its plain version and timed: at a
     small shape, on random unsorted records at the main path's shape,
@@ -1833,10 +1887,15 @@ def phase_rescore(torch, krs, main_args, launches):
         for mode, caches in (('scores', False), ('caches', True)):
             ms = _time_ms(torch, lambda: krs.rescore(*args, caches=caches),
                           20)
+            device_ms = _one_kernel_a_call(
+                torch, lambda: krs.rescore(*args, caches=caches), 10,
+                'rescore_population in {} mode'.format(mode),
+                'rescore_kernel')
             plain_ms = _time_ms(
                 torch, lambda: krs.rescore_plain(*args, caches=caches), 3)
             bound, by = krs.bound_ms(G, P, k, R, caches)
-            row[mode] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+            row[mode] = {'ms': ms, 'device_ms': device_ms,
+                         'plain_ms': plain_ms, 'bound_ms': bound,
                          'bound_by': by}
         # the line's main figures: caches mode (the bytes the delta
         # kernel then reads are written here)
@@ -2328,6 +2387,9 @@ def phase_mesh_sparse(torch, sp, call):
             n_r = rec['launches'][kname]
             check(n_r > 0, 'rank {} launched no {}'.format(r, kname))
             launches[kname] += n_r
+        check(rec['launches']['col_allclose'] == len(rec['steps']),
+              'rank {}: col_allclose launched {} times in {} sharded steps'
+              .format(r, rec['launches']['col_allclose'], len(rec['steps'])))
         idx = np.load('{}.idx{}.npy'.format(spec, r))
         val = np.load('{}.val{}.npy'.format(spec, r))
         diff = int((idx != want.idx).sum() + (val != want.val).sum())
@@ -2413,9 +2475,9 @@ def phase_mesh_nccl(torch, sp, topt, dense_call, ga_call, step_args):
         t1 = time.time()
         col_launches = kcol.sparse_column.launches
         stat_launches = kca.col_allclose.launches
-        check(col_launches > 0 and stat_launches > 0, 'the sharded sparse '
-              'step launched sparse_column {} and col_allclose {} times'
-              .format(col_launches, stat_launches))
+        check(col_launches > 0 and stat_launches == 1, 'the sharded '
+              'sparse step launched sparse_column {} and col_allclose {} '
+              'times'.format(col_launches, stat_launches))
         w_ = sp._sweep_step(si, sv, f, active, n, K, chunk, pruning,
                             expansion)
         torch.cuda.synchronize()

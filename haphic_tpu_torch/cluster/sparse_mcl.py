@@ -34,11 +34,11 @@ iteration, 2K in the convergence merge):
 
 Expand through prune are one call of kernels.sparse_column.sparse_column
 per column chunk, and the convergence statistic one call of
-kernels.col_allclose.col_allclose: each the hand-written CUDA kernel on
-the card, and on the CPU its plain version, the torch composition
-described below (the functions _expand, _dedupe_sorted and
-_inflate_cap_prune live in kernels/sparse_column.py, the statistic's
-sort and run sums in kernels/col_allclose.py).
+kernels.col_allclose.col_allclose a step, over all the step's columns:
+each the hand-written CUDA kernel on the card, and on the CPU its plain
+version, the torch composition described below (the functions _expand,
+_dedupe_sorted and _inflate_cap_prune live in kernels/sparse_column.py,
+the statistic's sort and run sums in kernels/col_allclose.py).
 
 Where JAX vmaps the per-column functions and streams columns through a
 lax.scan, the port loops over fixed column chunks on the host, writing
@@ -132,13 +132,14 @@ def _sweep_cols(A_i, A_v, infl, n: int, K: int, chunk: int,
     stat): (B, c1 - c0, K) columns and stat (B,) the per-inflation max
     allclose statistic over them, left on the card. The math is per
     column, so the chunk size and the block do not change the
-    results. ``bad``: col_allclose's order flag, read by the caller (None:
-    col_allclose reads its own, once a chunk)."""
+    results. The statistic is taken once, over all the columns, after
+    the chunk loop (one col_allclose launch a call). ``bad``:
+    col_allclose's order flag, read by the caller (None: col_allclose
+    reads its own)."""
     B, N = A_i.shape[0], A_i.shape[1]
     c1 = N if c1 is None else c1
     new_i = A_i.new_empty((B, c1 - c0, A_i.shape[2]))
     new_v = A_v.new_empty((B, c1 - c0, A_v.shape[2]))
-    maxstat = torch.full((B,), -torch.inf, device=A_v.device)
     ones = torch.ones_like(infl)
     for s in range(c0, c1, chunk):
         e = min(c1, s + chunk)
@@ -152,11 +153,14 @@ def _sweep_cols(A_i, A_v, infl, n: int, K: int, chunk: int,
         ni, nv = sparse_column(A_i, A_v, di, dv, infl, n, K, pruning,
                                expand=True)
         del di, dv
-        stat = col_allclose(ci, cv, ni, nv, n, bad=bad)
-        maxstat = torch.maximum(maxstat, stat.amax(dim=-1))
         new_i[:, s - c0:e - c0] = ni
         new_v[:, s - c0:e - c0] = nv
-    return new_i, new_v, maxstat
+    if c1 <= c0:
+        return new_i, new_v, torch.full((B,), -torch.inf, device=A_v.device)
+    # a max is exact in any order: one launch for every chunk's columns
+    stat = col_allclose(A_i[:, c0:c1], A_v[:, c0:c1], new_i, new_v, n,
+                        bad=bad)
+    return new_i, new_v, stat.amax(dim=-1)
 
 
 def _sweep_step(idx: torch.Tensor, val: torch.Tensor,

@@ -21,19 +21,21 @@ version. Each (C, K) block must be row-major, with any batch stride
 (``old`` is a slice of the whole iterate), and Ko may differ from Kn.
 
 Every column must be in ELL order (ascending distinct ids below n, then
-sentinels n): the kernel's binary searches rely on it. On the CPU the
+sentinels n): the kernel's merge relies on it. On the CPU the
 wrapper checks it with sparse_column's check and raises ValueError. On
 the card the kernel checks it as it reads the ids and sets a flag on the
 card; the wrapper reads the flag and raises, or, where the caller passes
 its own flag (``bad``), leaves it to the caller to read with its next
 read from the card (``raise_if_unordered``), so that a sweep step does
-not wait for the card once a chunk.
+not wait for the card. A sweep step (cluster/sparse_mcl._sweep_cols)
+calls it once, on all of the step's columns: one launch a step.
 
 What bounds it: the bytes of the real entries of both columns, the
 first sentinel of each column that has one and the f32 written, at most
 (Ko + Kn)·8 + 4 bytes a column (``bound_ms`` counts them on the step's
-own ids). The kernel gives each column one warp and reads a column's
-ids again only through the L1 cache (see the .cu).
+own ids). The kernel gives each column pair a group of 8, 16 or 32
+lanes, stages the pair in shared memory and merges the two columns
+there (see the .cu).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from haphic_tpu_torch.kernels.sparse_column import (
     _check_order, _shift_left, _shift_right, _sort_by_id)
 
 RTOL = 1e-5               # numpy.allclose's, as the kernel has it
+CPU_CHUNK = 2048          # columns a plain-version call on CPU tensors
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP64 (non-tensor)
 HBM_BPS = 3.35e12
 FP64_FLOPS = 34e12
@@ -185,7 +188,10 @@ def col_allclose(old_i, old_v, new_i, new_v, n: int,
     if old_i.device.type == 'cpu':
         _check_order('old_i', old_i, n)
         _check_order('new_i', new_i, n)
-        return col_allclose_plain(old_i, old_v, new_i, new_v, n)
+        # in column chunks, to bound the sort's memory: the statistic is
+        # per column
+        return step_stats(col_allclose_plain, old_i, old_v, new_i, new_v, n,
+                          CPU_CHUNK)
     flag = bad if bad is not None else torch.zeros(
         1, dtype=torch.int32, device=old_i.device)
     out = _launch(old_i, old_v, new_i, new_v, n, flag)
@@ -234,12 +240,15 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
             'inf_differ': int(ninf.sum())}
 
 
-def step_stats(fn, old_i, old_v, new_i, new_v, n: int, chunk: int,
-               **kw) -> torch.Tensor:
+def step_stats(fn, old_i, old_v, new_i, new_v, n: int,
+               chunk: Optional[int] = None, **kw) -> torch.Tensor:
     """``fn`` (``col_allclose``, its kernel's ``_launch`` alone, or
-    ``col_allclose_plain``) over every column pair in chunks of
-    ``chunk``, as a sweep step (sparse_mcl._sweep_cols) calls it, with
-    the keyword arguments ``kw``; returns the (B, N) statistic."""
+    ``col_allclose_plain``) over every column pair, with the keyword
+    arguments ``kw``: in one call, as a sweep step
+    (sparse_mcl._sweep_cols) calls it, or in chunks of ``chunk`` columns;
+    returns the (B, N) statistic."""
+    if chunk is None or chunk >= old_i.shape[1]:
+        return fn(old_i, old_v, new_i, new_v, n, **kw)
     return torch.cat([
         fn(old_i[:, s:s + chunk], old_v[:, s:s + chunk],
            new_i[:, s:s + chunk], new_v[:, s:s + chunk], n, **kw)

@@ -16,16 +16,31 @@
 //
 // The kernel relies on the ELL order every call site passes: each column
 // holds ascending distinct real ids, then only sentinels n. So an id
-// occurs at most once a column, and a binary search of the other
-// column's sorted ids replaces the sort and the run sums: one warp a
-// column, each lane takes entries of new and searches old, then entries
-// of old and searches new (an id found in new was counted from new's
-// side), and the warp takes the max by shuffles. A max is exact in any
-// order, so a column's bits do not depend on the launch's B, C or
-// chunking, nor on the lane that took an entry. The kernel checks that
-// order as it reads the ids, every slot of both columns, and writes 1 to
-// ``bad`` where a column breaks it (that column's result is then
-// meaningless); the wrapper or its caller reads the flag and raises.
+// occurs at most once a column, and one merge of the two sorted columns
+// replaces the sort and the run sums. The design, one launch for a
+// whole sweep step:
+//
+//   - A group of LG lanes (8, 16 or 32, from Ko + Kn, so that at K = 16
+//     no lane idles) takes one column pair. It stages both columns' ids,
+//     and the values of their real ids, in shared memory with coalesced
+//     loads, counting each column's real ids.
+//   - Each lane takes an equal share of the merged sequence of the real
+//     ids: one merge-path search (a binary search along its diagonal,
+//     in shared memory) finds where its share starts, then a short
+//     sequential merge, the two columns' heads held in registers, visits
+//     its ids. On equal ids the old column's entry comes first; it pairs
+//     itself with the new entry of the same id, which the new side then
+//     skips. This replaces a binary search of the other column for every
+//     entry.
+//   - The group takes the max by shuffles. A max is exact in any order,
+//     so a column's bits do not depend on the launch's B, C, the group
+//     width or the lane that took an entry.
+//   - The kernel checks the ELL order on every slot of both columns and
+//     writes 1 to ``bad`` where a column breaks it (that column's result
+//     is then meaningless, but every read stays inside the column); the
+//     wrapper or its caller reads the flag and raises.
+//   - Columns too wide to stage (Ko + Kn > CA_STAGE_MAX) are merged from
+//     device memory in place, by the same code.
 //
 // What bounds it on the card: the function needs each real entry of
 // both columns (8 bytes), the first sentinel id of a column that has one
@@ -35,39 +50,16 @@
 // entries (the smoke computes the bound from the step's ids). Its f64
 // arithmetic, a few operations an entry, is two orders of magnitude
 // below that. The order check reads the sentinels' ids too (4 bytes a
-// slot), and the searches read a column's ids again through the L1
-// cache (512 bytes a column at K = 128), not from memory.
+// slot); the values of sentinel slots are not read.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#define CA_WARPS 8    // columns a CTA, one warp each
-
-// The first position of ``ids[0, len)`` whose id is not below ``key``;
-// the ids ascend, then the sentinels n, above every real key.
-__device__ __forceinline__ int lower_bound(const int32_t* __restrict__ ids,
-                                           int len, int32_t key) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(ids + mid) < key)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// Whether slot k of ``ids[0, len)`` (holding ``id``) breaks the ELL
-// order: an id outside [0, n], or a next slot that is a real id not
-// above this one (so also a real id after a sentinel).
-__device__ __forceinline__ bool out_of_order(const int32_t* __restrict__ ids,
-                                             int len, int k, int32_t id,
-                                             int n) {
-  const int32_t next = k + 1 < len ? __ldg(ids + k + 1) : n;
-  return id < 0 || id > n || (next != n && next <= id);
-}
+#define CA_THREADS 256       // threads a CTA at most
+#define CA_STAGE_BYTES (32 * 1024)  // shared memory a CTA stages into
+#define CA_STAGE_MAX (CA_STAGE_BYTES / 8)  // widest Ko + Kn staged
 
 // torch's amax: a NaN on either side wins.
 __device__ __forceinline__ double nan_max(double a, double b) {
@@ -81,46 +73,156 @@ __device__ __forceinline__ double entry_stat(float nv, float ov) {
   return __dsub_rn(fabs(d), __dmul_rn(1e-5, (double)ov));
 }
 
-__global__ void __launch_bounds__(CA_WARPS * 32)
+// Whether any slot of ``ids[0, len)`` taken by this lane (k = lane,
+// lane + LG, ...) breaks the ELL order: an id outside [0, n], or a next
+// slot that is a real id not above this one (so also a real id after a
+// sentinel).
+template <int LG>
+__device__ __forceinline__ bool out_of_order(const int32_t* ids, int len,
+                                             int lane, int n) {
+  bool bad = false;
+  for (int k = lane; k < len; k += LG) {
+    const int32_t id = ids[k];
+    const int32_t next = k + 1 < len ? ids[k + 1] : n;
+    bad |= id < 0 || id > n || (next != n && next <= id);
+  }
+  return bad;
+}
+
+// How many of the first d merged ids come from ``a`` (ascending, la of
+// them) when merged with ``b`` (lb), equal ids taking a's first.
+__device__ __forceinline__ int merge_path(const int32_t* a, int la,
+                                          const int32_t* b, int lb, int d) {
+  int lo = d > lb ? d - lb : 0, hi = d < la ? d : la;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= b[d - 1 - mid])
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Stages ``len`` slots of a column (ids, and the values of its real
+// ids) from device memory into shared memory with the LG lanes of a
+// group (coalesced); returns this lane's count of real ids (< n).
+template <int LG>
+__device__ __forceinline__ int stage_column(const int32_t* __restrict__ gi,
+                                            const float* __restrict__ gv,
+                                            int32_t* si, float* sv, int len,
+                                            int lane, int n) {
+  int real = 0;
+  for (int k = lane; k < len; k += LG) {
+    const int32_t id = __ldg(gi + k);
+    si[k] = id;
+    if (id < n) {
+      sv[k] = __ldg(gv + k);
+      ++real;
+    }
+  }
+  return real;
+}
+
+template <int LG, bool STAGE>
+__global__ void __launch_bounds__(CA_THREADS)
     col_allclose_kernel(const int32_t* __restrict__ old_i,
                         const float* __restrict__ old_v, int64_t o_sb,
                         const int32_t* __restrict__ new_i,
                         const float* __restrict__ new_v, int64_t n_sb,
                         int B, int C, int Ko, int Kn, int n,
                         float* __restrict__ out, int32_t* __restrict__ bad) {
-  const int lane = threadIdx.x & 31;
-  const int64_t col =
-      (int64_t)blockIdx.x * CA_WARPS + (int64_t)(threadIdx.x >> 5);
-  if (col >= (int64_t)B * C) return;     // a whole warp at once
-  const int64_t b = col / C, c = col - b * C;
-  const int32_t* oi = old_i + b * o_sb + c * Ko;
-  const float* ov = old_v + b * o_sb + c * Ko;
-  const int32_t* ni = new_i + b * n_sb + c * Kn;
-  const float* nv = new_v + b * n_sb + c * Kn;
-  double best = -INFINITY;
+  extern __shared__ __align__(16) int32_t stage[];
+  const int groups = blockDim.x / LG;
+  const int gi = threadIdx.x / LG;
+  const int lane = threadIdx.x % LG;
+  const int64_t col = (int64_t)blockIdx.x * groups + gi;
+  const bool live = col < (int64_t)B * C;
+  const int64_t b = live ? col / C : 0, c = live ? col - b * C : 0;
+  const int32_t* gOi = old_i + b * o_sb + c * Ko;
+  const float* gOv = old_v + b * o_sb + c * Ko;
+  const int32_t* gNi = new_i + b * n_sb + c * Kn;
+  const float* gNv = new_v + b * n_sb + c * Kn;
+
+  // the pair's columns: staged (ids, then the real ids' values), or in
+  // place; and each column's count of real ids
+  const int32_t *oi = gOi, *ni = gNi;
+  const float *ov = gOv, *nv = gNv;
+  int lo = 0, ln = 0;
+  if (STAGE) {
+    int32_t* s = stage + (int64_t)gi * 2 * (Ko + Kn);
+    int32_t* sOi = s;
+    float* sOv = reinterpret_cast<float*>(s + Ko);
+    int32_t* sNi = s + 2 * Ko;
+    float* sNv = reinterpret_cast<float*>(s + 2 * Ko + Kn);
+    if (live) {
+      lo = stage_column<LG>(gOi, gOv, sOi, sOv, Ko, lane, n);
+      ln = stage_column<LG>(gNi, gNv, sNi, sNv, Kn, lane, n);
+    }
+    __syncwarp();
+    oi = sOi;
+    ov = sOv;
+    ni = sNi;
+    nv = sNv;
+  } else if (live) {
+    for (int k = lane; k < Ko; k += LG) lo += __ldg(gOi + k) < n;
+    for (int k = lane; k < Kn; k += LG) ln += __ldg(gNi + k) < n;
+  }
+#pragma unroll
+  for (int off = LG / 2; off > 0; off >>= 1) {
+    lo += __shfl_xor_sync(0xffffffffu, lo, off);
+    ln += __shfl_xor_sync(0xffffffffu, ln, off);
+  }
+
   bool unordered = false;
-  // the ids of new: old's value where old has the id, else 0
-  for (int k = lane; k < Kn; k += 32) {
-    const int32_t id = __ldg(ni + k);
-    unordered |= out_of_order(ni, Kn, k, id, n);
-    if (id >= n) continue;               // a sentinel
-    const int p = lower_bound(oi, Ko, id);
-    const float o = (p < Ko && __ldg(oi + p) == id) ? __ldg(ov + p) : 0.0f;
-    best = nan_max(best, entry_stat(__ldg(nv + k), o));
+  double best = -INFINITY;
+  if (live) {
+    unordered = out_of_order<LG>(oi, Ko, lane, n) ||
+                out_of_order<LG>(ni, Kn, lane, n);
+    // this lane's share [d0, d1) of the lo + ln merged real ids
+    const int total = lo + ln, per = (total + LG - 1) / LG;
+    const int d0 = min(lane * per, total), d1 = min(d0 + per, total);
+    int a = merge_path(oi, lo, ni, ln, d0);
+    int e = d0 - a;
+    // the two heads (INT_MAX past a column's end) and the last old id
+    int32_t ha = a < lo ? oi[a] : INT_MAX;
+    int32_t he = e < ln ? ni[e] : INT_MAX;
+    int32_t prev = a > 0 ? oi[a - 1] : -1;
+    for (int d = d0; d < d1; ++d) {
+      if (a < lo && ha <= he) {
+        // an id of old: new's value where new has it, else 0
+        const bool both = ha == he && e < ln;
+        best = nan_max(best, entry_stat(both ? nv[e] : 0.0f, ov[a]));
+        prev = ha;
+        ++a;
+        ha = a < lo ? oi[a] : INT_MAX;
+      } else if (e < ln) {
+        // an id of new: counted from old's side where old has it
+        if (prev != he) best = nan_max(best, entry_stat(nv[e], 0.0f));
+        ++e;
+        he = e < ln ? ni[e] : INT_MAX;
+      }
+    }
   }
-  // the ids of old that new lacks: new's value 0
-  for (int k = lane; k < Ko; k += 32) {
-    const int32_t id = __ldg(oi + k);
-    unordered |= out_of_order(oi, Ko, k, id, n);
-    if (id >= n) continue;
-    const int p = lower_bound(ni, Kn, id);
-    if (p < Kn && __ldg(ni + p) == id) continue;
-    best = nan_max(best, entry_stat(0.0f, __ldg(ov + k)));
-  }
-  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+  for (int off = LG / 2; off > 0; off >>= 1)
     best = nan_max(best, __shfl_xor_sync(0xffffffffu, best, off));
-  if (__any_sync(0xffffffffu, unordered) && lane == 0) *bad = 1;
-  if (lane == 0) out[col] = __double2float_rn(best);
+  const unsigned mine = (LG == 32 ? 0xffffffffu : ((1u << LG) - 1u))
+                        << ((threadIdx.x & 31) / LG * LG);
+  const unsigned any = __ballot_sync(0xffffffffu, unordered) & mine;
+  if (live && lane == 0) {
+    if (any) *bad = 1;
+    out[col] = __double2float_rn(best);
+  }
+}
+
+typedef void (*CaKernel)(const int32_t*, const float*, int64_t,
+                         const int32_t*, const float*, int64_t, int, int,
+                         int, int, int, float*, int32_t*);
+
+template <int LG>
+static CaKernel ca_kernel(bool stage) {
+  return stage ? col_allclose_kernel<LG, true> : col_allclose_kernel<LG, false>;
 }
 
 // Launches the statistic of ``C`` column pairs of each of ``B`` matrices
@@ -134,12 +236,28 @@ extern "C" int col_allclose_launch(const void* old_i, const void* old_v,
                                    const void* new_v, int64_t n_sb, int B,
                                    int C, int Ko, int Kn, int n, void* out,
                                    void* bad, void* stream) {
-  if (B < 1 || C < 1 || Ko < 1 || Kn < 1 || n < 0)
+  if (B < 1 || C < 1 || Ko < 1 || Kn < 1 || n < 0 || Ko > (1 << 28) ||
+      Kn > (1 << 28))
     return (int)cudaErrorInvalidValue;
-  const int64_t blocks = ((int64_t)B * C + CA_WARPS - 1) / CA_WARPS;
+  // lanes a pair: about four merged entries a lane, 8 to 32
+  const int width = Ko + Kn;
+  const int LG = width > 64 ? 32 : width > 32 ? 16 : 8;
+  const bool stage = width <= CA_STAGE_MAX;
+  int groups = CA_THREADS / LG;
+  if (stage) {
+    const int fit = CA_STAGE_BYTES / (width * 8);
+    if (fit < groups) groups = fit < 32 / LG ? 32 / LG : fit;
+    groups -= groups % (32 / LG);  // whole warps
+  }
+  const int64_t pairs = (int64_t)B * C;
+  const int64_t blocks = (pairs + groups - 1) / groups;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  col_allclose_kernel<<<(unsigned)blocks, CA_WARPS * 32, 0,
-                        reinterpret_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = stage ? (size_t)groups * width * 8 : 0;
+  CaKernel kern = LG == 32 ? ca_kernel<32>(stage)
+                  : LG == 16 ? ca_kernel<16>(stage)
+                             : ca_kernel<8>(stage);
+  kern<<<(unsigned)blocks, groups * LG, smem,
+         reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(old_i), static_cast<const float*>(old_v),
       o_sb, static_cast<const int32_t*>(new_i),
       static_cast<const float*>(new_v), n_sb, B, C, Ko, Kn, n,

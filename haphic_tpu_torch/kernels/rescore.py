@@ -20,12 +20,18 @@ batched over groups G:
                                                    (caches=True)
 
 ``rescore`` launches the CUDA kernel (csrc/rescore_population.cu) on
-CUDA tensors and runs ``rescore_plain`` on CPU tensors; nothing else
-picks the plain version. The caches and contributions of both are the
-same bits; a kernel score is the f64 sum of the row's f32 contributions
-in a fixed order, rounded once, and its bits do not depend on the
-groups launched beside it (the plain version sums one group at a time
-in f32, ``group_sums``).
+CUDA tensors, one launch a call, and runs ``rescore_plain`` on CPU
+tensors; nothing else picks the plain version. The caches and
+contributions of both are the same bits; a kernel score is the f64 sum
+of the row's f32 contributions in a fixed order, rounded once, and its
+bits do not depend on the groups launched beside it nor on the mode
+(the plain version sums one group at a time in f32, ``group_sums``).
+
+The kernel's launch plan is set up once per shape and device (``plan``)
+and its workspace (per-tile arrival counters, left at 0 by every call,
+and the rows' f64 partials) is kept per device (``_WORK``): two calls
+must not run at once on two streams of one device. The GA makes its
+calls on one stream, and a mesh has one process a rank.
 
 What bounds it (``bound_ms``): in scores mode the operations, about
 OPS_PER_PAIR FP32 operations per (tour, record) pair; in caches mode
@@ -102,30 +108,63 @@ def rescore_plain(order, ori, lengths, pa, pb, la, lb, d, w, caches: bool):
     return c + (contrib, scores) if caches else scores
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = kbuild.load('rescore_population')
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument types of a built rescore_population library
+    (this source, or a build of it with other -D flags, as
+    tools/ab_rescore.py times)."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.rescore_geometry.argtypes = [i32, ctypes.POINTER(i32),
-                                     ctypes.POINTER(i32),
-                                     ctypes.POINTER(i64)]
-    lib.rescore_geometry.restype = None
+    lib.rescore_plan.argtypes = [i32, i32, i32, i64, ctypes.POINTER(i64)]
+    lib.rescore_plan.restype = ctypes.c_int
     fn = lib.rescore_population_launch
-    fn.argtypes = [vp] * 21 + [i32, i32, i32, i64, i32, i32, i64, i32, i32,
+    fn.argtypes = [vp] * 22 + [i32, i32, i32, i64, ctypes.POINTER(i64), i32,
                                vp]
     fn.restype = ctypes.c_int
     return lib
 
 
-def geometry(k: int):
-    """(tile, smem_table, chunk) of the kernel at k contigs: tours per
-    block, whether their tables are held in shared memory, records per
-    chunk. A function of k alone."""
-    tile, smem = ctypes.c_int(), ctypes.c_int()
-    chunk = ctypes.c_int64()
-    _lib().rescore_geometry(k, ctypes.byref(tile), ctypes.byref(smem),
-                            ctypes.byref(chunk))
-    return tile.value, smem.value, chunk.value
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return bind(kbuild.load('rescore_population'))
+
+
+# (device index, G, P, k, R) -> the kernel's launch plan (int64[12]:
+# chunk, nchunks, then per mode, scores and caches: tile, smem_table,
+# ntiles, chunks a CTA, the grid's chunk groups)
+_PLANS = {}
+# device index -> (arrival counters int32, partials f64): the kernel's
+# workspace, reused by every call on the device (the counters are 0
+# between calls; calls on two streams at once must not share it)
+_WORK = {}
+
+
+def plan(device: torch.device, G: int, P: int, k: int, R: int):
+    """The kernel's launch plan for this shape on ``device`` (set up on the
+    first call of the shape, then cached): a ctypes int64[12] of chunk
+    (records, a function of k alone) and nchunks, then for scores mode
+    and for caches mode: tile (tours a CTA), smem_table, ntiles, m
+    (chunks a CTA) and the grid's chunk groups."""
+    key = (device.index, G, P, k, R)
+    p = _PLANS.get(key)
+    if p is None:
+        p = (ctypes.c_int64 * 12)()
+        err = _lib().rescore_plan(G, P, k, R, p)
+        if err != 0:
+            raise RuntimeError('rescore_population plan failed: CUDA error '
+                               '{}'.format(err))
+        _PLANS[key] = p
+    return p
+
+
+def _workspace(device: torch.device, n_counters: int, n_partial: int):
+    """The device's (counters, partials), grown to at least these sizes;
+    new counters start at 0."""
+    counters, partial = _WORK.get(device.index, (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    if partial is None or partial.numel() < n_partial:
+        partial = torch.empty(n_partial, dtype=torch.float64, device=device)
+    _WORK[device.index] = counters, partial
+    return counters, partial
 
 
 def _check(order, ori, lengths, pa, pb, la, lb, d, w):
@@ -164,12 +203,13 @@ def _launch(order, ori, lengths, pa, pb, la, lb, d, w, caches: bool,
     dev = order.device
     G, P, k = order.shape
     R = pa.shape[1]
-    tile, smem, chunk = geometry(k)
-    nchunks = max(1, -(-R // chunk))
-    ntiles = -(-P // tile)
-    gtab = torch.empty((G, ntiles, k, tile, 2), dtype=torch.int32,
-                       device=dev)
-    partial = torch.empty((G, P, nchunks), dtype=torch.float64, device=dev)
+    p = plan(dev, G, P, k, R)
+    nchunks = p[1]
+    tile, smem, ntiles, _, ny = p[2 + 5 * caches:7 + 5 * caches]
+    counters, partial = _workspace(dev, G * ntiles, G * P * nchunks)
+    # the global-table path: a slab of k padded rows a CTA
+    gtab = None if smem else torch.empty(
+        (G * ny * ntiles, k, tile + 2, 2), dtype=torch.int32, device=dev)
     scores = torch.empty((G, P), dtype=torch.float32, device=dev)
     out = ()
     if caches:
@@ -178,12 +218,12 @@ def _launch(order, ori, lengths, pa, pb, la, lb, d, w, caches: bool,
             tuple(torch.empty((G, P, R), dtype=torch.int32, device=dev)
                   for _ in range(6)) + \
             (torch.empty((G, P, R), dtype=torch.float32, device=dev),)
-    ptrs = [x.data_ptr() for x in (order, ori, lengths, pa, pb, la, lb, d, w,
-                                   gtab, partial)]
+    ptrs = [x.data_ptr() for x in (order, ori, lengths, pa, pb, la, lb, d, w)]
+    ptrs += [None if gtab is None else gtab.data_ptr(), partial.data_ptr(),
+             counters.data_ptr()]
     ptrs += [x.data_ptr() for x in out] if caches else [None] * 9
     err = _lib().rescore_population_launch(
-        *ptrs, scores.data_ptr(), G, P, k, R, tile, smem, chunk, nchunks,
-        int(caches), stream)
+        *ptrs, scores.data_ptr(), G, P, k, R, p, int(caches), stream)
     if err != 0:
         raise RuntimeError('rescore_population kernel launch failed: CUDA '
                            'error {}'.format(err))

@@ -173,6 +173,58 @@ def test_sweep_cols_takes_its_statistic_from_the_wrapper():
     assert int(bad) == 0
 
 
+@pytest.mark.parametrize('chunk', [7, 40, 97, 4096])
+def test_sweep_cols_launches_the_statistic_once_whatever_the_chunk(
+        monkeypatch, chunk):
+    """_sweep_cols calls col_allclose once a call, on all of its columns,
+    whatever the column chunk of its loop (counted through the module's
+    attribute on the CPU path), and its statistic has the bits of the
+    chunk-by-chunk maximum; for a block of columns [c0, c1) too."""
+    n, K = 96, 32
+    idx0, val0 = (torch.as_tensor(x) for x in _ell(n, K, 3))
+    infl = torch.as_tensor(np.asarray(INFLATIONS[:3], np.float32))
+    si, sv = tsp._first_iteration(idx0, val0, infl, n, K, 1e-4)
+    calls = []
+
+    def counting(*args, **kw):
+        calls.append(args[0].shape[1])
+        return kca.col_allclose(*args, **kw)
+    monkeypatch.setattr(tsp, 'col_allclose', counting)
+    ni, nv, stat = tsp._sweep_cols(si, sv, infl, n, K, chunk, 1e-4, 2)
+    assert calls == [n + 1]
+    chunked = kca.step_stats(kca.col_allclose, si, sv, ni, nv, n, chunk)
+    assert torch.equal(stat, chunked.amax(dim=1))
+    calls.clear()
+    bi, bv, bstat = tsp._sweep_cols(si, sv, infl, n, K, chunk, 1e-4, 2,
+                                    c0=20, c1=71)
+    assert calls == [51]
+    assert torch.equal(bi, ni[:, 20:71]) and torch.equal(bv, nv[:, 20:71])
+    assert torch.equal(bstat, chunked[:, 20:71].amax(dim=1))
+
+
+def test_sweep_cols_on_an_empty_block():
+    """No columns: no statistic call, and -inf for every inflation."""
+    n, K = 40, 8
+    idx0, val0 = (torch.as_tensor(x) for x in _ell(n, K, 4))
+    infl = torch.as_tensor(np.asarray(INFLATIONS[:2], np.float32))
+    si, sv = tsp._first_iteration(idx0, val0, infl, n, K, 1e-4)
+    n0 = kca.col_allclose.launches
+    ni, nv, stat = tsp._sweep_cols(si, sv, infl, n, K, 16, 1e-4, 2, c0=5,
+                                   c1=5)
+    assert ni.shape == (2, 0, K) and nv.shape == (2, 0, K)
+    assert torch.equal(stat, torch.full((2,), -torch.inf))
+    assert kca.col_allclose.launches == n0
+
+
+def test_cpu_wrapper_takes_the_plain_version_in_column_chunks():
+    """On CPU tensors the wrapper runs the plain version CPU_CHUNK
+    columns at a time: the same bits as one plain call."""
+    oi, ov, ni, nv = (torch.as_tensor(x) for x in _stat_case(
+        21, 2, 2 * kca.CPU_CHUNK + 3, 4, 4, 900))
+    assert torch.equal(kca.col_allclose(oi, ov, ni, nv, 900),
+                       kca.col_allclose_plain(oi, ov, ni, nv, 900))
+
+
 def test_compare_counts_inf_columns_and_the_largest_difference():
     got = torch.tensor([[0.5, -torch.inf, -torch.inf, 1.0, float('nan')]])
     want = torch.tensor([[0.25, -torch.inf, 2.0, 1.0, float('nan')]])

@@ -1276,9 +1276,9 @@ def test_col_allclose_kernel_repeat_and_block_bit_equal(card):
 
 @pytest.mark.cuda
 def test_sweep_step_launches_the_statistic_kernel(card):
-    """_sweep_step launches the statistic once a chunk on the card, and
-    its per-inflation statistic is the max of the kernel's over the
-    step's columns."""
+    """_sweep_step launches the statistic once a step on the card (over
+    all of the step's column chunks), and its per-inflation statistic is
+    the max of the kernel's over the step's columns."""
     from haphic_tpu_torch.cluster import sparse_mcl as tsp
     from haphic_tpu_torch.kernels import col_allclose as kca
     B, n, K, chunk = 2, 300, 32, 128
@@ -1289,7 +1289,7 @@ def test_sweep_step_launches_the_statistic_kernel(card):
     n0 = kca.col_allclose.launches
     ni, nv, stat, _ = tsp._sweep_step(si, sv, infl, np.ones(B, dtype=bool),
                                       n, K, chunk, 1e-4, 2)
-    assert kca.col_allclose.launches == n0 + -(-(n + 1) // chunk)
+    assert -(-(n + 1) // chunk) > 1 and kca.col_allclose.launches == n0 + 1
     want = kca.col_allclose_plain(si, sv, ni, nv, n).amax(dim=1)
     assert torch.equal(stat, want)
     # with the host loop's order flag: the same bits, the flag clear
@@ -1358,6 +1358,28 @@ def test_col_allclose_kernel_flags_a_column_out_of_order(card, kind):
     keep = torch.ones_like(got, dtype=torch.bool)
     keep[0, 3] = False
     assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [2, 8, 16, 32], ids=lambda k: 'K{}'.format(k))
+def test_col_allclose_kernel_lane_groups_at_small_K(card, K):
+    """At K <= 16 a column pair takes 8 lanes (Ko + Kn <= 32), at K = 32
+    16 lanes: every kind of column pair against the plain version, over
+    enough pairs that groups of one warp hold different kinds."""
+    B, C, n = 2, 333, 600
+    got, _ = _stat_pair(card, _stat_case(K * 7 + 1, B, C, K, K, n), n)
+    kinds = torch.arange(B * C, device=card).view(B, C) % len(STAT_KINDS)
+    sentinel_only = kinds == STAT_KINDS.index('sentinel_only')
+    assert bool((got[sentinel_only] == -torch.inf).all())
+
+
+@pytest.mark.cuda
+def test_col_allclose_kernel_past_the_staging_width(card):
+    """Ko + Kn past what a CTA stages in shared memory: the merge reads
+    the columns in place, with the same results."""
+    B, C, n = 1, 12, 9000
+    _stat_pair(card, _stat_case(31, B, C, 2100, 2100, n), n)
+    _stat_pair(card, _stat_case(32, B, C, 4000, 300, n), n)
 
 
 def test_col_allclose_cpu_tensors_take_the_plain_version():
@@ -1435,7 +1457,11 @@ def _check_rescore(args):
     (2, 37, 300, 9000, 7),       # tiles of 16, a partial last tile
     (1, 3, 13000, 700, 0),       # tables past shared memory: global path
     (1, 2, 2, 40, 0),            # k = 2
-], ids=['small', 'ragged-R', 'P4', 'tiles', 'global', 'k2'])
+    (3, 21, 2000, 7000, 3),      # tiles of 8 (past k = 1600)
+    (2, 5, 7000, 2500, 0),       # tiles of 2, R just above one chunk
+    (2, 9, 100, 0, 0),           # no records: scores 0, caches empty
+], ids=['small', 'ragged-R', 'P4', 'tiles', 'global', 'k2', 'tile8',
+        'tile2', 'no-records'])
 def test_rescore_kernel_matches_plain(card, G, P, k, R, pad):
     _check_rescore(_rescore_case(G * k + R, G, P, k, R, pad))
 
@@ -1463,6 +1489,75 @@ def test_rescore_kernel_rows_do_not_depend_on_the_batch(card):
     assert torch.equal(alone, whole[-1][4:5])
     for a, b in zip(again, whole):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rescore_kernel_division_edge_values(card):
+    """Weights and distances outside the range where the kernel divides
+    by div.rn's fast path (weights of 0, subnormal, below 2^-32 and
+    above 2^64; distances past 2^64 and infinite), beside ordinary
+    ones in the same records: the contributions are still the plain
+    version's bits."""
+    args = _rescore_case(12, 2, 16, 64, 4000)
+    w, d = args[8], args[7]
+    edge = torch.tensor([0.0, 1e-40, 2.0 ** -33, 2.0 ** -32, 3e-20, 1.0,
+                         2.0 ** 64, 3e19, 1e30], device=card)
+    w[:, ::7] = edge[torch.arange(w[:, ::7].shape[1], device=card)
+                     % len(edge)]
+    d[:, :, 3::11] = torch.tensor([1e20, float('inf'), 2.0 ** 64, 5e18],
+                                  device=card)[torch.arange(
+                                      d[:, :, 3::11].shape[2],
+                                      device=card) % 4]
+    _check_rescore(args)
+
+
+@pytest.mark.cuda
+def test_rescore_kernel_repeats_leave_no_counter_set(card):
+    """Three calls in a row in each mode, and calls of other shapes in
+    between, give the same bits: each call's last CTA of a tile sets its
+    arrival counter back to 0, so the next call starts from 0."""
+    from haphic_tpu_torch.kernels import rescore as krs
+    args = _rescore_case(9, 3, 40, 700, 30000, 11)
+    other = _rescore_case(10, 5, 8, 300, 5000)
+    first = [krs.rescore(*args, caches=c) for c in (False, True)]
+    for _ in range(3):
+        krs.rescore(*other, caches=True)
+        for c, want in zip((False, True), first):
+            got = krs.rescore(*args, caches=c)
+            got = got if c else (got,)
+            want = want if c else (want,)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    dev = args[0].device.index
+    assert int(krs._WORK[dev][0].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('caches', [False, True], ids=['scores', 'caches'])
+def test_rescore_kernel_is_one_device_kernel_a_call(card, caches):
+    """A call, its plan and workspace set up, runs one kernel on the
+    card (torch profiler) in either mode, at the smoke batch's shape: no
+    kernel but the rescoring kernel, at most one a call (the profiler
+    may miss some of the profiled kernels), and one launch a call by the
+    wrapper's count."""
+    from torch.profiler import ProfilerActivity, profile
+    from haphic_tpu_torch.kernels import rescore as krs
+    args = _rescore_case(11, 7, 100, 1024, 196608, 1000)
+    for _ in range(2):
+        krs.rescore(*args, caches=caches)
+    torch.cuda.synchronize()
+    n0 = krs.rescore.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            krs.rescore(*args, caches=caches)
+        torch.cuda.synchronize()
+    assert krs.rescore.launches == n0 + 3
+    kernels = [e for e in prof.events()
+               if getattr(e.device_type, 'name', '') == 'CUDA'
+               and 'memcpy' not in e.name.lower()
+               and 'memset' not in e.name.lower()]
+    assert len(kernels) <= 3, [e.name for e in kernels]
+    assert all('rescore_kernel' in e.name for e in kernels)
 
 
 @pytest.mark.cuda

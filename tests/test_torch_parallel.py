@@ -293,6 +293,22 @@ def test_sharded_sparse_iterates_bit_equal(two_ranks, case):
         assert k_steps == want.k_steps and overflow == want.overflow_cols
 
 
+@pytest.mark.parametrize('case', range(len(W.SPARSE_CASES)),
+                         ids=[c[0] for c in W.SPARSE_CASES])
+def test_sharded_sweep_takes_the_statistic_once_a_step(two_ranks, case):
+    """On every rank _sharded_sweep_step calls col_allclose once a step,
+    on the rank's whole share of the columns (N = n+1 padded to the
+    world, split evenly), whatever the column chunk; the iterates stay
+    the meshless run's (test_sharded_sparse_iterates_bit_equal)."""
+    _, res = two_ranks
+    name, n, K, infl, max_iter = W.SPARSE_CASES[case]
+    share = -(-(n + 1) // WORLD)
+    for got in res['sparse']:
+        calls = got['_calls'][name]
+        assert calls['steps'] > 1
+        assert calls['stat_columns'] == [share] * calls['steps']
+
+
 def test_group_sharded_ga_equals_single(two_ranks):
     """Four groups in two batches (shares 2 / 1 and 1 / 0): every group's
     order, ori, score and history equal the single-process run's."""

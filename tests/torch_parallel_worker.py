@@ -185,13 +185,30 @@ def run_case(case, mesh, workdir):
         finally:
             tmcl.DEVICE_MIN_N = keep
     if case == 'sparse':
-        out = {}
+        # the sharded steps, and the statistic's calls with their columns
+        calls = {'steps': 0, 'stat_columns': []}
+        step, stat = sp._sharded_sweep_step, sp.col_allclose
+
+        def counted_step(*args, **kw):
+            calls['steps'] += 1
+            return step(*args, **kw)
+
+        def counted_stat(*args, **kw):
+            calls['stat_columns'].append(int(args[0].shape[1]))
+            return stat(*args, **kw)
+        out = {'_calls': {}}
         for name, n, K, infl, max_iter in SPARSE_CASES:
-            res = sp.run_mcl_sparse(*sparse_input(name, n), n, infl, K=K,
-                                    max_iter=max_iter, device='cpu',
-                                    mesh=mesh)
+            calls.update(steps=0, stat_columns=[])
+            sp._sharded_sweep_step, sp.col_allclose = counted_step, counted_stat
+            try:
+                res = sp.run_mcl_sparse(*sparse_input(name, n), n, infl,
+                                        K=K, max_iter=max_iter,
+                                        device='cpu', mesh=mesh)
+            finally:
+                sp._sharded_sweep_step, sp.col_allclose = step, stat
             out[name] = (res.idx, res.val, res.n_iters, res.converged,
                          res.k_steps, res.overflow_cols)
+            out['_calls'][name] = dict(calls)
         return out
     if case == 'ga':
         problems, hots = ga_inputs()

@@ -15,7 +15,13 @@ kernel). Each turn prints one JSON line: per pipeline and route, the
 GA's seconds and peak card memory, the launches of the GA's kernels
 (the rescoring kernel's where the checkout has it), and a hash of the
 results (orders, orientations, scores), so that the two checkouts'
-outputs can be compared. Last, B's process prints one line that times, at the
+outputs can be compared. Each turn then times one rescoring call
+(`rescore`, the checkout's rescore_population kernel) in each mode at
+the dense pipeline's largest GA batch, on that batch's own records and
+a seeded population (tools/ab_rescore.py's measure: ms by CUDA events,
+device us and kernels a call by torch.profiler, host us a call, and a
+hash of the outputs), so that the two kernels are timed side by side in
+ABBA turns. Last, B's process prints one line that times, at the
 dense pipeline's largest GA batch, the batch's score as one kernel
 launch against one launch per group, and the (G, P, R) contribution
 sum three ways (one f32 sum, one f32 sum per group, one f64 sum rounded
@@ -59,6 +65,8 @@ import hashlib, json, os, pickle, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[4])
+import ab_rescore as ab
 from haphic_tpu_torch.kernels import build as kbuild
 from haphic_tpu_torch.kernels import delta as kdelta
 from haphic_tpu_torch.kernels import score as kscore
@@ -101,6 +109,24 @@ for name, (args, kw) in calls.items():
             'max_memory_allocated': torch.cuda.max_memory_allocated(),
             'results_sha256': h.hexdigest()}
 os.environ.pop('HAPHIC_GA_NO_DELTA')
+if krs is not None:
+    # one rescoring call in each mode at the dense run's largest batch
+    args, kw = calls['dense']
+    problems, npop = args[0], kw['npop']
+    (k_pad, Rp, c_eff), idxs = max(
+        topt._batches(problems, npop, topt.CHUNK),
+        key=lambda b: len(b[1]) * b[0][1])
+    rec, order, ori, _ = topt._make_batch(
+        [problems[g] for g in idxs], [None] * len(idxs), k_pad, Rp, c_eff,
+        npop, kw['seed'], 'cuda')
+    rargs = (order, ori, rec.lengths, rec.pa, rec.pb, rec.la, rec.lb, rec.d,
+             rec.w)
+    out['rescore'] = {'G': len(idxs), 'P': npop, 'k_pad': k_pad,
+                      'R_pad': Rp}
+    for mode, caches in (('scores', False), ('caches', True)):
+        fn = lambda: krs.rescore(*rargs, caches=caches)
+        out['rescore'][mode] = dict(ab.measure(torch, fn, 50),
+                                    sha=ab.digest(torch, fn()))
 print(json.dumps(out), flush=True)
 '''
 
@@ -178,7 +204,8 @@ def main(argv) -> int:
     print(json.dumps({'record': [ln for ln in lines
                                  if ln.get('phase') != 'env']}), flush=True)
     for turn, label in enumerate(ORDER):
-        (line,) = child(TURN, trees[label], work, ','.join(PIPELINES))
+        (line,) = child(TURN, trees[label], work, ','.join(PIPELINES),
+                        os.path.dirname(os.path.abspath(__file__)))
         print(json.dumps({'checkout': label, 'dir': trees[label],
                           'turn': turn, **line}), flush=True)
     (line,) = child(PARTS, trees['B'], work)
