@@ -74,8 +74,11 @@ Phases, each printing one JSON line:
              groups [2, 5) launched alone bit-equal to the same rows of
              the whole launch. Timed in both modes (ms by CUDA events,
              device_ms by torch.profiler, plain_ms, bound_ms: bytes in
-             caches mode, operations in scores mode); no device kernel
-             but the rescoring kernel, one a call, in either mode.
+             caches mode, operations in scores mode); one launch a call
+             by the wrapper's counter, and no device kernel but the
+             rescoring kernel, at most one a call, in the profiler's
+             record (profiled_kernels: it records fewer than launched
+             late in this process), in either mode.
 5. sparse_pipeline
              the same pipeline through the default `auto` route on 24
              chromosomes x 1000 contigs x 20 kb (480 Mb, n = 24,000
@@ -112,7 +115,8 @@ Phases, each printing one JSON line:
              same convergence decision (<= 1e-8) for each inflation;
              over all the step's columns in one call, as the sweep
              calls it (one launch a step): the kernel's launch timed
-             (ms, and device_ms by torch.profiler), the wrapper with the
+             (ms, and device_ms and profiled_kernels by torch.profiler,
+             as for the rescoring), the wrapper with the
              order flag the host loop reads (wrapper_ms), and the plain
              version (plain_ms); its bound from the step's real entries.
              The step's arguments go to build/chip_smoke/sparse_step.pt
@@ -1017,9 +1021,8 @@ def phase_sparse_step(torch, sp, first_step):
                 columns=kst.numel(), stat=kst.amax(dim=1).tolist(),
                 converged=decide[0])
     stat_ms = _time_ms(torch, stats[1], STEP_REPS)
-    scmp['device_ms'] = _one_kernel_a_call(
-        torch, stats[1], STEP_REPS, "the step's statistic",
-        'col_allclose_kernel')
+    scmp.update(_profiled(stats[1], STEP_REPS, 'col_allclose_kernel',
+                          lambda: kca.col_allclose.launches))
     scmp['wrapper_ms'] = _time_ms(torch, stats[0], STEP_REPS)
     stat_plain_ms = _time_ms(torch, stats[2], STEP_REPS)
     sbound, sbound_by = kca.bound_ms(A_i, kout[0], n)
@@ -1735,39 +1738,23 @@ def _time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _profiled_kernels(torch, fn, reps):
-    """(mean device ms of a kernel, the kernels captured, their names) of
-    ``reps`` calls of ``fn`` after a warm-up, by torch.profiler (memory
-    copies and sets apart). The profiler may miss some or all of the
-    profiled kernels, so a caller that launches one kernel a call can
-    only check that every captured kernel is that one and that there
-    are at most ``reps``."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if getattr(e.device_type, 'name', '') == 'CUDA'
-               and 'memcpy' not in e.name.lower()
-               and 'memset' not in e.name.lower()]
-    us = sum(e.time_range.end - e.time_range.start for e in kernels)
-    return (us / 1e3 / max(1, len(kernels)), len(kernels),
-            sorted({e.name for e in kernels}))
-
-
-def _one_kernel_a_call(torch, fn, reps, what, name):
-    """The device ms of ``fn``'s one kernel a call (``_profiled_kernels``;
-    None where the profiler captured none), after checking that the
-    profiler saw no kernel but ``name`` and at most one a call. The
-    wrapper's launch count, not the profiler, shows that it launched."""
-    ms, n, names = _profiled_kernels(torch, fn, reps)
-    check(n <= reps and all(name in x for x in names),
-          '{}: {} calls ran {} device kernels: {}'.format(what, reps, n,
-                                                         names))
-    return ms if n else None
+def _profiled(fn, calls, name, launches):
+    """{'device_ms': the mean device ms of ``fn``'s kernel by
+    torch.profiler (None where it recorded none), 'profiled_kernels':
+    the kernels it recorded} over ``calls`` calls, after checking that
+    the wrapper's launch counter (``launches()``) rose by one a call and
+    that the profiler recorded no kernel but ``name``, at most one a
+    call. The counter proves the launches: late in this process the
+    profiler records fewer kernels than were launched
+    (haphic_tpu_torch/kernels/profiling.py)."""
+    from haphic_tpu_torch.kernels import profiling as kprof
+    n0 = launches()
+    events = kprof.kernel_events(fn, calls)
+    check(launches() == n0 + calls + 1, '{}: {} calls (and a warm-up) '
+          'counted {} launches'.format(name, calls, launches() - n0))
+    kprof.check_kernels(events, calls, name)
+    return {'device_ms': kprof.device_ms(events) if events else None,
+            'profiled_kernels': len(events)}
 
 
 def phase_kernel(torch, kscore, main_args, launches):
@@ -1887,16 +1874,13 @@ def phase_rescore(torch, krs, main_args, launches):
         for mode, caches in (('scores', False), ('caches', True)):
             ms = _time_ms(torch, lambda: krs.rescore(*args, caches=caches),
                           20)
-            device_ms = _one_kernel_a_call(
-                torch, lambda: krs.rescore(*args, caches=caches), 10,
-                'rescore_population in {} mode'.format(mode),
-                'rescore_kernel')
+            prof = _profiled(lambda: krs.rescore(*args, caches=caches), 10,
+                             'rescore_kernel', lambda: krs.rescore.launches)
             plain_ms = _time_ms(
                 torch, lambda: krs.rescore_plain(*args, caches=caches), 3)
             bound, by = krs.bound_ms(G, P, k, R, caches)
-            row[mode] = {'ms': ms, 'device_ms': device_ms,
-                         'plain_ms': plain_ms, 'bound_ms': bound,
-                         'bound_by': by}
+            row[mode] = {'ms': ms, **prof, 'plain_ms': plain_ms,
+                         'bound_ms': bound, 'bound_by': by}
         # the line's main figures: caches mode (the bytes the delta
         # kernel then reads are written here)
         row.update({x: row['caches'][x]

@@ -108,10 +108,9 @@ def rescore_plain(order, ori, lengths, pa, pb, la, lb, d, w, caches: bool):
     return c + (contrib, scores) if caches else scores
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Sets the argument types of a built rescore_population library
-    (this source, or a build of it with other -D flags, as
-    tools/ab_rescore.py times)."""
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = kbuild.load('rescore_population')
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.rescore_plan.argtypes = [i32, i32, i32, i64, ctypes.POINTER(i64)]
     lib.rescore_plan.restype = ctypes.c_int
@@ -120,11 +119,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                vp]
     fn.restype = ctypes.c_int
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    return bind(kbuild.load('rescore_population'))
 
 
 # (device index, G, P, k, R) -> the kernel's launch plan (int64[12]:

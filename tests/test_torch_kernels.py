@@ -1532,32 +1532,45 @@ def test_rescore_kernel_repeats_leave_no_counter_set(card):
     assert int(krs._WORK[dev][0].abs().sum()) == 0
 
 
+@pytest.mark.parametrize('names, ok', [
+    (['k<8>', 'k<8>', 'k<8>'], True),
+    (['k<8>'], True),                      # the profiler missed two
+    ([], True),
+    (['k<8>'] * 4, False),                 # more than one a call
+    (['k<8>', 'other', 'k<8>'], False),    # another kernel
+])
+def test_profiling_check_kernels(names, ok):
+    """check_kernels on recorded events of 3 calls: fewer than one a call
+    passes (the launch counters prove the launches), more, or a kernel
+    of another name, raises."""
+    from haphic_tpu_torch.kernels import profiling
+    events = [(n, 10.0 * i, 10.0 * i + 4.0) for i, n in enumerate(names)]
+    if ok:
+        profiling.check_kernels(events, 3, 'k<')
+        if events:
+            assert profiling.device_ms(events) == pytest.approx(0.004)
+    else:
+        with pytest.raises(RuntimeError):
+            profiling.check_kernels(events, 3, 'k<')
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('caches', [False, True], ids=['scores', 'caches'])
 def test_rescore_kernel_is_one_device_kernel_a_call(card, caches):
     """A call, its plan and workspace set up, runs one kernel on the
-    card (torch profiler) in either mode, at the smoke batch's shape: no
-    kernel but the rescoring kernel, at most one a call (the profiler
-    may miss some of the profiled kernels), and one launch a call by the
-    wrapper's count."""
-    from torch.profiler import ProfilerActivity, profile
+    card (torch profiler) in either mode, at the smoke batch's shape:
+    the profiler records one kernel a call, the rescoring kernel, and
+    the wrapper counts one launch a call."""
+    from haphic_tpu_torch.kernels import profiling
     from haphic_tpu_torch.kernels import rescore as krs
     args = _rescore_case(11, 7, 100, 1024, 196608, 1000)
-    for _ in range(2):
-        krs.rescore(*args, caches=caches)
-    torch.cuda.synchronize()
     n0 = krs.rescore.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            krs.rescore(*args, caches=caches)
-        torch.cuda.synchronize()
+    for _ in range(3):
+        krs.rescore(*args, caches=caches)
     assert krs.rescore.launches == n0 + 3
-    kernels = [e for e in prof.events()
-               if getattr(e.device_type, 'name', '') == 'CUDA'
-               and 'memcpy' not in e.name.lower()
-               and 'memset' not in e.name.lower()]
-    assert len(kernels) <= 3, [e.name for e in kernels]
-    assert all('rescore_kernel' in e.name for e in kernels)
+    ms = profiling.one_kernel_a_call(
+        lambda: krs.rescore(*args, caches=caches), 3, 'rescore_kernel')
+    assert ms > 0
 
 
 @pytest.mark.cuda

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """The GA cycle's rescoring kernel (rescore_population) of two checkouts,
-and builds of the second with other compile-time settings, timed in
-turns on one card at the dense pipeline's largest GA batch's shape.
+timed in turns on one card at the dense pipeline's largest GA batch's
+shape, and the share of the second's kernel that builds its tables.
 
     python3 tools/ab_rescore.py A_DIR B_DIR [--order ABBA] [--reps 50]
-        [--variant NAME=-DFLAG=V ...] [--sass OUT_DIR]
+        [--prologue] [--sass OUT_DIR]
 
 The inputs are seeded: G = 7 groups, P = 100 tours, k = 1024 contigs,
 R = 196,608 records of which the last 1000 are padding, the real ones
@@ -16,20 +16,31 @@ only and prints one JSON line: for each mode (scores, caches) the ms a
 call by CUDA events over --reps calls, the device kernels of a call by
 torch.profiler (name, device us, the gap before it), the device us a
 call, the wrapper's host us a call (the calls enqueued without a sync),
-and a hash of the outputs. Each --variant builds B's
-csrc/rescore_population.cu again with the given nvcc flags (e.g.
-swizzle0=-DRS_SWIZZLE=0 for the table without its swizzle,
-tile8=-DRS_TILE_MAX=8 for tiles of 8 tours) into a library of its own
-under B's build/ab_rescore/ and times it in B's turns, each variant in
-turn with B's own build, in the same process. --sass writes each
-library's SASS (cuobjdump -sass) to OUT_DIR and prints, per rescoring
-kernel, its instruction count and its loops (the spans of backward
-branches) with the count of instructions, shared-memory loads,
-conversions (I2F, F2F), MUFU and FP64 adds in each. Exits non-zero when
-a turn fails.
+and a hash of the outputs.
+
+--prologue runs one more process on B (its kernel builds each tile's
+tables in every CTA's prologue) and prints one JSON line per mode:
+  - a sweep of R at k = 1024, P = 100 and as many groups as give one
+    CTA an SM at most, each CTA taking all the chunks (the plan's m
+    replaced): R = 512 (a CTA is mostly its table build) and R = 1, 2,
+    3 and 4 chunks, the ms by CUDA events and the device ms of a call,
+    so that the build's cost (the intercept) and a chunk's (the slope)
+    can be read;
+  - at the dense batch's shape, the kernel with each number m of chunks
+    a CTA (the plan's m replaced: the grid has ceil(nchunks / m) chunk
+    groups), its ms, device ms and output hash (equal for every m: the
+    sum order does not depend on m), beside the m the plan picks.
+
+--sass writes each library's SASS (cuobjdump -sass) to OUT_DIR and
+prints, per rescoring kernel, its instruction count and its loops (the
+spans of backward branches) with the count of instructions,
+shared-memory loads, conversions (I2F, F2F), MUFU and FP64 adds in
+each. Exits non-zero when a turn fails.
 """
 
 import argparse
+import functools
+import importlib.util
 import json
 import os
 import re
@@ -71,11 +82,23 @@ def inputs(torch, G, P, k, R, pad, seed, device='cuda'):
         torch.as_tensor(d, device=device), torch.as_tensor(w, device=device)]
 
 
+@functools.lru_cache(maxsize=None)
+def profiling():
+    """The port's profiling helper (haphic_tpu_torch/kernels/profiling.py)
+    of this tools directory's tree, loaded from its file: a checkout under
+    test may predate it."""
+    path = os.path.join(os.path.dirname(TOOLS), 'haphic_tpu_torch',
+                        'kernels', 'profiling.py')
+    spec = importlib.util.spec_from_file_location('_ab_profiling', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def measure(torch, fn, reps):
     """fn's ms a call by CUDA events, its device kernels by the profiler
     and its host us a call; fn is called with no argument."""
     import time
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -92,22 +115,15 @@ def measure(torch, fn, reps):
     host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
     calls = 5
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if getattr(e.device_type, 'name', '') == 'CUDA'),
-                key=lambda e: e.time_range.start)
+    ev = profiling().kernel_events(fn, calls)
     per = len(ev) // calls
     first, prev = [], None
-    for e in ev[-per:] if per else []:
-        first.append({'name': e.name[:80],
-                      'us': e.time_range.end - e.time_range.start,
+    for name, start, end in ev[-per:] if per else []:
+        first.append({'name': name[:80], 'us': end - start,
                       'gap_before_us': None if prev is None
-                      else e.time_range.start - prev})
-        prev = e.time_range.end
-    dev_us = sum(e.time_range.end - e.time_range.start for e in ev) / calls
+                      else start - prev})
+        prev = end
+    dev_us = sum(end - start for _, start, end in ev) / calls
     return {'ms': ms, 'device_us': dev_us, 'kernels_a_call': len(ev) / calls,
             'host_us': host_us, 'last_call': first}
 
@@ -125,23 +141,8 @@ def digest(torch, out) -> str:
     return h.hexdigest()[:16]
 
 
-def build_variant(kbuild, tree, name, flags):
-    """B's rescore_population.cu built with ``flags`` added: the library
-    path and nvcc's report."""
-    work = os.path.join(tree, 'build', 'ab_rescore')
-    os.makedirs(work, exist_ok=True)
-    out = os.path.join(work, 'librescore_population-{}.so'.format(name))
-    cmd = [kbuild.nvcc_path()] + kbuild.NVCC_FLAGS + flags + [
-        '-o', out, os.path.join(kbuild.CSRC, 'rescore_population.cu')]
-    run = subprocess.run(cmd, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT, text=True)
-    if run.returncode != 0:
-        raise RuntimeError('nvcc {}: {}'.format(name, run.stdout))
-    return out, run.stdout
-
-
 TURN = r'''
-import ctypes, json, os, sys
+import json, sys
 import torch
 tree, cfg = sys.argv[1], json.loads(sys.argv[2])
 sys.path.insert(0, tree)
@@ -150,31 +151,84 @@ import ab_rescore as ab
 from haphic_tpu_torch.kernels import build as kbuild
 from haphic_tpu_torch.kernels import rescore as krs
 lib = kbuild.build(['rescore_population'])['rescore_population']
-libs = [('build', lib, kbuild.BUILD_LOG.get('rescore_population', ''))]
-for name, flags in cfg['variants']:
-    libs.append((name,) + ab.build_variant(kbuild, tree, name, flags))
 args = ab.inputs(torch, **cfg['shape'])
-bound = {name: ctypes.CDLL(path) for name, path, _ in libs}
 out = {'label': cfg['label'], 'tree': tree,
-       'device': torch.cuda.get_device_name(0), 'runs': []}
-# each build in turn, twice, in one process: b v1 v2 .. v2 v1 b
-names = [n for n, _, _ in libs]
-for name in names + names[::-1]:
-    if hasattr(krs, 'bind'):           # a checkout that can switch builds
-        krs._lib = (lambda l=krs.bind(bound[name]): l)
-        krs._PLANS.clear()
-    run = {'build': name}
-    for mode, caches in (('scores', False), ('caches', True)):
-        run[mode] = ab.measure(torch, lambda: krs.rescore(*args,
-                                                          caches=caches),
-                               cfg['reps'])
-        run[mode]['sha'] = ab.digest(torch, krs.rescore(*args,
-                                                           caches=caches))
-    out['runs'].append(run)
-out['libraries'] = {n: p for n, p, _ in libs}
-out['nvcc'] = {n: [ln for ln in log.splitlines() if 'rescore_kernel' in ln
-                   or 'registers' in ln] for n, _, log in libs}
+       'device': torch.cuda.get_device_name(0), 'library': lib}
+for mode, caches in (('scores', False), ('caches', True)):
+    out[mode] = ab.measure(torch, lambda: krs.rescore(*args, caches=caches),
+                           cfg['reps'])
+    out[mode]['sha'] = ab.digest(torch, krs.rescore(*args, caches=caches))
+log = kbuild.BUILD_LOG.get('rescore_population', '')
+out['nvcc'] = [ln for ln in log.splitlines() if 'rescore_kernel' in ln
+               or 'registers' in ln]
 print(json.dumps(out), flush=True)
+'''
+
+# B's kernel: its table build's share (see the module's docstring)
+PROLOGUE = r'''
+import ctypes, json, sys
+import torch
+tree, cfg = sys.argv[1], json.loads(sys.argv[2])
+sys.path.insert(0, tree)
+sys.path.insert(1, cfg['tools'])
+import ab_rescore as ab
+from haphic_tpu_torch.kernels import rescore as krs
+dev = torch.device('cuda', torch.cuda.current_device())
+sms = torch.cuda.get_device_properties(dev).multi_processor_count
+prof = ab.profiling()
+reps = cfg['reps']
+
+
+def timed(args, caches):
+    fn = lambda: krs.rescore(*args, caches=caches)
+    ms = ab.measure(torch, fn, reps)['ms']
+    ev = prof.kernel_events(fn, 10)
+    return {'ms': ms, 'device_ms': sum(e - s for _, s, e in ev) / 1e3
+            / max(1, len(ev)), 'kernels': len(ev),
+            'sha': ab.digest(torch, fn())}
+
+
+def force_m(G, P, k, R, caches, m):
+    """Replaces the cached plan of this shape by one of m chunks a CTA;
+    returns its CTAs."""
+    p = krs.plan(dev, G, P, k, R)
+    q = (ctypes.c_int64 * 12)(*p)
+    o = 2 + 5 * caches
+    q[o + 3] = m
+    q[o + 4] = -(-q[1] // m)
+    krs._PLANS[(dev.index, G, P, k, R)] = q
+    return G * q[o + 2] * q[o + 4]
+
+
+shape = cfg['shape']
+P, k = shape['P'], shape['k']
+for mode, caches in (('scores', False), ('caches', True)):
+    line = {'prologue': mode, 'device': torch.cuda.get_device_name(0),
+            'sms': sms}
+    p = krs.plan(dev, 1, P, k, shape['R'])
+    chunk, tile = p[0], p[2 + 5 * caches]
+    # one CTA a (group, tile), at most one an SM, all chunks in it
+    G = max(1, sms // -(-P // tile))
+    line['sweep'] = []
+    for R in [512] + [n * chunk for n in (1, 2, 3, 4)]:
+        args = ab.inputs(torch, G, P, k, R, 0, 7)
+        nchunks = -(-R // chunk)
+        ctas = force_m(G, P, k, R, caches, nchunks)
+        line['sweep'].append(dict(timed(args, caches), G=G, R=R,
+                                  nchunks=nchunks, tile=tile, ctas=ctas))
+        krs._PLANS.clear()
+        del args
+    args = ab.inputs(torch, **shape)
+    G, R = shape['G'], shape['R']
+    p = krs.plan(dev, G, P, k, R)
+    nchunks, picked = p[1], p[2 + 5 * caches + 3]
+    line.update(G=G, R=R, nchunks=nchunks, picked_m=picked, by_m=[])
+    for m in sorted({1, 2, 3, 4, 6, 8, 12, nchunks, picked}):
+        ctas = force_m(G, P, k, R, caches, m)
+        line['by_m'].append(dict(timed(args, caches), m=m, ctas=ctas))
+    krs._PLANS.clear()
+    del args
+    print(json.dumps(line), flush=True)
 '''
 
 
@@ -213,8 +267,9 @@ def sass_loops(text: str) -> dict:
     return out
 
 
-def child(tree, cfg):
-    run = subprocess.run([sys.executable, '-c', TURN, tree, json.dumps(cfg)],
+def child(tree, cfg, script=TURN):
+    run = subprocess.run([sys.executable, '-c', script, tree,
+                          json.dumps(cfg)],
                          cwd=tree, stdout=subprocess.PIPE, text=True)
     if run.returncode != 0:
         raise SystemExit('ab_rescore: {} exited {}'.format(tree,
@@ -229,22 +284,22 @@ def main(argv=None) -> int:
     ap.add_argument('b_dir')
     ap.add_argument('--order', default='ABBA')
     ap.add_argument('--reps', type=int, default=50)
-    ap.add_argument('--variant', action='append', default=[],
-                    help='NAME=FLAG[,FLAG...], built from B')
+    ap.add_argument('--prologue', action='store_true',
+                    help="time B's table build against its chunks")
     ap.add_argument('--sass', help='directory for the SASS listings')
     args = ap.parse_args(argv)
     trees = {'A': os.path.abspath(args.a_dir), 'B': os.path.abspath(args.b_dir)}
-    variants = [(v.split('=', 1)[0], v.split('=', 1)[1].split(','))
-                for v in args.variant]
     libs = {}
     for turn, label in enumerate(args.order):
         cfg = {'label': label, 'tools': TOOLS, 'shape': SHAPE,
-               'reps': args.reps,
-               'variants': variants if label == 'B' else []}
+               'reps': args.reps}
         (line,) = child(trees[label], cfg)
-        for name, path in line.pop('libraries').items():
-            libs['{}:{}'.format(label, name)] = path
+        libs[label] = line.pop('library')
         print(json.dumps(dict(line, turn=turn)), flush=True)
+    if args.prologue:
+        cfg = {'tools': TOOLS, 'shape': SHAPE, 'reps': args.reps}
+        for line in child(trees['B'], cfg, PROLOGUE):
+            print(json.dumps(line), flush=True)
     if args.sass:
         os.makedirs(args.sass, exist_ok=True)
         cuobjdump = shutil.which('cuobjdump') or os.path.join(
@@ -252,8 +307,7 @@ def main(argv=None) -> int:
         for key, path in sorted(libs.items()):
             text = subprocess.run([cuobjdump, '-sass', path],
                                   stdout=subprocess.PIPE, text=True).stdout
-            with open(os.path.join(args.sass, key.replace(':', '_')
-                                   + '.sass'), 'w') as f:
+            with open(os.path.join(args.sass, key + '.sass'), 'w') as f:
                 f.write(text)
             print(json.dumps({'sass': key, 'kernels': sass_loops(text)}),
                   flush=True)
