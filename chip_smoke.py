@@ -43,10 +43,14 @@ Phases, each printing one JSON line:
              with CUDA-event times and the least time the card could
              take for the same work. score_population: max relative
              error <= 1e-5 (the sums run in another order).
-             delta_generation (one launch per generation: delta,
-             acceptance, commit, slot tables), on a GA state built by
-             _Records.caches from a random population and one set of
-             moves, against the plain step: delta within 1e-6 x |score|
+             delta_generation (one launch per generation: the moves
+             from their draws, delta, acceptance, commit, slot tables),
+             on a GA state built by _Records.caches from a random
+             population and one set of draws: in draws mode (the GA's)
+             its moves bit-equal to _moves_from_draws's and its delta,
+             acceptance and state bit-equal to the move mode's on those
+             moves; in move mode against the plain step: delta within
+             1e-6 x |score|
              of the plain version's (sums in another order) where
              |delta| <= |score|, and on every row within half an ulp of
              the exact sum of the plain version's f32 terms (plus the
@@ -58,7 +62,13 @@ Phases, each printing one JSON line:
              over the whole tour
              (more touched records than the kernel keeps in shared
              memory); with no move, delta exactly 0 and the state
-             unchanged. The bound is the function's least work
+             unchanged. Timed in draws mode (ms: successive
+             generations from fresh draws, as the GA runs them; plain_ms
+             _moves_from_draws and the plain step on the same draws;
+             bound_ms the mean over the timed generations) and in move
+             mode (move_mode_ms: the first move and mask repeated, beside
+             its bound, move_mode_bound_ms). The bound is the function's
+             least work
              (changed pairs; bound_touched_ms reads every touched
              pair); the figure that also reads the two slots of every
              pair stays beside it as bound_scan_ms.
@@ -1444,15 +1454,15 @@ def _recorded_launches(topt):
     'score' that call's arguments, 'rescore' those of the first rescore
     call after it (the batch's first rescoring: its whole G; without
     the ``caches`` flag) or None, 'delta' those of the
-    SIM_CHECK_GEN-th delta_generation call after it ((state before the
-    step, move, (la, lb, d, w))) or None, 'n_delta' its delta calls,
-    'copy_s' the seconds the copies took. The GA reaches score_population
-    and rescore by their module's names and the delta kernel's wrapper
-    as _dgen's default `step`; all are restored on leaving."""
+    SIM_CHECK_GEN-th delta generation after it ((state before the step,
+    its seven draws, (la, lb, d, w), (mutprob, local_frac))) or None,
+    'n_delta' its delta calls, 'copy_s' the seconds the copies took. The
+    GA reaches score_population, rescore and the delta kernel's wrapper
+    (delta_generation_from_draws) by their module's names; all are
+    restored on leaving."""
     batches = []
     score, rescore = topt.score_population, topt.rescore
-    defaults = topt._dgen.__defaults__
-    (step,) = defaults
+    step = topt.delta_generation_from_draws
 
     def host(xs):
         return tuple(x.to('cpu', copy=True) for x in xs)
@@ -1472,24 +1482,27 @@ def _recorded_launches(topt):
             b['copy_s'] += time.time() - t0
         return rescore(*args, caches=caches)
 
-    def recording_step(state, move, la, lb, d, w, *rest, **kw):
+    def recording_step(state, draws, la, lb, d, w, mutprob, local_frac,
+                       *rest, **kw):
         b = batches[-1]
         b['n_delta'] += 1
         if b['n_delta'] == SIM_CHECK_GEN:
             t0 = time.time()
-            b['delta'] = (host(state), host(move), host((la, lb, d, w)))
+            b['delta'] = (host(state), host(draws), host((la, lb, d, w)),
+                          (mutprob, local_frac))
             b['copy_s'] += time.time() - t0
-        return step(state, move, la, lb, d, w, *rest, **kw)
+        return step(state, draws, la, lb, d, w, mutprob, local_frac, *rest,
+                    **kw)
 
     topt.score_population = recording_score
     topt.rescore = recording_rescore
-    topt._dgen.__defaults__ = (recording_step,)
+    topt.delta_generation_from_draws = recording_step
     try:
         yield batches
     finally:
         topt.score_population = score
         topt.rescore = rescore
-        topt._dgen.__defaults__ = defaults
+        topt.delta_generation_from_draws = step
 
 
 def _check_sim_launches(torch, kscore, kdelta, krs, topt, what, batch):
@@ -1498,9 +1511,11 @@ def _check_sim_launches(torch, kscore, kdelta, krs, topt, what, batch):
     holds them: score_population within REL_TOL relative; the rescoring
     by _check_rescore (on the score call's population, with la and lb
     from its records, where the call ran no rescoring: the truth's
-    skip_ga call at P = 4); the delta generation by _check_delta, then
-    its commit by _check_commit under the plain version's acceptance and
-    under all rows accepted."""
+    skip_ga call at P = 4); the delta generation from its draws by
+    _check_draws (its moves and its result bit-equal to the move mode's
+    on the moves _moves_from_draws makes), then the move mode by
+    _check_delta and its commit by _check_commit under the plain
+    version's acceptance and under all rows accepted."""
     if batch['rescore'] is not None:
         args = [x.to(DEVICE) for x in batch['rescore']]
     else:
@@ -1530,19 +1545,23 @@ def _check_sim_launches(torch, kscore, kdelta, krs, topt, what, batch):
     del args, got, want
     if batch['delta'] is None:
         return row
-    state, move, (la, lb, d, w) = (tuple(x.to(DEVICE) for x in xs)
-                                   for xs in batch['delta'])
+    state, draws, (la, lb, d, w) = (tuple(x.to(DEVICE) for x in xs)
+                                    for xs in batch['delta'][:3])
+    settings = batch['delta'][3]
+    move = topt._moves_from_draws(*draws, state[0].shape[-1], *settings)
     rec = types.SimpleNamespace(la=la, lb=lb, d=d, w=w)
     kern, plain = kdelta.delta_generation, kdelta.delta_generation_plain
     got = _run(kern, topt, rec, state, move)
     want = _run(plain, topt, rec, state, move)
+    drawn = _run_draws(torch, kdelta, topt, rec, state, draws, settings)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got[0]).all()),
           'delta kernel output ({})'.format(what))
+    _check_draws(torch, what, move, got, drawn)
     errs = _check_delta(torch, kdelta, topt, what, rec, state, move, got,
                         want)
     mask = want[1]
-    del got, want
+    del got, want, drawn
     # the commit under the acceptance the plain version made, and with
     # every row accepted (late in a run few rows are)
     for label, acc in (('', mask), (', every row', torch.ones_like(mask))):
@@ -1896,15 +1915,54 @@ def phase_rescore(torch, krs, main_args, launches):
 def _delta_inputs(torch, topt, trace_ga, G, P, k, R, seed):
     """A GA batch as the delta window holds it (trace_ga.make_batch:
     records between near contigs sorted by contig, the caches of a
-    random population) and one move per individual drawn as _dgen
-    draws it."""
+    random population), the seven draws of one move per individual as
+    _dgen draws them, and the moves _moves_from_draws makes of them."""
     rec, state = trace_ga.make_batch(G, P, k, R, seed, DEVICE)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    move = topt._sample_moves(topt._Draws(gen, G), (G, P), k, 1.1,
-                              local_frac=topt._DELTA_LOCAL_FRAC,
-                              device=DEVICE)
-    return rec, state, move
+    draws = topt._move_draws(topt._Draws(gen, G), (G, P), k, DEVICE)
+    move = topt._moves_from_draws(*draws, k, *_ga_moves(topt))
+    return rec, state, draws, move
+
+
+def _ga_moves(topt):
+    """(mutprob, local_frac) of the delta generations' moves (_dgen)."""
+    return 1.1, topt._DELTA_LOCAL_FRAC
+
+
+def _step_draws(kdelta, topt, rec, state, draws, settings, moves_out=None):
+    """One delta generation from its draws (the kernel's draws mode, the
+    GA's route; settings: (mutprob, local_frac)) on ``state``, which it
+    updates in place."""
+    return kdelta.delta_generation_from_draws(
+        state, draws, rec.la, rec.lb, rec.d, rec.w, *settings,
+        topt._DELTA_MIN_GAIN, topt._DELTA_SPAN_GAIN, moves_out=moves_out)
+
+
+def _run_draws(torch, kdelta, topt, rec, state, draws, settings):
+    """(delta, acc, state after, moves) of _step_draws on a copy of
+    ``state``."""
+    st = _clone(state)
+    G, P = state[0].shape[:2]
+    moves = tuple(torch.empty((G, P), dtype=dt, device=DEVICE)
+                  for dt in (torch.bool,) + (torch.int32,) * 4)
+    delta, acc = _step_draws(kdelta, topt, rec, st, draws, settings, moves)
+    return delta, acc, st, moves
+
+
+def _check_draws(torch, what, move, got, drawn):
+    """The draws mode's moves bit-equal to _moves_from_draws's ``move``,
+    and its delta, acceptance and state bit-equal to the move mode's
+    ``got`` on that move."""
+    for name, a, b in zip(('do', 'op', 'i', 'j', 't'), drawn[3], move):
+        check(torch.equal(a, b), 'delta kernel draws mode: move {} differs '
+              'from _moves_from_draws ({})'.format(name, what))
+    check(torch.equal(drawn[0], got[0]) and torch.equal(drawn[1], got[1]),
+          'delta kernel draws mode: delta or acceptance differs from the '
+          'move mode ({})'.format(what))
+    for n, (a, b) in enumerate(zip(drawn[2], got[2])):
+        check(torch.equal(a, b), 'delta kernel draws mode: state field {} '
+              'differs from the move mode ({})'.format(n, what))
 
 
 def _clone(state):
@@ -1935,8 +1993,9 @@ def _delta_bound_ms(torch, kdelta, state, move, acc):
     row, the records once per group (la, lb, d[4], w: 28 B), the move's
     span of ``order`` for every row, the slot tables over the span of
     each accepted row (order, ori, L_slot read and written and startsx
-    written: 28 B a slot; a flip's ori only: 8 B), and per row the move,
-    its slot starts, the score and the outputs (60 B). The arithmetic
+    written: 28 B a slot; a flip's ori only: 8 B), and per row the seven
+    draws (28 B; the move mode reads the move's 17 B instead), its slot
+    starts, the score and the outputs (71 B). The arithmetic
     (~40 FP32 operations per computed pair) is far below the bytes.
     Beside it, the same with the state of every touched pair read
     (bound_touched_ms), and the same with the two slots of every pair
@@ -1957,11 +2016,11 @@ def _delta_bound_ms(torch, kdelta, state, move, acc):
     slot_bytes = torch.where(op == 3, 8, 28)
     n_span = int(span.sum())
     fixed = (28 * G * R + 28 * n_written + 4 * n_span
-             + int((span * slot_bytes * acc).sum()) + 60 * G * P)
+             + int((span * slot_bytes * acc).sum()) + 71 * G * P)
     nbytes = 28 * n_changed + 28 * n_still + fixed
     touched_bytes = 28 * n_touched + fixed
     scan_bytes = (8 * G * P * R + 20 * n_touched + 28 * G * R
-                  + 28 * n_written + 60 * G * P)
+                  + 28 * n_written + 71 * G * P)
     t_ops = 40 * n_changed / FP32_FLOPS * 1e3
     t_bytes = nbytes / HBM_BPS * 1e3
     return {'bound_ms': max(t_bytes, t_ops),
@@ -1970,6 +2029,28 @@ def _delta_bound_ms(torch, kdelta, state, move, acc):
             'bound_scan_ms': scan_bytes / HBM_BPS * 1e3,
             'touched_pairs': n_touched, 'changed_pairs': n_changed,
             'written_pairs': n_written}
+
+
+def _mean_bound(torch, kdelta, topt, rec, state, seq):
+    """The mean of _delta_bound_ms over the generations of the draws
+    ``seq`` after its first (the timing's warm-up), each on the state
+    the generations before it left and with the acceptance it makes;
+    the pair counts and the accepted rows are means too."""
+    walk, rows = _clone(state), []
+    for n, draws in enumerate(seq):
+        _, acc, nxt, move = _run_draws(torch, kdelta, topt, rec, walk,
+                                       draws, _ga_moves(topt))
+        if n:
+            rows.append(dict(_delta_bound_ms(torch, kdelta, walk, move,
+                                             acc),
+                             accepted_rows_per_gen=int(acc.sum())))
+        walk = nxt
+    del walk
+    labels = [r['bound_by'] for r in rows]
+    out = {key: sum(r[key] for r in rows) / len(rows)
+           for key in rows[0] if key != 'bound_by'}
+    out['bound_by'] = max(set(labels), key=labels.count)
+    return out
 
 
 def _check_delta(torch, kdelta, topt, what, rec, state, move, got, want):
@@ -2042,17 +2123,24 @@ def phase_delta(torch, kdelta, topt, trace_ga, big, launches):
                big['R_pad'])]
     kern, plain = kdelta.delta_generation, kdelta.delta_generation_plain
     for seed, (label, G, P, k, R) in enumerate(shapes):
-        rec, state, move = _delta_inputs(torch, topt, trace_ga, G, P, k, R,
-                                         seed)
+        rec, state, draws, move = _delta_inputs(torch, topt, trace_ga, G, P,
+                                                k, R, seed)
         scores = state[-1]
-        # the deltas, and the acceptance each version makes
+        # the deltas, and the acceptance each version makes; the draws
+        # mode (the GA's) bit-equal to the move mode on its moves
         got = _run(kern, topt, rec, state, move)
         want = _run(plain, topt, rec, state, move)
+        drawn = _run_draws(torch, kdelta, topt, rec, state, draws,
+                           _ga_moves(topt))
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got[0]).all()),
               'delta kernel output at {} shape'.format(label))
         errs = _check_delta(torch, kdelta, topt, '{} shape'.format(label),
                             rec, state, move, got, want)
+        _check_draws(torch, '{} shape'.format(label), move, got, drawn)
+        _check_delta(torch, kdelta, topt, 'draws mode at {} shape'.format(
+            label), rec, state, move, drawn, want)
+        del drawn
         # the same generation again: the same bits
         again = _run(kern, topt, rec, state, move)
         torch.cuda.synchronize()
@@ -2095,23 +2183,43 @@ def phase_delta(torch, kdelta, topt, trace_ga, big, launches):
             check(torch.equal(a, b), 'delta kernel changed the state '
                   'with no move')
         del st0
-        bound = _delta_bound_ms(torch, kdelta, state, move, mask)
-        # times: the same move and acceptance applied again and again to
-        # one copy of the state (the moves permute slots inside their
-        # own range, so each repetition touches the same records)
+        # times, each over successive generations from fresh draws
+        # (drawn before the timing) on one copy of the state, as the GA
+        # runs them: ms the draws mode, plain_ms _moves_from_draws and
+        # the plain step (the sequence's first generations); the bound
+        # is the mean of the timed generations'. move_mode_ms: the first
+        # draws' move and mask applied again and again to one copy of
+        # the state (the moves permute slots inside their own range, so
+        # each repetition touches the same records), beside that
+        # generation's bound (move_mode_bound_ms)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed + 1000)
+        seq = [topt._move_draws(topt._Draws(gen, G), (G, P), k, DEVICE)
+               for _ in range(21)]
+        bound = _mean_bound(torch, kdelta, topt, rec, state, seq)
+
+        def timed_seq(fn, reps):
+            st, it = _clone(state), iter(seq)
+            return _time_ms(torch, lambda: fn(st, next(it)), reps)
+        ms = timed_seq(lambda st, dr: _step_draws(
+            kdelta, topt, rec, st, dr, _ga_moves(topt)), 20)
+        plain_ms = timed_seq(lambda st, dr: _step(
+            plain, topt, rec, st, topt._moves_from_draws(
+                *dr, k, *_ga_moves(topt))), 3)
         timed = _clone(state)
-        ms = _time_ms(torch, lambda: _step(kern, topt, rec, timed, move,
-                                           mask), 20)
-        plain_ms = _time_ms(torch, lambda: _step(plain, topt, rec, timed,
-                                                 move, mask), 3)
+        move_ms = _time_ms(torch, lambda: _step(kern, topt, rec, timed, move,
+                                                mask), 20)
         del timed
+        first = _delta_bound_ms(torch, kdelta, state, move, mask)
         row = {'shape': label, 'G': G, 'P': P, 'k': k, 'R': R, **errs,
                'pairs': G * P * R, 'accepted_rows': int(mask.sum()),
-               'ms': ms, 'plain_ms': plain_ms, **bound}
+               'ms': ms, 'plain_ms': plain_ms, **bound,
+               'move_mode_ms': move_ms,
+               'move_mode_bound_ms': first['bound_ms']}
         emit({'phase': 'kernel', 'name': 'delta_generation',
               'main_path_launches': launches['delta_generation'], **row})
         rows.append(row)
-        del rec, state, move
+        del rec, state, draws, move
         torch.cuda.empty_cache()
     return rows
 

@@ -1,12 +1,17 @@
 // Delta generation of the device GA, for NVIDIA Hopper (sm_90a): one
 // launch per generation.
 //
-// Replaces the body of dgen in _evolve_delta_impl,
-// haphic_tpu/order/optimize.py:824-894 (jitted XLA there, ~40
-// elementwise ops over (G, P, R) tensors per generation), after the
-// move is drawn. For every (group g, individual p) row with its move
-// (do, op, i, j, t):
+// Replaces dgen in _evolve_delta_impl, haphic_tpu/order/optimize.py:
+// 824-894 (jitted XLA there, ~40 elementwise ops over (G, P, R) tensors
+// per generation), all of it but the random draws. For every (group g,
+// individual p) row:
 //
+//   - in draws mode (the GA's), the move (do, op, i, j, t) is made from
+//     the row's seven draws as _sample_moves makes it (optimize.py:
+//     515-537), in torch's f32 arithmetic: logf, an IEEE division by the
+//     f32 log(0.75), floorf, then integer min/max/where. Every CTA of
+//     the row's cluster makes the same move from the same draws. In move
+//     mode the move is read as given;
 //   - the move scalars Sx, Sy, Lx, Ly, Et are read from startsx
 //     (_move_scalars, optimize.py:774);
 //   - every CLM record r with an endpoint on a slot of the move's range
@@ -80,7 +85,8 @@
 //     CTA reads its move scalars before the cluster barrier that
 //     precedes those writes.
 //
-// Grid: x = DG_CLUSTER * row + rank, row = g * P + p.
+// Grid: x = DG_CLUSTER * row + rank, row = g * P + p. The draws mode
+// adds no launch: the generation is the draws' launches and this one.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -105,9 +111,15 @@ struct Args {
   const int32_t* mj; const int32_t* mt;
   const int32_t* la; const int32_t* lb; const float* d; const float* w;
   const uint8_t* accept; float* delta; uint8_t* acc;
+  // draws mode (u_do != nullptr): the seven draws of each row, and the
+  // optional outputs of its move (each nullptr or all five set)
+  const float* u_do; const int32_t* dop; const int32_t* e1;
+  const int32_t* e2; const int32_t* e3; const float* u_local;
+  const float* u_span;
+  uint8_t* odo; int32_t* oop; int32_t* oi; int32_t* oj; int32_t* ot;
   int P, k;
   int64_t R, per;  // records, records per CTA (a multiple of 4)
-  float min_gain, span_gain;
+  float min_gain, span_gain, mutprob, local_frac, log_075;
   int vec;
 };
 
@@ -124,6 +136,32 @@ struct Smem {
 struct Move {
   int do_, op, i, j, t, Sx, Sy, Lx, Ly, Et;
 };
+
+// The move of a row from its draws, operation for operation as the plain
+// version (delta.moves_from_draws) makes it: do = u_do < mutprob; a local
+// move (u_local < local_frac) spans [e1, min(e1 + span, k - 1)] with the
+// geometric span 1 + floor(log(1 - u_span) / log(0.75)), else [min(e1, e2),
+// max(e1, e2)]; t = max(j, e3), e3 = j for a local move. 1 - u_span is
+// exact or rounded once either way; the quotient is an IEEE division (not
+// a multiply by the reciprocal), so floorf sees torch's bits.
+__device__ __forceinline__ void move_from_draws(const Args& a, int64_t row,
+                                                Move& m) {
+  const int e1 = a.e1[row], e2 = a.e2[row];
+  int e3 = a.e3[row];
+  m.do_ = a.u_do[row] < a.mutprob;
+  m.op = a.dop[row];
+  m.i = min(e1, e2);
+  m.j = max(e1, e2);
+  if (a.u_local[row] < a.local_frac) {
+    const float q = __fdiv_rn(logf(__fsub_rn(1.0f, a.u_span[row])),
+                              a.log_075);
+    const int span = 1 + (int)floorf(q);
+    m.i = e1;
+    m.j = max(min(e1 + span, a.k - 1), e1);
+    e3 = m.j;
+  }
+  m.t = max(m.j, e3);
+}
 
 // slots whose endpoint state the move may change: [lo, hi]
 __device__ __forceinline__ void move_range(const Move& m, int& lo, int& hi) {
@@ -489,8 +527,12 @@ delta_generation_kernel(const Args a) {
   __syncthreads();
 
   Move m;
-  m.do_ = a.mdo[row] != 0;
-  m.op = a.mop[row]; m.i = a.mi[row]; m.j = a.mj[row]; m.t = a.mt[row];
+  if (a.u_do) {
+    move_from_draws(a, row, m);
+  } else {
+    m.do_ = a.mdo[row] != 0;
+    m.op = a.mop[row]; m.i = a.mi[row]; m.j = a.mj[row]; m.t = a.mt[row];
+  }
   m.Sx = m.Sy = m.Lx = m.Ly = m.Et = 0;
   if (m.do_) {
     const int32_t* S = a.startsx + row * (a.k + 1);
@@ -571,23 +613,27 @@ delta_generation_kernel(const Args a) {
       a.delta[row] = delta;
       a.acc[row] = accepted ? 1 : 0;
       if (accepted) a.scores[row] = __fadd_rn(score, delta);
+      if (a.odo) {
+        a.odo[row] = m.do_ ? 1 : 0;
+        a.oop[row] = m.op; a.oi[row] = m.i; a.oj[row] = m.j; a.ot[row] = m.t;
+      }
     }
   }
 }
 
-extern "C" int delta_generation_launch(
-    void* order, void* ori, void* L, void* startsx, void* posA, void* sA,
-    void* oA, void* posB, void* sB, void* oB, void* contrib, void* scores,
-    const void* mdo, const void* mop, const void* mi, const void* mj,
-    const void* mt, const void* la, const void* lb, const void* d,
-    const void* w, const void* accept, void* delta, void* acc, int G, int P,
-    int k, int64_t R, float min_gain, float span_gain, int vec,
-    void* stream) {
+// The state's pointers, shapes and settings common to both modes; the
+// move (or the draws) and the outputs are set by the caller.
+static int fill_args(Args& a, void* order, void* ori, void* L, void* startsx,
+                     void* posA, void* sA, void* oA, void* posB, void* sB,
+                     void* oB, void* contrib, void* scores, const void* la,
+                     const void* lb, const void* d, const void* w,
+                     void* delta, void* acc, int G, int P, int k, int64_t R,
+                     float min_gain, float span_gain, int vec) {
   const int64_t rows = (int64_t)G * P;
   if (G < 1 || P < 1 || k < 1 || R < 0 || R > INT_MAX || (vec && R % 4) ||
       rows * DG_CLUSTER > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  Args a;
+  a = Args{};
   a.order = static_cast<int32_t*>(order);
   a.ori = static_cast<int32_t*>(ori);
   a.L = static_cast<int32_t*>(L);
@@ -600,16 +646,10 @@ extern "C" int delta_generation_launch(
   a.oB = static_cast<int32_t*>(oB);
   a.contrib = static_cast<float*>(contrib);
   a.scores = static_cast<float*>(scores);
-  a.mdo = static_cast<const uint8_t*>(mdo);
-  a.mop = static_cast<const int32_t*>(mop);
-  a.mi = static_cast<const int32_t*>(mi);
-  a.mj = static_cast<const int32_t*>(mj);
-  a.mt = static_cast<const int32_t*>(mt);
   a.la = static_cast<const int32_t*>(la);
   a.lb = static_cast<const int32_t*>(lb);
   a.d = static_cast<const float*>(d);
   a.w = static_cast<const float*>(w);
-  a.accept = static_cast<const uint8_t*>(accept);
   a.delta = static_cast<float*>(delta);
   a.acc = static_cast<uint8_t*>(acc);
   a.P = P;
@@ -619,7 +659,11 @@ extern "C" int delta_generation_launch(
   a.min_gain = min_gain;
   a.span_gain = span_gain;
   a.vec = vec;
+  return 0;
+}
 
+static int launch(const Args& a, int G, void* stream) {
+  const int64_t rows = (int64_t)G * a.P;
   const size_t smem = sizeof(Smem);
   static bool smem_attr_set = false;
   cudaError_t e;
@@ -645,4 +689,64 @@ extern "C" int delta_generation_launch(
   e = cudaLaunchKernelEx(&cfg, delta_generation_kernel, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Move mode: the move (do, op, i, j, t) given; accept optional.
+extern "C" int delta_generation_launch(
+    void* order, void* ori, void* L, void* startsx, void* posA, void* sA,
+    void* oA, void* posB, void* sB, void* oB, void* contrib, void* scores,
+    const void* mdo, const void* mop, const void* mi, const void* mj,
+    const void* mt, const void* la, const void* lb, const void* d,
+    const void* w, const void* accept, void* delta, void* acc, int G, int P,
+    int k, int64_t R, float min_gain, float span_gain, int vec,
+    void* stream) {
+  Args a;
+  const int err = fill_args(a, order, ori, L, startsx, posA, sA, oA, posB,
+                            sB, oB, contrib, scores, la, lb, d, w, delta,
+                            acc, G, P, k, R, min_gain, span_gain, vec);
+  if (err) return err;
+  a.mdo = static_cast<const uint8_t*>(mdo);
+  a.mop = static_cast<const int32_t*>(mop);
+  a.mi = static_cast<const int32_t*>(mi);
+  a.mj = static_cast<const int32_t*>(mj);
+  a.mt = static_cast<const int32_t*>(mt);
+  a.accept = static_cast<const uint8_t*>(accept);
+  return launch(a, G, stream);
+}
+
+// Draws mode: the seven draws u_do, op, e1, e2, e3, u_local, u_span of
+// each row; the move written to odo, oop, oi, oj, ot where odo is set.
+extern "C" int delta_generation_draws_launch(
+    void* order, void* ori, void* L, void* startsx, void* posA, void* sA,
+    void* oA, void* posB, void* sB, void* oB, void* contrib, void* scores,
+    const void* u_do, const void* dop, const void* e1, const void* e2,
+    const void* e3, const void* u_local, const void* u_span, const void* la,
+    const void* lb, const void* d, const void* w, void* delta, void* acc,
+    void* odo, void* oop, void* oi, void* oj, void* ot, int G, int P, int k,
+    int64_t R, float min_gain, float span_gain, float mutprob,
+    float local_frac, float log_075, int vec, void* stream) {
+  Args a;
+  const int err = fill_args(a, order, ori, L, startsx, posA, sA, oA, posB,
+                            sB, oB, contrib, scores, la, lb, d, w, delta,
+                            acc, G, P, k, R, min_gain, span_gain, vec);
+  if (err) return err;
+  if (!u_do || !dop || !e1 || !e2 || !e3 || !u_local || !u_span ||
+      (odo && (!oop || !oi || !oj || !ot)))
+    return (int)cudaErrorInvalidValue;
+  a.u_do = static_cast<const float*>(u_do);
+  a.dop = static_cast<const int32_t*>(dop);
+  a.e1 = static_cast<const int32_t*>(e1);
+  a.e2 = static_cast<const int32_t*>(e2);
+  a.e3 = static_cast<const int32_t*>(e3);
+  a.u_local = static_cast<const float*>(u_local);
+  a.u_span = static_cast<const float*>(u_span);
+  a.odo = static_cast<uint8_t*>(odo);
+  a.oop = static_cast<int32_t*>(oop);
+  a.oi = static_cast<int32_t*>(oi);
+  a.oj = static_cast<int32_t*>(oj);
+  a.ot = static_cast<int32_t*>(ot);
+  a.mutprob = mutprob;
+  a.local_frac = local_frac;
+  a.log_075 = log_075;
+  return launch(a, G, stream);
 }

@@ -1,11 +1,12 @@
-"""Delta generation of the device GA: one greedy generation after its
-moves are drawn, as the CUDA kernel's wrapper and its plain torch
-version.
+"""Delta generation of the device GA: one greedy generation from its
+random draws, as the CUDA kernel's wrapper and its plain torch version.
 
-Counterpart of the body of ``dgen`` in ``_evolve_delta_impl``
+Counterpart of ``dgen`` in ``_evolve_delta_impl``
 (haphic_tpu/order/optimize.py:824-894), which is jitted XLA, not
-Pallas. One generation proposes one move per (group, individual) row;
-this module reads the move's slot scalars, scores the move as an
+Pallas: all of it but the draws. One generation proposes one move per
+(group, individual) row; this module makes the move from the row's
+seven draws (``moves_from_draws``, the JAX package's ``_sample_moves``
+after its draws), reads the move's slot scalars, scores the move as an
 explicit delta over the CLM records, accepts it against the
 span-proportional threshold, commits the accepted rows' caches and
 contributions, and applies their moves to the slot tables. Shapes,
@@ -18,6 +19,8 @@ batched over groups G (the GA state, in ``optimize``'s order):
                                  record's two contigs in each tour
     contrib  f32   (G, P, R)     carried per-record score contributions
     scores   f32   (G, P)        carried tour scores
+    draws    (G, P) x7           u_do, op, e1, e2, e3, u_local, u_span
+                                 (f32 uniforms in [0, 1), int32 draws)
     move     (G, P) x5           do (bool), op, i, j, t (int32)
     la, lb   int32 (G, R)        record endpoint lengths
     d        f32   (G, 4, R)     orientation-combination distances
@@ -26,9 +29,11 @@ batched over groups G (the GA state, in ``optimize``'s order):
        place (accepted rows only), which saves a copy of every (G, P, R)
        array per generation.
 
-``delta_generation`` runs the kernel for CUDA tensors (one launch per
-generation) and the plain version for CPU tensors; nothing else picks
-the plain version.
+``delta_generation_from_draws`` (the GA's generation) and
+``delta_generation`` (a given move, optionally a given acceptance) run
+the kernel for CUDA tensors, one launch per generation in either mode,
+and the plain version for CPU tensors; nothing else picks the plain
+version.
 """
 
 from __future__ import annotations
@@ -36,12 +41,53 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from haphic_tpu_torch.kernels import build as kbuild
 
 STATE_FIELDS = ('order', 'ori', 'L_slot', 'startsx', 'posA', 'sA', 'oA',
                 'posB', 'sB', 'oB', 'contrib', 'scores')
+# the per-row (G, P) inputs of the two modes, with their dtypes
+DRAW_FIELDS = (('u_do', torch.float32), ('op', torch.int32),
+               ('e1', torch.int32), ('e2', torch.int32),
+               ('e3', torch.int32), ('u_local', torch.float32),
+               ('u_span', torch.float32))
+MOVE_FIELDS = (('do', torch.bool), ('op', torch.int32), ('i', torch.int32),
+               ('j', torch.int32), ('t', torch.int32))
+
+# log(0.75) rounded to f32: the geometric span's divisor
+LOG_075 = float(np.log(np.float32(0.75)).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _log_075_on(device: torch.device) -> torch.Tensor:
+    """LOG_075 as a 0-dim f32 tensor on ``device``, made once: making it
+    copies from pageable host memory, which waits for the card. It must
+    be a tensor on the device: CUDA divides by a Python scalar as a
+    multiply by its reciprocal, which changes the quotient's bits."""
+    return torch.tensor(LOG_075, dtype=torch.float32, device=device)
+
+
+def moves_from_draws(u_do, op, e1, e2, e3, u_local, u_span, k: int,
+                     mutprob: float, local_frac: float = 0.5):
+    """(do, op, i, j, t) with op in {0 swap, 1 inversion of [i,j],
+    2 rotation of [i,t) by j-i, 3 orientation flip of [i,j]}. A
+    ``local_frac`` share of the moves is local (geometric span, mean
+    ~4). The kernel's draws mode makes the same moves in the same f32
+    arithmetic."""
+    do = u_do < mutprob
+    i = torch.minimum(e1, e2)
+    j = torch.maximum(e1, e2)
+    local = u_local < local_frac
+    span = 1 + torch.floor(torch.log(1.0 - u_span)
+                           / _log_075_on(u_span.device)).to(torch.int32)
+    j_local = torch.clamp(e1 + span, max=k - 1)
+    i = torch.where(local, e1, i)
+    j = torch.where(local, torch.maximum(j_local, e1), j)
+    e3 = torch.where(local, j, e3)
+    t = torch.maximum(j, e3)
+    return do, op, i, j, t
 
 
 def contrib_from_cache(posA, sA, oA, posB, sB, oB, la, lb, d, w):
@@ -235,20 +281,38 @@ def delta_generation_plain(state, move, la, lb, d, w, min_gain: float,
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
+def _launcher(draws: bool = False):
     lib = kbuild.load('delta_generation')
-    vp = ctypes.c_void_p
-    fn = lib.delta_generation_launch
-    fn.argtypes = [vp] * 24 + [ctypes.c_int] * 3 + [
-        ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_int, vp]
+    vp, f = ctypes.c_void_p, ctypes.c_float
+    if draws:
+        fn = lib.delta_generation_draws_launch
+        fn.argtypes = [vp] * 30 + [ctypes.c_int] * 3 + [
+            ctypes.c_int64, f, f, f, f, f, ctypes.c_int, vp]
+    else:
+        fn = lib.delta_generation_launch
+        fn.argtypes = [vp] * 24 + [ctypes.c_int] * 3 + [
+            ctypes.c_int64, f, f, ctypes.c_int, vp]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(state, move, la, lb, d, w, accept):
-    if len(state) != 12 or len(move) != 5:
-        raise ValueError('want the 12 state tensors ({}) and 5 move '
-                         'fields'.format(', '.join(STATE_FIELDS)))
+def _fields(xs, fields, kind):
+    """(name, tensor, dtype) of the per-row (G, P) tensors ``xs``."""
+    if len(xs) != len(fields):
+        raise ValueError('want the {} {} fields ({})'.format(
+            len(fields), kind, ', '.join(n for n, _ in fields)))
+    return [('{} {}'.format(kind, n), x, dtype)
+            for (n, dtype), x in zip(fields, xs)]
+
+
+def _check(state, la, lb, d, w, rows):
+    """Raises ValueError unless the state, the records and the per-row
+    tensors ``rows`` ((name, tensor, dtype), each (G, P)) are what the
+    kernel takes: on one device, contiguous, with the dtypes and shapes
+    of the module docstring."""
+    if len(state) != 12:
+        raise ValueError('want the 12 state tensors ({})'.format(
+            ', '.join(STATE_FIELDS)))
     if state[0].dim() != 3 or state[4].dim() != 3:
         raise ValueError('order and the caches must be (G, P, *)')
     G, P, k = state[0].shape
@@ -259,14 +323,10 @@ def _check(state, move, la, lb, d, w, accept):
     want += [(n, x, i32, (G, P, R))
              for n, x in zip(STATE_FIELDS[4:10], state[4:10])]
     want += [('contrib', state[10], f32, (G, P, R)),
-             ('scores', state[11], f32, (G, P)),
-             ('do', move[0], torch.bool, (G, P))]
-    want += [(n, x, i32, (G, P))
-             for n, x in zip(('op', 'i', 'j', 't'), move[1:])]
+             ('scores', state[11], f32, (G, P))]
     want += [('la', la, i32, (G, R)), ('lb', lb, i32, (G, R)),
              ('d', d, f32, (G, 4, R)), ('w', w, f32, (G, R))]
-    if accept is not None:
-        want.append(('accept', accept, torch.bool, (G, P)))
+    want += [(n, x, dtype, (G, P)) for n, x, dtype in rows]
     dev = state[0].device
     for name, x, dtype, shape in want:
         if x.device != dev:
@@ -277,28 +337,49 @@ def _check(state, move, la, lb, d, w, accept):
                 name, dtype, shape, x.dtype, tuple(x.shape)))
         if not x.is_contiguous():
             raise ValueError('{} must be contiguous'.format(name))
+    if dev.type not in ('cpu', 'cuda'):
+        raise ValueError('unsupported device {}'.format(dev))
+
+
+def _vec(state) -> int:
+    """1 when the kernel may load slots 16 bytes at a time: 16-byte
+    aligned rows."""
+    R = state[4].shape[2]
+    return int(R % 4 == 0 and state[4].data_ptr() % 16 == 0
+               and state[7].data_ptr() % 16 == 0)
+
+
+def _outputs(state):
+    G, P = state[0].shape[:2]
+    dev = state[0].device
+    return (torch.empty((G, P), dtype=torch.float32, device=dev),
+            torch.empty((G, P), dtype=torch.bool, device=dev))
+
+
+def _launched(err):
+    if err != 0:
+        raise RuntimeError('delta_generation kernel launch failed: CUDA '
+                           'error {}'.format(err))
+    delta_generation.launches += 1
 
 
 def delta_generation(state, move, la, lb, d, w, min_gain: float,
                      span_gain: float, accept=None):
-    """(delta, acc) of one delta generation; the state's accepted rows
-    are updated in place. The CUDA kernel on CUDA tensors (one launch),
-    the plain version on CPU tensors. ``accept`` replaces the threshold
-    test with a given mask."""
-    _check(state, move, la, lb, d, w, accept)
+    """(delta, acc) of one delta generation of the given ``move``; the
+    state's accepted rows are updated in place. The CUDA kernel on CUDA
+    tensors (one launch), the plain version on CPU tensors. ``accept``
+    replaces the threshold test with a given mask."""
+    rows = _fields(move, MOVE_FIELDS, 'move')
+    if accept is not None:
+        rows.append(('accept', accept, torch.bool))
+    _check(state, la, lb, d, w, rows)
     dev = state[0].device
     if dev.type == 'cpu':
         return delta_generation_plain(state, move, la, lb, d, w, min_gain,
                                       span_gain, accept)
-    if dev.type != 'cuda':
-        raise ValueError('unsupported device {}'.format(dev))
     G, P, k = state[0].shape
     R = state[4].shape[2]
-    delta = torch.empty((G, P), dtype=torch.float32, device=dev)
-    acc = torch.empty((G, P), dtype=torch.bool, device=dev)
-    # 16-byte slot loads need 16-byte aligned rows
-    vec = int(R % 4 == 0 and state[4].data_ptr() % 16 == 0
-              and state[7].data_ptr() % 16 == 0)
+    delta, acc = _outputs(state)
     ptrs = [x.data_ptr() for x in tuple(state) + tuple(move)
             + (la, lb, d, w)]
     ptrs += [None if accept is None else accept.data_ptr(),
@@ -306,11 +387,48 @@ def delta_generation(state, move, la, lb, d, w, min_gain: float,
     launch = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(*ptrs, G, P, k, R, min_gain, span_gain, vec, stream)
-    if err != 0:
-        raise RuntimeError('delta_generation kernel launch failed: CUDA '
-                           'error {}'.format(err))
-    delta_generation.launches += 1
+        err = launch(*ptrs, G, P, k, R, min_gain, span_gain, _vec(state),
+                     stream)
+    _launched(err)
+    return delta, acc
+
+
+def delta_generation_from_draws(state, draws, la, lb, d, w,
+                                mutprob: float, local_frac: float,
+                                min_gain: float, span_gain: float,
+                                moves_out=None):
+    """(delta, acc) of one whole delta generation from the seven
+    ``draws`` (u_do, op, e1, e2, e3, u_local, u_span; each (G, P)) that
+    ``moves_from_draws`` turns into moves; the state's accepted rows are
+    updated in place. On CUDA tensors one kernel launch makes the moves
+    too (counted in ``delta_generation.launches``); on CPU tensors
+    ``moves_from_draws`` and the plain version. ``moves_out``, five
+    (G, P) tensors (do bool, op, i, j, t int32), receives the moves."""
+    rows = _fields(draws, DRAW_FIELDS, 'draw')
+    if moves_out is not None:
+        rows += _fields(moves_out, MOVE_FIELDS, 'moves_out')
+    _check(state, la, lb, d, w, rows)
+    dev = state[0].device
+    G, P, k = state[0].shape
+    if dev.type == 'cpu':
+        move = moves_from_draws(*draws, k, mutprob, local_frac)
+        if moves_out is not None:
+            for out, x in zip(moves_out, move):
+                out.copy_(x)
+        return delta_generation_plain(state, move, la, lb, d, w, min_gain,
+                                      span_gain)
+    R = state[4].shape[2]
+    delta, acc = _outputs(state)
+    ptrs = [x.data_ptr() for x in tuple(state) + tuple(draws)
+            + (la, lb, d, w, delta, acc)]
+    ptrs += [None] * 5 if moves_out is None else [
+        x.data_ptr() for x in moves_out]
+    launch = _launcher(draws=True)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = launch(*ptrs, G, P, k, R, min_gain, span_gain, mutprob,
+                     local_frac, LOG_075, _vec(state), stream)
+    _launched(err)
     return delta, acc
 
 

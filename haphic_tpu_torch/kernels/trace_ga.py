@@ -13,7 +13,8 @@ its GA), evolved WARM_GENS (100) generations by the GA's own windows
 first.
 On each batch, from the same starting state:
 
-1. times ``--gens`` delta generations (``optimize._dgen``) with the host
+1. times ``--gens`` delta generations (``optimize._dgen``: the seven
+   draws, then one launch of the kernel's draws mode) with the host
    clock around a synchronised run;
 2. runs the same number of generations under ``torch.profiler`` and
    reports the device time by operation (the top 15), the number of
@@ -22,12 +23,14 @@ On each batch, from the same starting state:
    activity);
 3. runs ``--gens`` more and reports, per generation, the share of
    (individual, record) pairs the moves touch and the rows that accept;
-4. repeats all three with the plain torch version of the step
-   (``delta_generation_plain``) in place of the kernel
-   (``delta_generation``).
+4. repeats all three with ``_dgen`` given a step: the kernel's move
+   mode (``delta_generation`` on the moves ``_moves_from_draws`` makes,
+   path ``move_mode``) and the plain version
+   (``delta_generation_plain``, path ``plain``).
 
 On each batch it also times one kernel launch alone (kernel_breakdown:
-the delta pass, a generation, every row's commit, no move). It scores
+a generation in draws mode; in move mode the delta pass, a generation,
+every row's commit, no move). It scores
 the random population ``--gens`` times with
 ``score_population`` under the profiler: CUDA-event ms per call and the
 device time of each of its kernels (table, partial sums, reduction).
@@ -38,7 +41,9 @@ of three rescoring calls, crossover, mutation, selection and 24 delta
 generations) on that batch (``trace_window``): its host-clock time and
 peak card memory; its device busy ms, device operations, host syncs and
 idle share under the profiler; and the same split by phase, in a third
-run with the card synchronised around each step of the cycle.
+run with the card synchronised around each step of the cycle, with each
+phase's device operations and host syncs a call (``delta_generations``:
+a delta generation's).
 
 Each result is one JSON line naming the card (`nvidia-smi` name and
 power limit). With ``--out`` the Chrome traces are written there.
@@ -171,20 +176,27 @@ def _busy_and_gaps(iv):
 def _moves_stats(rec, state, gen, step, gens: int) -> dict:
     """Per generation, the share of (individual, record) pairs the moves
     touch and the rows that accept, over ``gens`` generations drawn and
-    stepped as _dgen draws and steps them."""
+    stepped as _dgen draws and steps them (``step`` None: the draws
+    mode)."""
     from haphic_tpu_torch.kernels import delta as kdelta
     from haphic_tpu_torch.order import optimize as opt
     G, P, k = state[0].shape
     R = state[4].shape[2]
     touched, accepted = [], []
     for _ in range(gens):
-        move = opt._sample_moves(opt._Draws(gen, G), (G, P), k, 1.1,
-                                 local_frac=opt._DELTA_LOCAL_FRAC,
-                                 device=state[0].device)
+        draws = opt._move_draws(opt._Draws(gen, G), (G, P), k,
+                                state[0].device)
+        move = opt._moves_from_draws(*draws, k, 1.1, opt._DELTA_LOCAL_FRAC)
         touched.append(kdelta.touched_records(state[4], state[7],
                                               move).sum())
-        _, acc = step(state, move, rec.la, rec.lb, rec.d, rec.w,
-                      opt._DELTA_MIN_GAIN, opt._DELTA_SPAN_GAIN)
+        if step is None:
+            _, acc = kdelta.delta_generation_from_draws(
+                state, draws, rec.la, rec.lb, rec.d, rec.w, 1.1,
+                opt._DELTA_LOCAL_FRAC, opt._DELTA_MIN_GAIN,
+                opt._DELTA_SPAN_GAIN)
+        else:
+            _, acc = step(state, move, rec.la, rec.lb, rec.d, rec.w,
+                          opt._DELTA_MIN_GAIN, opt._DELTA_SPAN_GAIN)
         accepted.append(acc.sum())
     touched = [int(x) / float(G * P * max(R, 1)) for x in touched]
     accepted = [int(x) for x in accepted]
@@ -348,12 +360,14 @@ def _window_profile(prof, wall_us: float) -> dict:
         owned += len(mine)
         busy, _ = _busy_and_gaps(mine)
         pwall = sum(e - s for s, e in rs)
+        n_syncs = sum(1 for t in syncs if any(s <= t <= e for s, e in rs))
         phases[name] = {
             'calls': len(rs), 'wall_ms': pwall / 1e3,
             'device_ms': busy / 1e3, 'device_ops': len(mine),
             'idle_share': 1.0 - busy / pwall if pwall > 0 else None,
-            'host_syncs': sum(1 for t in syncs
-                              if any(s <= t <= e for s, e in rs))}
+            'host_syncs': n_syncs,
+            'device_ops_per_call': len(mine) / len(rs),
+            'host_syncs_per_call': n_syncs / len(rs)}
     out['phases'] = phases
     out['unmarked_device_ops'] = len(dev) - owned
     return out
@@ -422,31 +436,37 @@ def _event_ms(fn, reps: int) -> float:
 
 
 def kernel_breakdown(rec, state, gen, reps: int) -> dict:
-    """CUDA-event ms of one delta_generation launch on one set of moves
+    """CUDA-event ms of one delta_generation launch on one set of draws
     drawn as _dgen draws them, applied again and again to one copy of
     the state (the moves permute slots inside their own range, so each
-    repetition touches the same records): with every row rejected (the
-    delta pass alone), with the acceptance the kernel makes on the first
-    run (a generation), with every row accepted (every row's commit),
-    and with no move (the launch and the cluster's fixed cost). Also
-    the pairs the moves touch and the pairs whose contribution they may
-    change."""
+    repetition touches the same records): in draws mode, as the GA
+    launches it (draws_generation_ms); in move mode on the moves the
+    draws make, with every row rejected (the delta pass alone), with
+    the acceptance the kernel makes on the first run (a generation),
+    with every row accepted (every row's commit), and with no move (the
+    launch and the cluster's fixed cost). Also the pairs the moves touch
+    and the pairs whose contribution they may change."""
     from haphic_tpu_torch.kernels import delta as kdelta
     from haphic_tpu_torch.order import optimize as opt
     G, P, k = state[0].shape
-    move = opt._sample_moves(opt._Draws(gen, G), (G, P), k, 1.1,
-                             local_frac=opt._DELTA_LOCAL_FRAC,
-                             device=state[0].device)
+    draws = opt._move_draws(opt._Draws(gen, G), (G, P), k, state[0].device)
+    move = tuple(torch.empty((G, P), dtype=dt, device=state[0].device)
+                 for dt in (torch.bool,) + (torch.int32,) * 4)
     st = tuple(x.clone() for x in state)
+
+    def from_draws(s, moves_out=None):
+        return kdelta.delta_generation_from_draws(
+            s, draws, rec.la, rec.lb, rec.d, rec.w, 1.1,
+            opt._DELTA_LOCAL_FRAC, opt._DELTA_MIN_GAIN,
+            opt._DELTA_SPAN_GAIN, moves_out=moves_out)
 
     def run(mv, accept=None):
         return kdelta.delta_generation(st, mv, rec.la, rec.lb, rec.d, rec.w,
                                        opt._DELTA_MIN_GAIN,
                                        opt._DELTA_SPAN_GAIN, accept=accept)
-    own = kdelta.delta_generation(tuple(x.clone() for x in state), move,
-                                  rec.la, rec.lb, rec.d, rec.w,
-                                  opt._DELTA_MIN_GAIN,
-                                  opt._DELTA_SPAN_GAIN)[1]
+    own = from_draws(tuple(x.clone() for x in state), move)[1]
+    draws_ms = _event_ms(lambda: from_draws(st), reps)
+    st = tuple(x.clone() for x in state)
     still = (torch.zeros_like(move[0]),) + tuple(move[1:])
     out = {'path': 'delta_generation_breakdown',
            'touched_pairs': int(kdelta.touched_records(
@@ -455,6 +475,7 @@ def kernel_breakdown(rec, state, gen, reps: int) -> dict:
                state[4], state[7], move).sum()),
            'pairs': G * P * state[4].shape[2],
            'accepted_rows': int(own.sum()),
+           'draws_generation_ms': draws_ms,
            'reject_all_ms': _event_ms(
                lambda: run(move, torch.zeros_like(own)), reps),
            'generation_ms': _event_ms(lambda: run(move, own), reps),
@@ -524,7 +545,8 @@ def main(argv=None) -> int:
     for population, build in batches:
         # one batch on the card at a time: peak memory is the step's own
         rec, state, bshape = build()
-        for label, step in (('kernel', kdelta.delta_generation),
+        for label, step in (('kernel', None),
+                            ('move_mode', kdelta.delta_generation),
                             ('plain', kdelta.delta_generation_plain)):
             gen = torch.Generator(device='cuda')
             gen.manual_seed(args.seed)

@@ -27,9 +27,9 @@ hand-written CUDA kernels in haphic_tpu_torch.kernels carry it: the
 population scorer (initial scores, skip_ga, the full-rescore window),
 the cycle's rescoring (rescore: the parents' and the offspring's scores,
 then the selected population's caches, contributions and scores) and
-each delta generation after its draw (delta_generation: one launch
-scores, accepts and commits the moves, caches and slot tables in
-place).
+each delta generation from its draws (delta_generation_from_draws: one
+launch makes the moves, scores, accepts and commits them, caches and
+slot tables in place, with no host sync).
 
 Differences from the JAX package: gathers and the permutation inverse
 are plain torch indexing and scatters (no one-hot matmuls, no 12-bit
@@ -60,8 +60,9 @@ import torch
 
 from haphic_tpu_torch.kernels.delta import (  # noqa: F401 (tests)
     apply_move as _apply_move, contrib_from_cache as _contrib_from_cache,
-    delta_generation, endpoint_update as _endpoint_update,
-    move_scalars as _move_scalars, move_src as _move_src)
+    delta_generation, delta_generation_from_draws,
+    endpoint_update as _endpoint_update, move_scalars as _move_scalars,
+    move_src as _move_src, moves_from_draws as _moves_from_draws)
 from haphic_tpu_torch.kernels.rescore import (  # noqa: F401 (tests)
     build_caches as _build_caches, group_sums as _group_sums,
     inverse as _inverse, rescore)
@@ -289,9 +290,6 @@ def _top_rows(scores: torch.Tensor, P: int):
 # Random draws and the moves they make
 # ---------------------------------------------------------------------------
 
-_LOG_075 = float(np.log(np.float32(0.75)).astype(np.float32))
-
-
 class _Draws:
     """The GA's random numbers: the draws of rows [g0, g1) (default:
     all) of a batch of G groups from the batch's one generator. Each
@@ -323,28 +321,6 @@ def _move_draws(gen: _Draws, shape, k: int, device):
     def ri(hi):
         return gen.randint(hi, shape, device)
     return u(), ri(4), ri(k), ri(k), ri(k), u(), u()
-
-
-def _moves_from_draws(u_do, op, e1, e2, e3, u_local, u_span, k: int,
-                      mutprob: float, local_frac: float = 0.5):
-    """(do, op, i, j, t) with op in {0 swap, 1 inversion of [i,j],
-    2 rotation of [i,t) by j-i, 3 orientation flip of [i,j]}. A
-    ``local_frac`` share of the moves is local (geometric span, mean
-    ~4)."""
-    do = u_do < mutprob
-    i = torch.minimum(e1, e2)
-    j = torch.maximum(e1, e2)
-    local = u_local < local_frac
-    log_075 = torch.tensor(_LOG_075, dtype=torch.float32,
-                           device=u_span.device)
-    span = 1 + torch.floor(torch.log(1.0 - u_span) / log_075).to(
-        torch.int32)
-    j_local = torch.clamp(e1 + span, max=k - 1)
-    i = torch.where(local, e1, i)
-    j = torch.where(local, torch.maximum(j_local, e1), j)
-    e3 = torch.where(local, j, e3)
-    t = torch.maximum(j, e3)
-    return do, op, i, j, t
 
 
 def _sample_moves(gen, shape, k: int, mutprob: float, local_frac=0.5,
@@ -475,12 +451,23 @@ class _Records:
 _Records.rescores = 0
 
 
-def _dgen(gen, rec: _Records, state, step=delta_generation):
-    """One delta-scored greedy generation (the JAX package's dgen)."""
+def _dgen(gen, rec: _Records, state, step=None):
+    """One delta-scored greedy generation (the JAX package's dgen): the
+    seven draws, then delta_generation_from_draws (on the card one
+    launch that makes the moves, scores, accepts and commits them; no
+    host sync). A given ``step`` (a move-mode wrapper or the plain
+    version) takes the moves _moves_from_draws makes instead."""
     order = state[0]
-    # always mutate: rejection handles bad moves
-    move = _sample_moves(gen, order.shape[:-1], order.shape[-1], 1.1,
-                         local_frac=_DELTA_LOCAL_FRAC, device=order.device)
+    k = order.shape[-1]
+    draws = _move_draws(gen, order.shape[:-1], k, order.device)
+    # always mutate (mutprob 1.1): rejection handles bad moves
+    if step is None:
+        delta_generation_from_draws(state, draws, rec.la, rec.lb, rec.d,
+                                    rec.w, 1.1, _DELTA_LOCAL_FRAC,
+                                    _DELTA_MIN_GAIN, _DELTA_SPAN_GAIN)
+        _delta_step.generations += 1
+        return state
+    move = _moves_from_draws(*draws, k, 1.1, _DELTA_LOCAL_FRAC)
     return _delta_step(rec, state, move, step)
 
 

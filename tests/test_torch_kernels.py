@@ -301,6 +301,139 @@ def test_delta_kernel_is_repeatable(card):
         assert torch.equal(a, b)
 
 
+# --- delta generation from its draws ---------------------------------------
+
+def _span_edges():
+    """u_span values at the edges of the geometric span: 0, the eight
+    largest f32 values below 1 (the largest, 1 - 2^-24, gives the
+    longest span), and every f32 1 - 0.75^n with its two neighbours,
+    where the span's floor steps."""
+    one, zero = np.float32(1.0), np.float32(0.0)
+    vals = [zero, np.float32(2.0 ** -24)]
+    u = one
+    for _ in range(8):
+        u = np.nextafter(u, zero)
+        vals.append(u)
+    for n in range(1, 60):
+        u = np.float32(1.0 - 0.75 ** n)
+        if u < one:
+            vals += [np.nextafter(u, zero), u, np.nextafter(u, one)]
+    vals = np.array(vals, dtype=np.float32)
+    return vals[vals < one]
+
+
+def _from_draws(state, draws, rec, mutprob=1.1, moves_out=None):
+    return kdelta.delta_generation_from_draws(
+        state, draws, rec.la, rec.lb, rec.d, rec.w, mutprob,
+        topt._DELTA_LOCAL_FRAC, topt._DELTA_MIN_GAIN, topt._DELTA_SPAN_GAIN,
+        moves_out=moves_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mutprob', [1.1, 0.5], ids=['always', 'half'])
+def test_delta_kernel_moves_from_draws_bit_equal(card, mutprob):
+    """The draws mode's moves (moves_out) equal _moves_from_draws's on
+    the card bit for bit over 1,048,576 rows: seeded draws with e1 =
+    k - 1 on every 7th row, and the span's edges planted in u_span twice,
+    once on local rows with e1 = 0 (where the span is j - i) and once on
+    seeded rows."""
+    G, P, k, R = 16, 65536, 64, 8
+    rng = np.random.default_rng(23)
+    lengths, pa, pb, d, w, order, ori, _ = _delta_case(23, G, 1, k, R)
+    order = np.ascontiguousarray(np.broadcast_to(order, (G, P, k)))
+    ori = np.ascontiguousarray(np.broadcast_to(ori, (G, P, k)))
+    draws = [rng.random((G, P)).astype(np.float32),
+             rng.integers(0, 4, (G, P)).astype(np.int32)] + [
+        rng.integers(0, k, (G, P)).astype(np.int32) for _ in range(3)] + [
+        rng.random((G, P)).astype(np.float32) for _ in range(2)]
+    e1, u_local, u_span = [x.reshape(-1) for x in
+                           (draws[2], draws[5], draws[6])]
+    e1[::7] = k - 1
+    edges = _span_edges()
+    n = edges.size
+    u_span[1:1 + n] = edges
+    e1[1:1 + n] = 0
+    u_local[1:1 + n] = 0.0
+    u_span[1 + n:1 + 2 * n] = edges
+    put = lambda x: torch.as_tensor(x, device=card)  # noqa: E731
+    rec = topt._Records(put(lengths), put(pa), put(pb), put(d), put(w))
+    # the caches of a million tours, by the plain version on the host
+    host = topt._Records(*[torch.as_tensor(x)
+                           for x in (lengths, pa, pb, d, w)])
+    state = tuple(x.to(card) for x in (torch.as_tensor(order),
+                                       torch.as_tensor(ori))
+                  + host.caches(torch.as_tensor(order),
+                                torch.as_tensor(ori)))
+    draws = [put(x) for x in draws]
+    moves = tuple(torch.empty((G, P), dtype=dt, device=card)
+                  for dt in (torch.bool,) + (torch.int32,) * 4)
+    _from_draws(state, draws, rec, mutprob, moves_out=moves)
+    want = topt._moves_from_draws(*draws, k, mutprob, topt._DELTA_LOCAL_FRAC)
+    torch.cuda.synchronize()
+    for name, a, b in zip(('do', 'op', 'i', 'j', 't'), moves, want):
+        assert torch.equal(a, b), name
+    span = (moves[3] - moves[2]).reshape(-1)[1:1 + n]
+    assert int(span[0]) == 1 and int(span.max()) == 58   # u_span 0, 1-2^-24
+
+
+@pytest.mark.cuda
+def test_delta_kernel_draws_mode_equals_move_mode(card):
+    """At the dense batch's shape (G = 7, P = 100, k = 1024, R =
+    196,608), 25 generations from the same draws and state in draws mode
+    and in move mode (moves by _moves_from_draws): delta, acceptance and
+    all 12 state tensors bit-equal after every generation."""
+    rec, state, _ = _delta_inputs(_delta_case(31, 7, 100, 1024, 196608),
+                                  card)
+    a = tuple(x.clone() for x in state)
+    b = tuple(x.clone() for x in state)
+    del state
+    gen = torch.Generator(device=card)
+    gen.manual_seed(31)
+    draws_of = topt._Draws(gen, 7)
+    accepted = 0
+    for _ in range(25):
+        draws = topt._move_draws(draws_of, (7, 100), 1024, card)
+        move = topt._moves_from_draws(*draws, 1024, 1.1,
+                                      topt._DELTA_LOCAL_FRAC)
+        da, acc_a = _from_draws(a, draws, rec)
+        db, acc_b = kdelta.delta_generation(
+            b, move, rec.la, rec.lb, rec.d, rec.w, topt._DELTA_MIN_GAIN,
+            topt._DELTA_SPAN_GAIN)
+        torch.cuda.synchronize()
+        assert torch.equal(da, db) and torch.equal(acc_a, acc_b)
+        for n, (x, y) in enumerate(zip(a, b)):
+            assert torch.equal(x, y), kdelta.STATE_FIELDS[n]
+        accepted += int(acc_a.sum())
+    assert accepted > 0
+
+
+@pytest.mark.cuda
+def test_dgen_on_the_card_never_syncs(card):
+    """25 _dgen calls (the draws and one kernel launch each) under
+    torch.cuda.set_sync_debug_mode('error') raise nothing, and each
+    launches the delta kernel exactly once; so do 25 calls with the
+    move-mode step, whose move arithmetic no longer makes a tensor from
+    the host."""
+    rec, state, _ = _delta_inputs(_delta_case(32, 3, 100, 1024, 49152),
+                                  card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(32)
+    draws = topt._Draws(gen, 3)
+    for step in (None, kdelta.delta_generation):
+        state = topt._dgen(draws, rec, state, step)      # loads, caches
+        torch.cuda.synchronize()
+        n0 = kdelta.delta_generation.launches
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            for i in range(25):
+                state = topt._dgen(draws, rec, state, step)
+                assert kdelta.delta_generation.launches == n0 + i + 1
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(state[-1]).all())
+
+
 def _sim_chromosome_problem(seed, k=8, n_pairs=4000, decay=40000.0):
     """tests/test_optimize.py's simulated chromosome (contigs tiled in a
     random order and orientation, read pairs at exponential-decay

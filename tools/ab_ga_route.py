@@ -2,20 +2,23 @@
 """The GA of two checkouts on the pipelines' own groups, in turns on one
 card, on both of its routes.
 
-    python3 tools/ab_ga_route.py A_DIR B_DIR
+    python3 tools/ab_ga_route.py A_DIR B_DIR [--order ABBA]
 
 First B's chip_smoke.py runs its dense and its sparse pipeline (the
 160 Mb / 2,000,000-pair genome, and the 24-chromosome one the sparse
 MCL engine clusters) and keeps the arguments of each one's
-`optimize_tours` call. Then, in the order ABBA, each checkout runs that
-call on the card again in a process of its own that imports only that
-checkout: once on the delta route (the default) and once with
-HAPHIC_GA_NO_DELTA=1 (every generation scored in full by the score
-kernel). Each turn prints one JSON line: per pipeline and route, the
-GA's seconds and peak card memory, the launches of the GA's kernels
+`optimize_tours` call. Then, in the order ABBA (or ``--order``), each
+checkout runs that call on the card again in a process of its own that
+imports only that checkout: once on the delta route (the default) and
+once with HAPHIC_GA_NO_DELTA=1 (every generation scored in full by the
+score kernel). Each turn prints one JSON line: per pipeline and route,
+the GA's seconds and peak card memory, the launches of the GA's kernels
 (the rescoring kernel's where the checkout has it), and a hash of the
 results (orders, orientations, scores), so that the two checkouts'
-outputs can be compared. Each turn then times one rescoring call
+outputs can be compared; then the same call once more under
+torch.profiler: its wall, device busy ms, idle share, device operations
+and host syncs (cudaStreamSynchronize, cudaEventSynchronize,
+cudaMemcpy: the calls that wait for the card). Each turn then times one rescoring call
 (`rescore`, the checkout's rescore_population kernel) in each mode at
 the dense pipeline's largest GA batch, on that batch's own records and
 a seeded population (tools/ab_rescore.py's measure: ms by CUDA events,
@@ -76,6 +79,41 @@ try:                        # a checkout from before the rescoring kernel
 except ImportError:
     krs = None
 kbuild.build()
+
+
+def profiled(fn):
+    """Wall ms of fn under torch.profiler, the device's busy ms (the
+    union of its kernels and copies), the idle share of the wall, the
+    device operations and the host syncs."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev, syncs = [], 0
+    for e in prof.events():
+        if getattr(e.device_type, 'name', '') == 'CUDA':
+            dev.append((e.time_range.start, e.time_range.end))
+        elif e.name in ('cudaStreamSynchronize', 'cudaEventSynchronize',
+                        'cudaMemcpy'):
+            syncs += 1
+    dev.sort()
+    busy, end = 0.0, None
+    for s, e in dev:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return {'wall_ms': wall_us / 1e3, 'device_busy_ms': busy / 1e3,
+            'idle_share': 1.0 - busy / wall_us, 'device_ops': len(dev),
+            'host_syncs': syncs}
+
+
 calls = {}
 for name in sys.argv[3].split(','):
     with open(os.path.join(sys.argv[2], name + '.pkl'), 'rb') as f:
@@ -107,7 +145,8 @@ for name, (args, kw) in calls.items():
             'delta_launches': kdelta.delta_generation.launches,
             'rescore_launches': None if krs is None else krs.rescore.launches,
             'max_memory_allocated': torch.cuda.max_memory_allocated(),
-            'results_sha256': h.hexdigest()}
+            'results_sha256': h.hexdigest(),
+            'profiled': profiled(lambda: topt.optimize_tours(*args, **kw))}
 os.environ.pop('HAPHIC_GA_NO_DELTA')
 if krs is not None:
     # one rescoring call in each mode at the dense run's largest batch
@@ -194,7 +233,10 @@ def child(code: str, tree: str, *argv: str) -> list:
 
 
 def main(argv) -> int:
-    if len(argv) != 2:
+    order = ORDER
+    if len(argv) == 4 and argv[2] == '--order':
+        order, argv = argv[3], argv[:2]
+    if len(argv) != 2 or set(order) - set('AB'):
         sys.stderr.write(__doc__)
         return 2
     trees = dict(zip('AB', (os.path.abspath(t) for t in argv)))
@@ -203,7 +245,7 @@ def main(argv) -> int:
     lines = child(RECORD, trees['B'], work)
     print(json.dumps({'record': [ln for ln in lines
                                  if ln.get('phase') != 'env']}), flush=True)
-    for turn, label in enumerate(ORDER):
+    for turn, label in enumerate(order):
         (line,) = child(TURN, trees[label], work, ','.join(PIPELINES),
                         os.path.dirname(os.path.abspath(__file__)))
         print(json.dumps({'checkout': label, 'dir': trees[label],
