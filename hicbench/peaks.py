@@ -1,0 +1,42 @@
+"""The yardstick's peaks and the operations and bytes of each kernel
+call, frozen here so that a change to the program cannot move them.
+
+Peaks: one NVIDIA H100 SXM (NVIDIA's data sheet, at its 700 W limit):
+3.35 TB/s of HBM and 67 TFLOP/s FP32 outside the tensor cores (the
+port runs FP32 with TF32 off).
+
+Each ``*_cost`` function takes a call's arguments and gives (bytes,
+operations, peak operations a second) for that call: each input byte
+read once, each output byte written once, for what these inputs need.
+The column pass's bytes are a copy, at commit 2773cb2, of
+``haphic_tpu_torch/kernels/mcl_column.py`` ``pass_bytes`` /
+``bound_ms``, cut to one call. A bound of a call is the larger of bytes
+over HBM_BPS and operations over its peak.
+"""
+
+from __future__ import annotations
+
+HBM_BPS = 3.35e12
+FP32_FLOPS = 67e12
+
+
+def bound_s(nbytes: float, ops: float, peak: float) -> float:
+    return max(nbytes / HBM_BPS, ops / peak)
+
+
+def gemm_cost(m, e: int):
+    """``_matpower(m, e)``: e - 1 FP32 products of (..., n, n) matrices,
+    2 n^3 operations each; the operands read and the product written."""
+    n = m.shape[-1]
+    B = m.numel() // (n * n)
+    return (12 * B * n * n * (e - 1), 2 * B * n ** 3 * (e - 1), FP32_FLOPS)
+
+
+def mcl_column_cost(e, infl, pruning, old=None):
+    """One dense column pass: e read once (its storage, which iteration
+    0 shares over the batch as a stride-0 view), old read once when
+    given, the new matrices written once; a logf and an expf an entry."""
+    B, n = e.shape[0], e.shape[-1]
+    e_mats = 1 if e.stride(0) == 0 else B
+    nbytes = 4 * n * n * (e_mats + B + (B if old is not None else 0))
+    return nbytes, 2 * B * n * n, FP32_FLOPS

@@ -1,0 +1,93 @@
+"""The sizes that follow from the configuration, and the genome's links
+as the cell hands them to the program."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from hicbench import genome as gen
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def config(name):
+    with open(os.path.join(HERE, 'configs', name + '.json')) as f:
+        return json.load(f)
+
+
+def test_derived_sizes():
+    s = gen.derive(config('xtropicalis'))
+    assert (s.fragments, s.groups, s.contig_bp) == (7705, 10, 153670)
+    assert s.bin_bp == 2_000_000 and s.contig_bp < s.bin_bp
+    # 47.5x of 1.48 Gb in pairs of 150 bp reads; 2% uniform
+    assert s.pairs == 234_333_333 and s.trans_pairs == 4_686_667
+
+
+def small(contigs=240, chromosomes=4):
+    cfg = config('xtropicalis')
+    cfg['published'] = dict(cfg['published'], contigs=contigs,
+                            genome_bp=contigs * 150_000,
+                            chromosomes=chromosomes)
+    return cfg
+
+
+@pytest.mark.parametrize('k,L,s_min', [(963, 153_670, 1000),
+                                       (7, 150_000, 5000)])
+def test_cis_law_holds_the_chromosome_pairs(k, L, s_min):
+    """The expectations over every contig pair, and the pairs inside
+    each contig, add up to the chromosome's pairs."""
+    C, cis = k * L, 1e6
+    d = np.arange(1, k)
+    between = (gen.cis_expected(d, L, C, cis, s_min) * (k - d)).sum()
+    kappa = cis / (C * np.log(C / s_min) - C + s_min)
+    inside = k * kappa * (L * np.log(L / s_min) - L + s_min)
+    assert between + inside == pytest.approx(cis, rel=1e-9)
+
+
+def test_cis_law_decays_as_one_over_distance():
+    lam = gen.cis_expected(np.array([1, 2, 100, 200]), 150_000,
+                           150_000 * 900, 1e7, 1000)
+    assert lam[0] > lam[1] > lam[2] > lam[3] > 0
+    # far from the diagonal the count halves as the distance doubles
+    assert lam[2] / lam[3] == pytest.approx(2.0, rel=1e-3)
+
+
+def test_the_seed_orders_the_same_genome():
+    cfg = small()
+    a, b = gen.make(cfg, 2 ** 31 + 5), gen.make(cfg, 2 ** 31 + 5)
+    c = gen.make(cfg, 2 ** 31 + 6)
+    assert all(np.array_equal(getattr(a, k), getattr(c, k))
+               for k in ('i', 'j', 'w'))
+    la, lb, lc = (gen.fragment_links(x, 80) for x in (a, b, c))
+    assert all(np.array_equal(x, y) for x, y in zip(la[:3], lb[:3]))
+    assert not np.array_equal(la[0], lc[0])
+    # the same graph: the same link weights, another labelling
+    assert np.array_equal(np.sort(la[2]), np.sort(lc[2]))
+
+
+def test_links_follow_the_library():
+    cfg = small()
+    gn = gen.make(cfg, 7)
+    s = gn.sizes
+    assert (gn.i < gn.j).all() and gn.j.max() < s.contigs
+    assert np.unique(gn.i * s.contigs + gn.j).size == gn.i.size
+    group = np.searchsorted(gn.group_start, np.arange(s.contigs),
+                            side='right') - 1
+    trans = group[gn.i] != group[gn.j]
+    # uniform pairs between two chromosomes: (1 - 1/groups) of them
+    want = s.trans_pairs * (1 - 1 / s.groups)
+    assert gn.w[trans].sum() == pytest.approx(want, rel=0.02)
+    # every pair of contigs on one chromosome is linked at this depth
+    per = s.contigs // s.groups
+    assert (~trans).sum() == s.groups * per * (per - 1) // 2
+
+
+def test_fragment_links_are_the_kept_upper_triangle():
+    gn = gen.make(small(), 9)
+    ci, cj, cw, m = gen.fragment_links(gn, 80)
+    assert m == int(gen.nx_mask(gn.sizes.contigs, 80).sum()) == 192
+    assert (ci < cj).all() and cj.max() < m
+    assert np.unique(ci * m + cj).size == ci.size
+    assert cw.dtype == np.float64 and cw.min() >= 1
