@@ -27,6 +27,20 @@ JAX package's power-of-two bucketing (_bucket_pad) and COO padding have
 no counterpart here, and the nonzero pattern goes to the host as a
 plain bool array (no packed bitmask). A converged inflation freezes: it
 leaves the batch, so later iterations compute only the active ones.
+
+Tracing (``haphic_tpu_torch.trace``, off by default): on the torch route
+``run_mcl_partitions`` is the span ``mcl.sweep`` (host and device); in
+it the device spans ``mcl.densify`` (the matrix to the card),
+``mcl.pre_expand``, and per batch ``mcl.batch``: on the host the batch's
+whole turn (its iterations, its pattern and its interpretation), on the
+device its iterations alone. In the batch, ``mcl.pattern`` (host and
+device: the nonzero pattern, n_iters and converged to the host) and
+``mcl.interpret`` (host). ``mcl.expand`` (device) is every
+``_matpower``, ``mcl.column`` (device) every ``mcl_column``. The counter
+``run_mcl_partitions.syncs`` (always on) counts the points where the
+host waits for the card's stream: each copy between host and card (a
+Python scalar written into a card tensor included) and each
+boolean-mask index of a tensor.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from haphic_tpu_torch import trace
 from haphic_tpu_torch.kernels.mcl_column import _colnorm, mcl_column
 from haphic_tpu_torch.runtime import resolve_device
 
@@ -63,9 +78,11 @@ def _mcl_batched(pre_expanded: torch.Tensor, inflations: torch.Tensor,
     """
     B = inflations.shape[0]
     n = pre_expanded.shape[-1]
+    dev = pre_expanded.device
     # iteration 0: inflate + prune only
-    m, _ = mcl_column(pre_expanded[None].expand(B, n, n), inflations,
-                      pruning)
+    with trace.device_span('mcl.column', dev, B=B, n=n, with_old=False):
+        m, _ = mcl_column(pre_expanded[None].expand(B, n, n), inflations,
+                          pruning)
     conv_at = torch.full((B,), max_iter, dtype=torch.int32,
                          device=m.device)
     converged = torch.zeros((B,), dtype=torch.bool, device=m.device)
@@ -74,9 +91,15 @@ def _mcl_batched(pre_expanded: torch.Tensor, inflations: torch.Tensor,
     while it < max_iter and active.numel():
         whole = active.numel() == B
         cur = m if whole else m[active]
-        new, stat = mcl_column(_matpower(cur, expansion),
-                               inflations[active], pruning,
-                               old=cur if it >= 2 else None)
+        with trace.device_span('mcl.expand', dev, B=cur.shape[0], n=n,
+                               e=expansion):
+            x = _matpower(cur, expansion)
+        with trace.device_span('mcl.column', dev, B=cur.shape[0], n=n,
+                               with_old=it >= 2):
+            new, stat = mcl_column(x, inflations[active], pruning,
+                                   old=cur if it >= 2 else None)
+        # the expansion lives no longer than the column pass
+        del x
         if whole:
             m = new
         else:
@@ -85,6 +108,10 @@ def _mcl_batched(pre_expanded: torch.Tensor, inflations: torch.Tensor,
         # past here: freed now, not when the next iteration rebinds them
         del cur, new
         if it >= 2:
+            # five waits for the card: the three boolean-mask indexings,
+            # and the copies to the card of the two Python scalars
+            # written through them
+            run_mcl_partitions.syncs += 5
             conv = stat <= 1e-8
             conv_at[active[conv]] = it + 1
             converged[active[conv]] = True
@@ -185,17 +212,28 @@ def _batch_size(B: int, n: int, budget: int = 6 << 30) -> int:
 
 def _sweep(a: torch.Tensor, inflations, expansion, max_iter, pruning):
     """Yield (start, end, final matrices, n_iters, converged) per
-    inflation batch, all on the device."""
-    p = _matpower(_colnorm(a), expansion)
+    inflation batch, all on the device. The host span ``mcl.batch``
+    stays open while the caller holds the batch."""
+    n = a.shape[0]
+    with trace.device_span('mcl.pre_expand', a.device, n=n):
+        c = _colnorm(a)
+        with trace.device_span('mcl.expand', a.device, B=1, n=n,
+                               e=expansion):
+            p = _matpower(c, expansion)
+        del c
+    # the copy waits for the pre-expansion
     infl = torch.as_tensor(np.asarray(inflations, np.float32),
                            device=a.device)
+    run_mcl_partitions.syncs += 1
     B = infl.shape[0]
-    chunk = _batch_size(B, a.shape[0])
+    chunk = _batch_size(B, n)
     for s in range(0, B, chunk):
         e = min(B, s + chunk)
-        mm, ii, cc = _mcl_batched(p, infl[s:e], expansion, max_iter,
-                                  float(pruning))
-        yield s, e, mm, ii, cc
+        with trace.span('mcl.batch', B=e - s, n=n):
+            with trace.device_span('mcl.batch', a.device, B=e - s, n=n):
+                mm, ii, cc = _mcl_batched(p, infl[s:e], expansion,
+                                          max_iter, float(pruning))
+            yield s, e, mm, ii, cc
 
 
 def run_mcl(adjacency: np.ndarray, inflations: Sequence[float],
@@ -216,6 +254,7 @@ def run_mcl(adjacency: np.ndarray, inflations: Sequence[float],
         return _run_mcl_numpy(adjacency, np.asarray(inflations, np.float32),
                               expansion, max_iter, pruning)
     a = torch.as_tensor(adjacency.astype(np.float32), device=dev)
+    run_mcl_partitions.syncs += 1
     B = len(inflations)
     mats = np.empty((B, m, m), dtype=np.float32)
     iters = np.empty((B,), dtype=np.int32)
@@ -225,6 +264,7 @@ def run_mcl(adjacency: np.ndarray, inflations: Sequence[float],
         mats[s:e] = mm.cpu().numpy()
         iters[s:e] = ii.cpu().numpy()
         conv[s:e] = cc.cpu().numpy()
+        run_mcl_partitions.syncs += 3
     return MCLResult(matrices=mats, n_iters=iters, converged=conv)
 
 
@@ -260,31 +300,43 @@ def run_mcl_partitions(adjacency: Optional[np.ndarray],
                                        'mcl_engine': 'dense', 'n': m,
                                        'n_iters': res.n_iters.tolist()}})
         return parts, res.n_iters, res.converged
-    if coo is not None:
-        a = densify_coo(ci, cj, cw, m, dev)
-    else:
-        a = torch.as_tensor(adjacency.astype(np.float32), device=dev)
     B = len(inflations)
-    parts = []
-    iters = np.empty((B,), dtype=np.int32)
-    conv = np.empty((B,), dtype=bool)
-    batches = []
-    for s, e, mm, ii, cc in _sweep(a, inflations, expansion, max_iter,
-                                   pruning):
-        nz = (mm != 0).cpu().numpy()
-        del mm
-        iters[s:e] = ii.cpu().numpy()
-        conv[s:e] = cc.cpu().numpy()
-        batches.append(e - s)
-        for b in range(e - s):
-            parts.append(interpret_result(nz[b]))
-    logger.info('MCL sweep on %s (n=%d, %d inflations in batches %s)',
-                dev, m, B, batches,
-                extra={'metrics': {'mcl_route': dev.type,
-                                   'mcl_engine': 'dense', 'n': m,
-                                   'batches': batches,
-                                   'n_iters': iters.tolist()}})
+    with trace.span('mcl.sweep', device=dev, n=m, B=B):
+        with trace.device_span('mcl.densify', dev, n=m):
+            if coo is not None:
+                a = densify_coo(ci, cj, cw, m, dev)
+                run_mcl_partitions.syncs += 3      # the links' copies
+            else:
+                a = torch.as_tensor(adjacency.astype(np.float32),
+                                    device=dev)
+                run_mcl_partitions.syncs += 1
+        parts = []
+        iters = np.empty((B,), dtype=np.int32)
+        conv = np.empty((B,), dtype=bool)
+        batches = []
+        for s, e, mm, ii, cc in _sweep(a, inflations, expansion, max_iter,
+                                       pruning):
+            with trace.span('mcl.pattern', device=dev):
+                nz = (mm != 0).cpu().numpy()
+                del mm
+                iters[s:e] = ii.cpu().numpy()
+                conv[s:e] = cc.cpu().numpy()
+                run_mcl_partitions.syncs += 3
+            batches.append(e - s)
+            with trace.span('mcl.interpret'):
+                for b in range(e - s):
+                    parts.append(interpret_result(nz[b]))
+        logger.info('MCL sweep on %s (n=%d, %d inflations in batches %s)',
+                    dev, m, B, batches,
+                    extra={'metrics': {'mcl_route': dev.type,
+                                       'mcl_engine': 'dense', 'n': m,
+                                       'batches': batches,
+                                       'n_iters': iters.tolist()}})
     return parts, iters, conv
+
+
+# host waits for the card's stream on the torch route (module docstring)
+run_mcl_partitions.syncs = 0
 
 
 def interpret_result(matrix: np.ndarray, tol: float = 0.0
