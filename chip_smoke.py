@@ -15,7 +15,11 @@ Phases, each printing one JSON line:
              5000 (a cut, for time). The dense MCL sweep and the GA run
              on the card; the kernel launch counts are set to 0 just
              before and read just after (the dense sweep through the
-             mcl_column kernel; the GA through its three kernels, one
+             mcl_column kernel and its final matrices through
+             mcl_interpret, one launch per batch the sweep logs, every
+             matrix read from its labels by
+             run_mcl_partitions.card_interprets; the GA through its
+             three kernels, one
              delta_generation launch per delta generation and one
              rescore_population launch per rescoring call it reports,
              `ga_delta_gens` and `ga_rescores`). The scaffolds must
@@ -37,7 +41,12 @@ Phases, each printing one JSON line:
              plain_ms, its plan from mcl_column.plan(n) and the rate it
              reached on the bytes it moves, tb_s). Then the whole batch through _mcl_batched with
              the kernel and under plain_columns: equal iteration counts
-             and partitions.
+             and partitions by interpret_result. On the kernel's final
+             matrices, mcl_interpret against its plain version: labels
+             exactly equal and their partitions equal to
+             interpret_result's; both timed (ms, plain_ms), the bound
+             from the bytes it must move (each attractor row once, the
+             diagonal, the labels) and the attractors per matrix.
 4. kernel    every kernel against its plain torch version on the card,
              at a small shape and at the shapes the pipeline gave it,
              with CUDA-event times and the least time the card could
@@ -224,9 +233,10 @@ Phases, each printing one JSON line:
              card both ranks run on cuda:0 over gloo; with two cards,
              one each over NCCL. Ingest, the 20 inflations and the GA's
              groups shard over the ranks. Each rank's MCL must run on the
-             card through mcl_column and its GA with its three kernels,
-             one delta launch per delta generation and one rescoring
-             launch per rescoring call it reports; out_mesh/ and
+             card through mcl_column and mcl_interpret (one labels
+             launch per batch it logs) and its GA with its three
+             kernels, one delta launch per delta generation and one
+             rescoring launch per rescoring call it reports; out_mesh/ and
              out_mesh.rank1/ must equal the single-process out/ byte for
              byte (every
              01.cluster file, scaffolds.agp, scaffolds.raw.agp), and the
@@ -247,7 +257,8 @@ Phases, each printing one JSON line:
              a one-rank NCCL group in this process, so that NCCL's
              collectives run on CUDA tensors even on one card: the
              sharded dense sweep (its first 5 inflations at n = 8000,
-             through mcl_column), the sharded sparse step (the sparse
+             through mcl_column and mcl_interpret), the sharded sparse
+             step (the sparse
              pipeline's first step, through sparse_column and
              col_allclose) and the
              sharded GA (the pipeline's
@@ -262,7 +273,9 @@ Phases, each printing one JSON line:
              ranks, mesh_sparse over its two ranks, mesh_nccl),
              `launches_by_phase` lists them; sparse_column's and
              col_allclose's ms, plain_ms, bound_ms and max_abs_err are
-             phase 6's, mcl_column's phase 3's (with its plan and tb_s),
+             phase 6's, mcl_column's and mcl_interpret's phase 3's (with
+             the column pass's plan and tb_s, the labels' bytes and
+             attractors),
              rescore_population's phase 4's main_path row in caches mode
              (its scores mode beside them as `scores`).
 
@@ -373,9 +386,16 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'haphic_tpu_torch/kernels/csrc/rescore_population.cu',
     'replaces': 'haphic_tpu/order/optimize.py:911',
+}, {
+    'name': 'mcl_interpret',
+    'route': 'cuda',
+    'source': 'haphic_tpu_torch/kernels/csrc/mcl_interpret.cu',
+    'replaces': 'haphic_tpu/cluster/mcl.py:283',
 }]
 # the GA's kernels: every phase that drives a GA launches all three
 GA_KERNELS = ('score_population', 'delta_generation', 'rescore_population')
+# the dense MCL sweep's kernels on the card: the column pass and the labels
+DENSE_KERNELS = ('mcl_column', 'mcl_interpret')
 
 
 def kernel_wrappers():
@@ -384,6 +404,7 @@ def kernel_wrappers():
     from haphic_tpu_torch.kernels import col_allclose as kca
     from haphic_tpu_torch.kernels import delta as kdelta
     from haphic_tpu_torch.kernels import mcl_column as kmc
+    from haphic_tpu_torch.kernels import mcl_interpret as kmi
     from haphic_tpu_torch.kernels import rescore as krs
     from haphic_tpu_torch.kernels import score as kscore
     from haphic_tpu_torch.kernels import sparse_column as kcol
@@ -392,7 +413,8 @@ def kernel_wrappers():
             'sparse_column': kcol.sparse_column,
             'mcl_column': kmc.mcl_column,
             'col_allclose': kca.col_allclose,
-            'rescore_population': krs.rescore}
+            'rescore_population': krs.rescore,
+            'mcl_interpret': kmi.mcl_labels}
 
 
 def zero_launches(names):
@@ -415,6 +437,20 @@ def check_ga_launches(launches, delta_gens, rescores, what):
     check(launches['rescore_population'] == rescores,
           '{}: rescore_population launched {} times for {} rescoring calls'
           .format(what, launches['rescore_population'], rescores))
+
+
+def check_label_launches(launches, m, interprets, what):
+    """One mcl_interpret launch per batch of the dense sweeps on the
+    card, as they log their batches, and every matrix of those batches
+    read from its labels (``interprets``, the rise of
+    run_mcl_partitions.card_interprets over the run)."""
+    batches = [b for call in m.get('batches', []) for b in call]
+    check(launches['mcl_interpret'] == len(batches),
+          '{}: mcl_interpret launched {} times for {} dense batches'
+          .format(what, launches['mcl_interpret'], len(batches)))
+    check(interprets == sum(batches),
+          '{}: {} matrices read from the card\'s labels of {} swept'
+          .format(what, interprets, sum(batches)))
 
 
 T0 = time.time()
@@ -697,9 +733,12 @@ def _drive_pipeline(torch, cli, sim, sim_dir, out_dir,
     with its three kernels, one delta_generation launch per delta
     generation and one rescore_population launch per rescoring call the
     GA reports, and the scaffolds must recover the
-    simulated chromosomes. Returns (sim
+    simulated chromosomes. On the dense engine mcl_interpret must
+    launch once per batch the sweeps log and read every matrix of theirs
+    (check_label_launches). Returns (sim
     seconds, wall seconds, metrics, launches, partition summary, output
     directory)."""
+    from haphic_tpu_torch.cluster import mcl as tmcl
     t0 = time.time()
     fa, pairs, flags = genome(os.path.join(WORK, sim_dir), **sim)
     sim_s = time.time() - t0
@@ -709,12 +748,14 @@ def _drive_pipeline(torch, cli, sim, sim_dir, out_dir,
     torch.cuda.reset_peak_memory_stats()
     names = [k['name'] for k in KERNELS]
     zero_launches(names)
+    interprets = tmcl.run_mcl_partitions.card_interprets
     t0 = time.time()
     rc = cli.main(['pipeline', fa, pairs, str(sim['nchrs']), '--outdir',
                    out, '--ngen', str(NGEN)] + SIM_FLAGS + flags)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches(names)
+    interprets = tmcl.run_mcl_partitions.card_interprets - interprets
     logging.getLogger('haphic_tpu_torch').removeHandler(log)
     check(rc == 0, 'pipeline exit code {}'.format(rc))
     m = log.metrics
@@ -725,9 +766,11 @@ def _drive_pipeline(torch, cli, sim, sim_dir, out_dir,
     check(m['ga_route'][-1] == 'cuda',
           'the GA ran on {}, not the card'.format(m['ga_route'][-1]))
     for kname in GA_KERNELS + (('sparse_column', 'col_allclose')
-                               if engine == 'sparse' else ('mcl_column',)):
+                               if engine == 'sparse' else DENSE_KERNELS):
         check(launches[kname] > 0, 'kernel {} was not launched on the main '
               'path'.format(kname))
+    if engine == 'dense':
+        check_label_launches(launches, m, interprets, 'pipeline')
     # the delta generations and rescorings the GA says it ran, one
     # launch each
     check_ga_launches(launches, sum(m['ga_delta_gens']),
@@ -1107,7 +1150,33 @@ def _iteration_profile(torch, iteration):
             'top_device_kernels': kernels[:TOP_OPS]}
 
 
-def phase_dense_step(torch, tmcl, kmc, dense_call):
+def _labels_row(torch, tmcl, kmi, final, parts):
+    """mcl_interpret on the final matrices of the dense pipeline's first
+    batch: its labels equal to its plain version's, exactly, and the
+    partitions built from them equal to ``parts`` (interpret_result's on
+    the same matrices); both timed with CUDA events, the bound from the
+    bytes it must move (kernels/mcl_interpret.least_bytes)."""
+    got = kmi.mcl_labels(final)
+    want = kmi.mcl_labels_plain(final)
+    err = int((got - want).abs().max())
+    from_labels = [tmcl.partition_from_labels(x) for x in got.cpu().numpy()]
+    check(err == 0 and from_labels == parts, "mcl_interpret on the dense "
+          "pipeline's first batch: labels off the plain version's by up "
+          "to {}, partitions {} interpret_result's".format(
+              err, 'equal to' if from_labels == parts else 'unlike'))
+    del got, want
+    torch.cuda.empty_cache()
+    return {'max_abs_err': err,
+            'ms': _time_ms(torch, lambda: kmi.mcl_labels(final), STEP_REPS),
+            'plain_ms': _time_ms(torch, lambda: kmi.mcl_labels_plain(final),
+                                 1),
+            'bound_ms': kmi.bound_ms(final), 'bound_by': 'bytes',
+            'bytes': kmi.least_bytes(final),
+            'attractors': (torch.diagonal(final, dim1=-2, dim2=-1) != 0)
+            .sum(dim=1).tolist()}
+
+
+def phase_dense_step(torch, tmcl, kmc, kmi, dense_call):
     """The dense pipeline's first inflation batch (B = 6, n = 8000), as
     its first run_mcl_partitions call gave it. One iteration (the third:
     expansion by torch.matmul, then the column pass with the statistic)
@@ -1119,8 +1188,9 @@ def phase_dense_step(torch, tmcl, kmc, dense_call):
     1e-5·pruning of pruning or a near tie excused, counted), the
     statistic within 1e-7 with the same decision; both timed. Then the
     whole batch through _mcl_batched with the kernel and under
-    plain_columns: equal iteration counts and partitions. Returns the
-    kernel's row."""
+    plain_columns: equal iteration counts and partitions (by
+    interpret_result). On the kernel's final matrices, mcl_interpret
+    (_labels_row). Returns the rows of mcl_column and mcl_interpret."""
     pre, infl, expansion, max_iter, pruning = _dense_batch(torch, tmcl,
                                                           dense_call)
     B, n = infl.shape[0], pre.shape[0]
@@ -1167,7 +1237,12 @@ def phase_dense_step(torch, tmcl, kmc, dense_call):
             batch[name] = {'s': time.time() - t0,
                            'n_iters': iters.tolist(),
                            'parts': [tmcl.interpret_result(x) for x in nz]}
-            del mm, nz
+            del nz
+            if name == 'kernel':
+                labels = _labels_row(torch, tmcl, kmi, mm,
+                                     batch[name]['parts'])
+            del mm
+            torch.cuda.empty_cache()
     parts = batch['kernel'].pop('parts')
     check(batch['kernel']['n_iters'] == batch['plain']['n_iters']
           and parts == batch['plain'].pop('parts') and None not in parts,
@@ -1180,8 +1255,9 @@ def phase_dense_step(torch, tmcl, kmc, dense_call):
            'tb_s': kmc.pass_bytes(B, n, True) / col_ms / 1e9}
     emit(dict(line, mcl_column=dict(row, **cmp, stat=stat.tolist(),
                                     stat_max_abs_err=stat_err),
-              batch=batch, clusters=[len(p) for p in parts]))
-    return row
+              mcl_interpret=labels, batch=batch,
+              clusters=[len(p) for p in parts]))
+    return row, labels
 
 
 def _count_rows(path):
@@ -2234,7 +2310,10 @@ def _threshold(torch, topt, scores, move):
 def _first_call(module, name, keep):
     """Appends {'args', 'kw', 'result'} of the first call of
     module.name made inside the block to ``keep`` (the port calls these
-    by their module's name); restored on leaving."""
+    by their module's name); restored on leaving. The stand-in shares
+    the function's attributes, so that the counters the function keeps
+    on itself (run_mcl_partitions.syncs, .card_interprets: it reaches
+    them by its module's name) count on through it."""
     fn = getattr(module, name)
 
     def recording(*args, **kw):
@@ -2243,6 +2322,7 @@ def _first_call(module, name, keep):
             keep.append({'args': args, 'kw': kw, 'result': res})
         return res
 
+    recording.__dict__ = fn.__dict__
     setattr(module, name, recording)
     try:
         yield keep
@@ -2302,13 +2382,15 @@ def mesh_worker(kind, spec_path) -> int:
         from haphic_tpu_torch import cli
         log = MetricsLog()
         logging.getLogger('haphic_tpu_torch').addHandler(log)
-        names = GA_KERNELS + ('mcl_column',)
+        from haphic_tpu_torch.cluster import mcl as tmcl
+        names = GA_KERNELS + DENSE_KERNELS
         zero_launches(names)
         t0 = time.time()
         rc = cli.main(spec['argv'])
         torch.cuda.synchronize()
         rec.update(rc=rc, wall_s=time.time() - t0, metrics=log.metrics,
                    launches=read_launches(names),
+                   card_interprets=tmcl.run_mcl_partitions.card_interprets,
                    device=str(torch.cuda.current_device()),
                    max_memory_allocated=torch.cuda.max_memory_allocated())
     else:
@@ -2382,9 +2464,10 @@ def phase_mesh_pipeline(torch, out):
     inflations and the GA groups shard over the two ranks (both on
     cuda:0 over gloo on one card, one card each over NCCL on two).
     Each rank's MCL and GA must run on the card with their kernels
-    (mcl_column, score_population, delta_generation,
-    rescore_population), one delta launch per delta generation and one
-    rescoring launch per rescoring call it reports; out_mesh/ and
+    (mcl_column, mcl_interpret, score_population, delta_generation,
+    rescore_population), one delta launch per delta generation, one
+    rescoring launch per rescoring call and one labels launch per dense
+    batch it reports; out_mesh/ and
     out_mesh.rank1/ must equal the single-process out/: every
     01.cluster file, scaffolds.agp and scaffolds.raw.agp; the 8
     chromosomes come back. Returns the launches summed over the
@@ -2398,7 +2481,7 @@ def phase_mesh_pipeline(torch, out):
     argv = ['pipeline', fa, pairs, str(SIM['nchrs']), '--outdir', mesh_out,
             '--ngen', str(NGEN), '--use_mesh', 'on'] + SIM_FLAGS
     wall, recs = _torchrun('pipeline', {'argv': argv}, 420)
-    launches = dict.fromkeys(GA_KERNELS + ('mcl_column',), 0)
+    launches = dict.fromkeys(GA_KERNELS + DENSE_KERNELS, 0)
     ranks = []
     for r, rec in enumerate(recs):
         m = rec['metrics']
@@ -2414,6 +2497,8 @@ def phase_mesh_pipeline(torch, out):
             launches[kname] += n
         check_ga_launches(rec['launches'], sum(m['ga_delta_gens']),
                           sum(m['ga_rescores']), 'rank {}'.format(r))
+        check_label_launches(rec['launches'], m, rec['card_interprets'],
+                             'rank {}'.format(r))
         ranks.append({'rank': r, 'device': mesh['device'],
                       'backend': mesh['backend'],
                       'mcl_shard': m['mcl_shard'][-1],
@@ -2523,6 +2608,7 @@ def phase_mesh_nccl(torch, sp, topt, dense_call, ga_call, step_args):
     from haphic_tpu_torch.cluster import mcl as tmcl
     from haphic_tpu_torch.kernels import col_allclose as kca
     from haphic_tpu_torch.kernels import mcl_column as kmc
+    from haphic_tpu_torch.kernels import mcl_interpret as kmi
     from haphic_tpu_torch.kernels import sparse_column as kcol
     from haphic_tpu_torch.parallel import mesh as pmesh
     store = os.path.join(WORK, 'nccl_store')
@@ -2541,17 +2627,21 @@ def phase_mesh_nccl(torch, sp, topt, dense_call, ga_call, step_args):
         kw.pop('device', None)
         infl = list(dense_call['args'][1])[:MESH_DENSE_B]
         kmc.mcl_column.launches = 0
+        kmi.mcl_labels.launches = 0
         t0 = time.time()
         got = pmesh.mcl_sweep_sharded_partitions(mesh, None, infl, **kw)
         torch.cuda.synchronize()
         t1 = time.time()
         mcl_launches = kmc.mcl_column.launches
-        check(mcl_launches > 0, 'the sharded dense sweep launched no '
-              'mcl_column')
+        label_launches = kmi.mcl_labels.launches
+        check(mcl_launches > 0 and label_launches > 0, 'the sharded dense '
+              'sweep launched mcl_column {} and mcl_interpret {} times'
+              .format(mcl_launches, label_launches))
         want = tmcl.run_mcl_partitions(None, infl, device=DEVICE, **kw)
         line['dense'] = {'n': kw['coo'][3], 'inflations': infl,
                          'n_iters': got[1].tolist(), 'sharded_s': t1 - t0,
                          'launches': mcl_launches,
+                         'label_launches': label_launches,
                          'meshless_s': time.time() - t1}
         check(got[0] == want[0] and np.array_equal(got[1], want[1]),
               'sharded dense sweep differs from the meshless one')
@@ -2596,7 +2686,8 @@ def phase_mesh_nccl(torch, sp, topt, dense_call, ga_call, step_args):
         secs = time.time() - t0
         launches = dict(read_launches(GA_KERNELS),
                         sparse_column=col_launches, mcl_column=mcl_launches,
-                        col_allclose=stat_launches)
+                        col_allclose=stat_launches,
+                        mcl_interpret=label_launches)
         for kname in GA_KERNELS:
             check(launches[kname] > 0, 'the sharded GA launched no {}'
                   .format(kname))
@@ -2634,6 +2725,7 @@ def main() -> int:
     from haphic_tpu_torch.kernels import build as kbuild
     from haphic_tpu_torch.kernels import delta as kdelta
     from haphic_tpu_torch.kernels import mcl_column as kmc
+    from haphic_tpu_torch.kernels import mcl_interpret as kmi
     from haphic_tpu_torch.kernels import rescore as krs
     from haphic_tpu_torch.kernels import score as kscore
     from haphic_tpu_torch.kernels import trace_ga
@@ -2645,8 +2737,8 @@ def main() -> int:
             _first_call(topt, 'optimize_tours', ga_call), \
             _recorded_launches(topt) as ga_launches:
         launches, big = phase_pipeline(torch, cli)
-    main_rows = {'mcl_column': phase_dense_step(torch, tmcl, kmc,
-                                                dense_call[0])}
+    main_rows = dict(zip(DENSE_KERNELS, phase_dense_step(
+        torch, tmcl, kmc, kmi, dense_call[0])))
     torch.cuda.empty_cache()
     # the largest score launch (most tours x records) of the pipeline
     main_score = max((b['score'] for b in ga_launches), key=lambda a:
@@ -2701,14 +2793,15 @@ def main() -> int:
         counts = {p: n.get(k['name'], 0) for p, n in by_phase.items()}
         check(sum(counts.values()) > 0, 'kernel {} was launched on no '
               'path'.format(k['name']))
-        # no single PyTorch call computes any of the six functions
+        # no single PyTorch call computes any of the seven functions
         kernels.append(dict(k, launches=sum(counts.values()),
                             launches_by_phase=counts,
                             max_abs_err=row['max_abs_err'], ms=row['ms'],
                             plain_ms=row['plain_ms'],
                             bound_ms=row['bound_ms'],
                             bound_by=row['bound_by'], library_ms=None,
-                            **{x: row[x] for x in ('plan', 'tb_s', 'scores')
+                            **{x: row[x] for x in ('plan', 'tb_s', 'scores',
+                                                   'bytes', 'attractors')
                                if x in row}))
     print(nvidia_smi(), flush=True)
     emit({'kernels': kernels})

@@ -24,23 +24,35 @@ scripts/HapHiC_cluster.py:1987-2062):
 
 Matrices are not padded: PyTorch has no compile cache to reuse, so the
 JAX package's power-of-two bucketing (_bucket_pad) and COO padding have
-no counterpart here, and the nonzero pattern goes to the host as a
-plain bool array (no packed bitmask). A converged inflation freezes: it
-leaves the batch, so later iterations compute only the active ones.
+no counterpart here. A converged inflation freezes: it leaves the batch,
+so later iterations compute only the active ones.
+
+Reading the final matrices, ``run_mcl_partitions`` takes one of two
+routes, chosen by the device type. On the card, kernels/mcl_interpret.py
+(a hand-written CUDA kernel, in place of the JAX package's packed
+pattern, ``_pack_nz``) turns each batch's final matrices into (B, n)
+cluster labels, only those cross to the host, and
+``partition_from_labels`` builds each partition from its row with one
+stable sort: the same lists as ``interpret_result``. On the CPU the nonzero pattern
+goes to the host as a plain bool array and ``interpret_result`` reads
+it, as the numpy route below DEVICE_MIN_N does; ``run_mcl`` returns the
+whole matrices.
 
 Tracing (``haphic_tpu_torch.trace``, off by default): on the torch route
 ``run_mcl_partitions`` is the span ``mcl.sweep`` (host and device); in
 it the device spans ``mcl.densify`` (the matrix to the card),
 ``mcl.pre_expand``, and per batch ``mcl.batch``: on the host the batch's
-whole turn (its iterations, its pattern and its interpretation), on the
+whole turn (its iterations, its labels and its interpretation), on the
 device its iterations alone. In the batch, ``mcl.pattern`` (host and
-device: the nonzero pattern, n_iters and converged to the host) and
-``mcl.interpret`` (host). ``mcl.expand`` (device) is every
-``_matpower``, ``mcl.column`` (device) every ``mcl_column``. The counter
-``run_mcl_partitions.syncs`` (always on) counts the points where the
-host waits for the card's stream: each copy between host and card (a
-Python scalar written into a card tensor included) and each
-boolean-mask index of a tensor.
+device: the labels, on the card, or the nonzero pattern, on the CPU, and
+n_iters and converged to the host) and ``mcl.interpret`` (host: the
+partitions from the labels or the pattern). ``mcl.expand`` (device) is
+every ``_matpower``, ``mcl.column`` (device) every ``mcl_column``. Two
+counters are always on. ``run_mcl_partitions.syncs`` counts the points
+where the host waits for the card's stream: each copy between host and
+card (a Python scalar written into a card tensor included) and each
+boolean-mask index of a tensor. ``run_mcl_partitions.card_interprets``
+counts the matrices whose partitions came from the card's labels.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ import torch
 
 from haphic_tpu_torch import trace
 from haphic_tpu_torch.kernels.mcl_column import _colnorm, mcl_column
+from haphic_tpu_torch.kernels.mcl_interpret import mcl_labels
 from haphic_tpu_torch.runtime import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -275,8 +288,9 @@ def run_mcl_partitions(adjacency: Optional[np.ndarray],
                        device_min_n: Optional[int] = None,
                        coo=None, device=None):
     """Inflation sweep returning per-inflation cluster partitions
-    (lists as interpret_result) plus (n_iters, converged). Only the
-    nonzero pattern of each final matrix goes to the host.
+    (lists as interpret_result) plus (n_iters, converged). Only each
+    final matrix's labels go to the host from the card, its nonzero
+    pattern from the CPU (module docstring).
 
     ``coo``: optional (ci, cj, cw, m) upper-triangle links — the matrix
     is then densified on the device and ``adjacency`` may be None."""
@@ -314,18 +328,22 @@ def run_mcl_partitions(adjacency: Optional[np.ndarray],
         iters = np.empty((B,), dtype=np.int32)
         conv = np.empty((B,), dtype=bool)
         batches = []
+        card = dev.type == 'cuda'
         for s, e, mm, ii, cc in _sweep(a, inflations, expansion, max_iter,
                                        pruning):
             with trace.span('mcl.pattern', device=dev):
-                nz = (mm != 0).cpu().numpy()
+                got = (mcl_labels(mm) if card else mm != 0).cpu().numpy()
                 del mm
                 iters[s:e] = ii.cpu().numpy()
                 conv[s:e] = cc.cpu().numpy()
                 run_mcl_partitions.syncs += 3
             batches.append(e - s)
             with trace.span('mcl.interpret'):
-                for b in range(e - s):
-                    parts.append(interpret_result(nz[b]))
+                if card:
+                    parts.extend(partition_from_labels(x) for x in got)
+                    run_mcl_partitions.card_interprets += e - s
+                else:
+                    parts.extend(interpret_result(x) for x in got)
         logger.info('MCL sweep on %s (n=%d, %d inflations in batches %s)',
                     dev, m, B, batches,
                     extra={'metrics': {'mcl_route': dev.type,
@@ -335,8 +353,27 @@ def run_mcl_partitions(adjacency: Optional[np.ndarray],
     return parts, iters, conv
 
 
-# host waits for the card's stream on the torch route (module docstring)
+# host waits for the card's stream on the torch route, and matrices read
+# from the card's labels (module docstring)
 run_mcl_partitions.syncs = 0
+run_mcl_partitions.card_interprets = 0
+
+
+def partition_from_labels(labels: np.ndarray) -> Optional[list]:
+    """The partition of one matrix from its row of ``mcl_labels``, equal
+    to ``interpret_result`` of the matrix: None for a row of -1, else the
+    columns grouped by label, each group an ascending tuple, the groups
+    ordered by their least member (for disjoint tuples, sorted order)."""
+    if labels[0] < 0:
+        return None
+    order = np.argsort(labels, kind='stable')
+    lab = labels[order]
+    start = np.flatnonzero(np.r_[True, lab[1:] != lab[:-1]])
+    end = np.r_[start[1:], len(order)]
+    by = np.argsort(order[start])          # a group's first is its least
+    cols = order.tolist()
+    return [tuple(cols[lo:hi])
+            for lo, hi in zip(start[by].tolist(), end[by].tolist())]
 
 
 def interpret_result(matrix: np.ndarray, tol: float = 0.0

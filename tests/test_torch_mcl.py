@@ -3,7 +3,11 @@ JAX package's, on the cases of tests/test_mcl.py, on the CPU.
 
 Partitions and iteration counts must be equal. Final matrices agree to
 rtol=1e-4, atol=1e-7: both run f32, but the matmul sums run in another
-order (XLA:CPU vs PyTorch's CPU BLAS)."""
+order (XLA:CPU vs PyTorch's CPU BLAS). The labels route that reads the
+final matrices on the card (kernels/mcl_interpret, then
+partition_from_labels), run here through its plain version, must give
+the JAX package's interpret_result on the cases of
+tests/test_torch_mcl_interpret.py."""
 
 import random
 
@@ -19,6 +23,9 @@ from haphic_tpu_torch.cluster import sweep as tsweep
 
 from . import util
 from .test_mcl import _random_block_matrix
+from .test_torch_mcl_interpret import (CONVERGED, PLANTED, SEEDED,
+                                       converged_matrices, partitions,
+                                       seeded_pair)
 
 # xdist runs several test files at once on the same cores; torch's
 # default of one intra-op thread per core then oversubscribes them and
@@ -174,3 +181,28 @@ def test_run_clustering_files_byte_equal(tmp_path, monkeypatch,
     assert tfiles == jfiles and jfiles
     for rel in jfiles:
         assert (tout / rel).read_bytes() == (jout / rel).read_bytes(), rel
+
+
+def _jax_partitions(mats):
+    return [jmcl.interpret_result(x) for x in mats]
+
+
+@pytest.mark.parametrize('seed,n,block', CONVERGED)
+def test_labels_route_matches_jax_on_converged_sweeps(seed, n, block):
+    mats = converged_matrices(seed, n, block)
+    want = _jax_partitions(mats)
+    assert any(w is not None for w in want)
+    assert partitions(mats) == want
+
+
+@pytest.mark.parametrize('seed,n', SEEDED)
+def test_labels_route_matches_jax_on_seeded_block_matrices(seed, n):
+    mats = seeded_pair(seed, n)
+    want = _jax_partitions(mats)
+    assert want[0] is not None
+    assert partitions(mats) == want
+
+
+@pytest.mark.parametrize('name,m', PLANTED, ids=[c[0] for c in PLANTED])
+def test_labels_route_matches_jax_on_planted_cases(name, m):
+    assert partitions(m[None]) == _jax_partitions(m[None])
