@@ -10,7 +10,9 @@ contact-decay law P(s) ~ 1/s (Lieberman-Aiden et al. 2009) from
 ``s_min_bp`` to the chromosome's length. The expected number of pairs
 between two contigs of one chromosome is that law integrated over the
 two contigs, so the link counts are drawn as Poisson counts of those
-expectations; the uniform pairs are drawn one by one.
+expectations; the uniform pairs are drawn one by one, and each link
+keeps how many of its pairs are uniform (``w_trans``), so that
+``clm.py`` can place every read pair of a link.
 
 The counts are drawn from the configuration's ``genome_seed``; a run's
 ``--seed`` relabels them: it orders the kept fragments of the MCL input
@@ -54,6 +56,7 @@ class Genome:
     i: np.ndarray               # int64 [links]: contig pairs, i < j
     j: np.ndarray
     w: np.ndarray               # float64 [links]: read pairs between them
+    w_trans: np.ndarray         # float64 [links]: of w, the uniform pairs
     seed: int                   # the run's seed: the labels' order
 
 
@@ -149,8 +152,11 @@ def make(cfg: dict, seed: int) -> Genome:
     counts.append(np.ones(int(sel.sum()), dtype=np.int64))
     key, inv = np.unique(np.concatenate(keys), return_inverse=True)
     w = np.bincount(inv, weights=np.concatenate(counts).astype(np.float64))
+    n_trans = counts[-1].size
+    w_trans = np.bincount(inv[inv.size - n_trans:], minlength=key.size
+                          ).astype(np.float64)
     return Genome(sizes=sizes, group_start=start, i=key // n, j=key % n,
-                  w=w, seed=seed % 2 ** 64)
+                  w=w, w_trans=w_trans, seed=seed % 2 ** 64)
 
 
 def fragment_links(gn: Genome, nx: int

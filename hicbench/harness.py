@@ -7,6 +7,7 @@ Everything a cell needs is data in files of its own:
 
     configs/<config>.json     published sizes, what is assumed, Nx
     traffic/<traffic>.json    the stage it drives and its parameters
+    stages/<stage>.py         the stage: set-up, a unit, the check
     limits/<workload>.json    each compared number's limit
     metrics/<metric>.py       a per-layer metric's reader
 """
@@ -24,8 +25,8 @@ from typing import Optional
 import torch
 
 from hicbench import genome as gen
+from hicbench import stages
 from hicbench.probe import Probe, profile_unit
-from hicbench.stages import STAGES
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'haphic_tpu')
@@ -82,7 +83,7 @@ def run(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
         torch.cuda.set_device(0)
 
     gn = gen.make(cfg, seed)
-    stage = STAGES[mix['stage']](cfg, mix, gn, dev, seed)
+    stage = stages.load(mix['stage']).Stage(cfg, mix, gn, dev, seed)
     log('sizes', json.dumps(dict(vars(gn.sizes), **stage.sizes)))
     stage.warmup()
     sync(dev)

@@ -10,8 +10,10 @@ operations, peak operations a second) for that call: each input byte
 read once, each output byte written once, for what these inputs need.
 The column pass's bytes are a copy, at commit 2773cb2, of
 ``haphic_tpu_torch/kernels/mcl_column.py`` ``pass_bytes`` /
-``bound_ms``, cut to one call. A bound of a call is the larger of bytes
-over HBM_BPS and operations over its peak.
+``bound_ms``, cut to one call; the GA rescoring's a copy, at commit
+334ba37, of ``haphic_tpu_torch/kernels/rescore.py`` ``bound_ms`` and
+``OPS_PER_PAIR``. A bound of a call is the larger of bytes over HBM_BPS
+and operations over its peak.
 """
 
 from __future__ import annotations
@@ -40,3 +42,25 @@ def mcl_column_cost(e, infl, pruning, old=None):
     e_mats = 1 if e.stride(0) == 0 else B
     nbytes = 4 * n * n * (e_mats + B + (B if old is not None else 0))
     return nbytes, 2 * B * n * n, FP32_FLOPS
+
+
+# FP32 operations a (tour, record) pair in the GA's rescoring: unpack two
+# table entries (4), compare the slots (1), the gap (3), its conversion
+# (1), the combination (3) and its distance's selection (3), the add,
+# the clamp, the division and the sum (4)
+RESCORE_OPS_PER_PAIR = 19
+
+
+def rescore_cost(order, ori, lengths, pa, pb, la, lb, d, w, caches: bool):
+    """One rescoring of a (G, P, k) population over (G, R) records:
+    order and ori (8 B a slot) and lengths (8 B a contig) read, each
+    record's pa, pb, la, lb, d[4], w (36 B) read, the scores written; in
+    caches mode also the slot tables L_slot and startsx (8 B a slot) and
+    the six endpoint caches and the contribution (28 B a pair) written.
+    RESCORE_OPS_PER_PAIR operations a pair."""
+    G, P, k = order.shape
+    R = pa.shape[1]
+    nbytes = 8 * G * P * k + 8 * G * k + 36 * G * R + 4 * G * P
+    if caches:
+        nbytes += 4 * G * P * (2 * k + 1) + 28 * G * P * R
+    return nbytes, RESCORE_OPS_PER_PAIR * G * P * R, FP32_FLOPS

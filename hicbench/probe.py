@@ -112,7 +112,9 @@ def profile_unit(fn):
     device's operations, the unit's length, the ten device operations
     with most time and the ten longest idle gaps, each named by the
     innermost host event (a benchmark span or a torch op) running at its
-    middle, 'python' where none is."""
+    middle, 'python' where none is. The reader takes the profiler's raw
+    events, not its parsed tree, which takes minutes to build for a
+    unit of a million events."""
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -120,25 +122,31 @@ def profile_unit(fn):
         with record_function('hicbench.unit'):
             r = fn()
             torch.cuda.synchronize()
-    return r, lambda: _read_trace(prof.events())
+    return r, lambda: _read_trace(prof.profiler.kineto_results.events())
 
 
 def _read_trace(events) -> dict:
-    unit = [e for e in events if e.name == 'hicbench.unit']
-    lo, hi = unit[0].time_range.start, unit[0].time_range.end
-    dev, host = [], []
+    """The dict of ``profile_unit`` from raw profiler events (``name()``,
+    ``device_type()``, ``start_ns()``, ``duration_ns()``)."""
+    dev, host, unit = [], [], None
     for e in events:
-        if getattr(e.device_type, 'name', '') == 'CUDA':
+        name = e.name()
+        s = e.start_ns()
+        span = (s, s + e.duration_ns(), name)
+        if getattr(e.device_type(), 'name', '') == 'CUDA':
             # the benchmark's own spans show on the device's timeline too
-            if not e.name.startswith('hicbench.'):
-                dev.append((e.time_range.start, e.time_range.end, e.name))
-        elif e.name != 'hicbench.unit':
-            host.append((e.time_range.start, e.time_range.end, e.name))
+            if not name.startswith('hicbench.'):
+                dev.append(span)
+        elif name == 'hicbench.unit':
+            unit = span
+        else:
+            host.append(span)
+    lo, hi = unit[0], unit[1]
     dev.sort()
     by_name: Dict[str, float] = {}
-    busy, gaps, cur = 0.0, [], lo
+    busy, gaps, cur = 0, [], lo
     for s, e, name in dev:
-        by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e6
+        by_name[name] = by_name.get(name, 0) + (e - s)
         s, e = max(s, lo), min(e, hi)
         if e <= cur:
             continue
@@ -154,8 +162,8 @@ def _read_trace(events) -> dict:
         mid = (s + e) / 2
         inner = [h for h in host if h[0] <= mid <= h[1]]
         name = max(inner)[2] if inner else 'python'
-        named.append([name[:NAME], length / 1e6])
+        named.append([name[:NAME], length / 1e9])
     ops = sorted(by_name.items(), key=lambda x: -x[1])[:10]
-    return {'busy_s': busy / 1e6, 'window_s': (hi - lo) / 1e6,
-            'device_ops': [[n[:NAME], s] for n, s in ops],
+    return {'busy_s': busy / 1e9, 'window_s': (hi - lo) / 1e9,
+            'device_ops': [[n[:NAME], t / 1e9] for n, t in ops],
             'idle_gaps': named}

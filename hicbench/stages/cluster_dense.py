@@ -1,16 +1,5 @@
-"""The stages a traffic mix can drive, by the mix's ``stage`` key. Each
-takes the configuration, the mix and the genome drawn from the seed,
-hands the program its inputs through the program's public entry, and
-judges what the program returned against the plain reference
-(``hicbench/reference``), which is given the same inputs and nothing
-the program made.
-
-A stage has ``warmup()`` (every shape the units use, once), ``unit(i)``
-(one unit of work: the program's output), ``reference()``,
-``compare(output, ref)`` -> {number: value}, and ``control(outputs)``:
-the reference put in the program's place at the precision below the
-configuration's, in the program's output format.
-"""
+"""Stage ``cluster_dense``: the inflation sweep of one genome's fragment
+links through the dense MCL engine's public entry."""
 
 from __future__ import annotations
 
@@ -89,4 +78,4 @@ class ClusterDense:
         return self.reference('below')
 
 
-STAGES = {'cluster_dense': ClusterDense}
+Stage = ClusterDense

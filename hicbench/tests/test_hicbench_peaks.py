@@ -31,3 +31,17 @@ def test_mcl_column():
     # iteration 0's stride-0 view: e is one matrix
     view = torch.zeros(3, 3)[None].expand(2, 3, 3)
     assert peaks.mcl_column_cost(view, infl, 1e-4)[0] == 4 * 9 * 3
+
+
+def test_rescore():
+    """G = 2 groups, P = 3 tours of k = 4 slots, R = 5 records."""
+    order = torch.zeros(2, 3, 4, dtype=torch.int32)
+    pa = torch.zeros(2, 5, dtype=torch.int32)
+    args = (order, order, torch.zeros(2, 4), pa, pa, pa, pa,
+            torch.zeros(2, 4, 5), torch.zeros(2, 5))
+    # order, ori, lengths, the records' 36 B, the scores
+    base = 8 * 24 + 8 * 8 + 36 * 10 + 4 * 6
+    assert peaks.rescore_cost(*args, caches=False)[:2] == (base, 19 * 30)
+    # the slot tables (2k + 1 int32 a tour) and 28 B a (tour, record)
+    assert peaks.rescore_cost(*args, caches=True)[:2] == (
+        base + 4 * 6 * 9 + 28 * 30, 19 * 30)

@@ -91,3 +91,31 @@ def test_fragment_links_are_the_kept_upper_triangle():
     assert (ci < cj).all() and cj.max() < m
     assert np.unique(ci * m + cj).size == ci.size
     assert cw.dtype == np.float64 and cw.min() >= 1
+
+
+def test_alfalfa_sizes():
+    """The published alfalfa: 32 groups (8 chromosomes x 4 haplotypes)
+    of 992-993 contigs of 99,458 bp, 2 Mb bins, 10.1x in 150 bp pairs;
+    Nx 80 keeps 25,418 fragments."""
+    s = gen.derive(config('alfalfa_4x'))
+    assert (s.contigs, s.groups, s.contig_bp, s.bin_bp) == \
+        (31772, 32, 99458, 2_000_000)
+    assert s.pairs == 106_386_667 and s.trans_pairs == 2_127_733
+    assert s.fragments == 25418
+
+
+def test_alfalfa_records_a_group():
+    """A group of 993 contigs holds about 2.14M CLM records (its cis
+    pairs between two contigs, and some 2,000 uniform pairs), over
+    about 332k of its 492,528 contig pairs."""
+    s = gen.derive(config('alfalfa_4x'))
+    k, L = 993, s.contig_bp
+    d = np.arange(1, k)
+    lam = gen.cis_expected(d, L, k * L, (s.pairs - s.trans_pairs) * k
+                           / s.contigs, 1000)
+    cis = (lam * (k - d)).sum()
+    trans = s.trans_pairs * (k / s.contigs) ** 2
+    assert cis + trans == pytest.approx(2.14e6, rel=0.005)
+    linked = ((k - d) * (1 - np.exp(-lam))).sum()
+    assert linked == pytest.approx(332_000, rel=0.005)
+    assert k * (k - 1) // 2 == 492_528
