@@ -3,8 +3,9 @@ own size: for each seed, one unit of the program and the plain
 reference on the same inputs, the numbers the check compares; with
 ``--control``, the control too (the reference at the precision below
 the configuration's, put in the program's place); with ``--faults``,
-one more unit for each fault that ``tests/test_hicbench_run.py`` plants
-in this cell's timed path (not on the card's route alone).
+one more unit for each fault that ``tests/test_hicbench_run.py`` and
+``tests/test_hicbench_cluster_sets.py`` plant in this cell's timed path
+(not on the card's route alone).
 
     python3 hicbench/calibrate.py --workload xtropicalis.cluster \\
         --seeds 11,12,13 [--control] [--faults]
@@ -71,6 +72,7 @@ def faults(workload):
     """(what, run) of each fault the tests plant in ``workload``'s timed
     path off the card's route: ``run(stage)`` is one unit with it."""
     sys.path.insert(0, os.path.join(ROOT, 'hicbench', 'tests'))
+    import test_hicbench_cluster_sets as s
     import test_hicbench_run as t
 
     def planted(module, attr, make):
@@ -83,7 +85,7 @@ def faults(workload):
                 setattr(module, attr, orig)
         return run
     return [(what, planted(module, attr, make))
-            for w, what, module, attr, make, device in t.faults()
+            for w, what, module, attr, make, device in t.faults() + s.faults()
             if w == workload and device == 'cpu']
 
 

@@ -105,6 +105,7 @@ def run(bench: dict, workload: str, seed: int, seconds: float, trace: bool,
     try:
         while True:
             i = len(outputs)
+            probe.unit = i
             if trace and i == 0 and dev.type == 'cuda':
                 out, read_trace = profile_unit(lambda: stage.unit(0))
             else:

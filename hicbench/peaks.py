@@ -12,8 +12,11 @@ The column pass's bytes are a copy, at commit 2773cb2, of
 ``haphic_tpu_torch/kernels/mcl_column.py`` ``pass_bytes`` /
 ``bound_ms``, cut to one call; the GA rescoring's a copy, at commit
 334ba37, of ``haphic_tpu_torch/kernels/rescore.py`` ``bound_ms`` and
-``OPS_PER_PAIR``. A bound of a call is the larger of bytes over HBM_BPS
-and operations over its peak.
+``OPS_PER_PAIR``. The sparse engine's two kernels count the columns they
+are given, at the widths they are given, read once and their outputs
+written once; the columns that a product gathers again are not counted.
+A bound of a call is the larger of bytes over HBM_BPS and operations
+over its peak.
 """
 
 from __future__ import annotations
@@ -64,3 +67,34 @@ def rescore_cost(order, ori, lengths, pa, pb, la, lb, d, w, caches: bool):
     if caches:
         nbytes += 4 * G * P * (2 * k + 1) + 28 * G * P * R
     return nbytes, RESCORE_OPS_PER_PAIR * G * P * R, FP32_FLOPS
+
+
+def sparse_column_cost(A_i, A_v, ci, cv, infl, n, K, pruning, expand):
+    """One sparse column call on (B, C, Kc) columns: their ids and
+    values (8 B an entry) read once and the (B, C, K) result written
+    once; the columns of A that a product gathers are the iterate's own
+    columns, which a sweep step reads once as its chunks' ``ci``, so they
+    are not counted again. Operations: with ``expand`` the Kc x KA
+    products a column, else one power an entry."""
+    B, C, Kc = ci.shape
+    nbytes = 8 * B * C * (Kc + K) + 4 * B
+    ops = B * C * Kc * (A_i.shape[2] if expand else 1)
+    return nbytes, ops, FP32_FLOPS
+
+
+# FP32 operations an entry of a column pair in the convergence
+# statistic's union merge: the difference, its absolute value, less
+# rtol x |old|, the running max
+COL_ALLCLOSE_OPS_PER_ENTRY = 4
+
+
+def col_allclose_cost(old_i, old_v, new_i, new_v, n, bad=None):
+    """One convergence statistic over (B, C) column pairs: the old
+    (B, C, Ko) and new (B, C, Kn) ids and values read once (8 B an
+    entry), the (B, C) f32 statistic written; the union merge's
+    operations on each of the Ko + Kn entries."""
+    B, C, Ko = old_i.shape
+    Kn = new_i.shape[2]
+    nbytes = 8 * B * C * (Ko + Kn) + 4 * B * C
+    return (nbytes, COL_ALLCLOSE_OPS_PER_ENTRY * B * C * (Ko + Kn),
+            FP32_FLOPS)

@@ -27,6 +27,7 @@ NAME = 160          # characters kept of a kernel's (templated) name
 class Probe:
     def __init__(self):
         self.units = 0
+        self.unit = 0
         self.spans: Dict[str, List[float]] = {}
         self.calls: Dict[str, list] = {}
         self._patches = []
@@ -81,6 +82,24 @@ class Probe:
             return timed
         self._patch(module, attr, wrapper)
 
+    def count_calls(self, module, attr: str, key: str, cost: Callable):
+        """``cost(*args, **kwargs)`` -> (bytes, operations, peak) of
+        every call of ``module.attr``, with the unit it fell in (the
+        harness sets ``unit``); no event, no sync: the time is read
+        from the traced unit's device operations (``kernel_roofline``)."""
+        if ('count', key) in self._installed:
+            return
+        self._installed.add(('count', key))
+        out = self.calls.setdefault(key, [])
+
+        def wrapper(fn):
+            @functools.wraps(fn)
+            def counted(*args, **kwargs):
+                out.append((self.unit, cost(*args, **kwargs)))
+                return fn(*args, **kwargs)
+            return counted
+        self._patch(module, attr, wrapper)
+
     def restore(self):
         for module, attr, orig in reversed(self._patches):
             setattr(module, attr, orig)
@@ -105,12 +124,30 @@ class Probe:
         return 100.0 * least / t if t > 0 else None
 
 
+    def kernel_roofline(self, key: str, profiled: Optional[dict],
+                        kernel: str) -> Optional[float]:
+        """100 x (the least time of the traced unit's ``count_calls``
+        under ``key``) / (the device time of the operations named
+        ``kernel(...)`` or ``kernel<...>(...)`` in that unit's trace), in
+        %: the kernel's own time, without the host's launch or its
+        wrapper's checks."""
+        got = [c for u, c in self.calls.get(key, []) if u == 0]
+        if not got or profiled is None:
+            return None
+        t = sum(s for name, s in profiled['kernels'].items()
+                if name.split('(')[0].split('<')[0].split(' ')[-1] == kernel)
+        least = sum(peaks.bound_s(float(b), float(o), p)
+                    for b, o, p in got)
+        return 100.0 * least / t if t > 0 else None
+
+
 def profile_unit(fn):
     """Run ``fn()`` once under torch.profiler. Returns (its result, a
     function that reads the trace): read after the window, it gives a
-    dict with busy_s, window_s, device_ops, idle_gaps: the union of the
-    device's operations, the unit's length, the ten device operations
-    with most time and the ten longest idle gaps, each named by the
+    dict with busy_s, window_s, kernels, device_ops, idle_gaps: the
+    union of the device's operations, the unit's length, each device
+    operation's seconds by name, the ten device operations with most
+    time and the ten longest idle gaps, each named by the
     innermost host event (a benchmark span or a torch op) running at its
     middle, 'python' where none is. The reader takes the profiler's raw
     events, not its parsed tree, which takes minutes to build for a
@@ -165,5 +202,6 @@ def _read_trace(events) -> dict:
         named.append([name[:NAME], length / 1e9])
     ops = sorted(by_name.items(), key=lambda x: -x[1])[:10]
     return {'busy_s': busy / 1e9, 'window_s': (hi - lo) / 1e9,
+            'kernels': {n: t / 1e9 for n, t in by_name.items()},
             'device_ops': [[n[:NAME], t / 1e9] for n, t in ops],
             'idle_gaps': named}

@@ -119,3 +119,81 @@ def test_alfalfa_records_a_group():
     linked = ((k - d) * (1 - np.exp(-lam))).sum()
     assert linked == pytest.approx(332_000, rel=0.005)
     assert k * (k - 1) // 2 == 492_528
+
+
+# ---- contigs of unequal lengths ----
+
+def test_tea_sizes():
+    """The published Tieguanyin under its length law: N50 0.22 Mb on
+    60,345 contigs of mean 99,263 bp, 79 of them over the 2 Mb bin; Nx
+    80 keeps 20,443 of 60,440 fragments, past the sparse engine's
+    20,000."""
+    cfg = config('tieguanyin_2x')
+    pub = cfg['published']
+    law, sigma = gen.lengths(pub['contigs'], pub['genome_bp'],
+                             pub['contig_n50_bp'])
+    assert law.sum() == pub['genome_bp'] and law.min() >= 1
+    assert abs(gen._n50(law) - 220_000) < 100
+    assert sigma == pytest.approx(1.262, abs=1e-3)
+    off, flen = gen.bins(law, 2_000_000)
+    assert (flen.size, int((law > 2_000_000).sum())) == (60440, 79)
+    assert int(gen.nx_keep(flen, 80).sum()) == 20443
+
+
+def test_alfalfa_under_its_length_law_takes_the_dense_engine():
+    """The alfalfa's published N50 (0.46 Mb, 4.6 times its mean) under
+    the same law: Nx 80 keeps 6,027 fragments, under 20,000."""
+    pub = config('alfalfa_4x')['published']
+    law, _ = gen.lengths(pub['contigs'], pub['genome_bp'],
+                         pub['contig_n50_bp'])
+    off, flen = gen.bins(law, 2_000_000)
+    assert int(gen.nx_keep(flen, 80).sum()) == 6027
+
+
+def test_bins_and_nx_are_the_ports():
+    """The copies of build_fragments' bins and Nx cut give the port's
+    own fragments on contigs of unequal lengths."""
+    from haphic_tpu_torch.core.fragments import build_fragments
+    from haphic_tpu_torch.io.fasta import Assembly
+    law, _ = gen.lengths(40, 40 * 150_000, 400_000)
+    law = law[np.random.default_rng(3).permutation(40)]
+    names = ['c{:02d}'.format(k) for k in range(40)]
+    asm = Assembly(names=names, name2id={c: k for k, c in enumerate(names)},
+                   lengths=law, re_sites=np.ones(40, np.int64),
+                   seqs=['A' * int(x) for x in law],
+                   input_order={c: k for k, c in enumerate(names)})
+    got = build_fragments(asm, nchrs=4, Nx=80, bin_size_kbp=300)
+    off, flen = gen.bins(law, 300_000)
+    assert np.array_equal(got.frag_offset, off)
+    assert np.array_equal(got.frag_len, flen)
+    assert np.array_equal(got.nx_mask, gen.nx_keep(flen, 80))
+
+
+@pytest.mark.parametrize('x0,x1,y0,y1', [(0, 5e4, 5e4, 9e4),
+                                         (0, 800, 800, 5e3),
+                                         (1e4, 2e4, 3e5, 3.5e5)])
+def test_pair_integral_is_the_law_over_two_regions(x0, x1, y0, y1):
+    """The closed form against a midpoint sum of 1 / (y - x) over the
+    two regions where y - x >= s."""
+    s, k = 1000.0, 2000
+    x = x0 + (np.arange(k) + 0.5) * (x1 - x0) / k
+    y = y0 + (np.arange(k) + 0.5) * (y1 - y0) / k
+    d = y[None, :] - x[:, None]
+    want = np.where(d >= s, 1 / np.maximum(d, s), 0).sum() * \
+        (x1 - x0) * (y1 - y0) / k ** 2
+    got = gen.pair_integral(np.float64(x0), np.float64(x1),
+                            np.float64(y0), np.float64(y1), s)
+    assert got == pytest.approx(want, rel=2e-3)
+
+
+def test_layout_links_lie_between_kept_flanks():
+    cfg = config('tieguanyin_2x')
+    cfg['published'] = dict(cfg['published'], contigs=240,
+                            genome_bp=240 * 150_000, contig_n50_bp=300_000,
+                            chromosomes=4, haplotypes=1, hic_depth_x=1.0)
+    a, b = gen.make(cfg, 5), gen.make(cfg, 6)
+    assert isinstance(a, gen.Layout)
+    assert all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ('i', 'j', 'w', 'contig_len'))
+    assert (a.i < a.j).all() and a.keep[a.i].all() and a.keep[a.j].all()
+    assert a.w.min() >= 1 and a.sizes.split_contigs > 0
