@@ -103,11 +103,12 @@ Phases, each printing one JSON line:
              chromosomes x 1000 contigs x 20 kb (480 Mb, n = 24,000
              fragments, past SPARSE_MIN_N) with 6,000,000 pairs, seed
              17, the same flags and cut: the MCL sweep must run on the
-             sparse top-K engine on the card through the sparse_column
-             kernel and the col_allclose kernel (its convergence
-             statistic), the GA and its kernels on the card (launch
-             counts of all four set to 0 just before and read just
-             after), and the scaffolds must recover the 24 chromosomes.
+             sparse top-K engine on the card through the ell_build
+             kernel (its input ELL), the sparse_column kernel and the
+             col_allclose kernel (its convergence statistic), the GA and
+             its kernels on the card (launch counts of all six set to 0
+             just before and read just after), and the scaffolds must
+             recover the 24 chromosomes.
              Prints n, K, the input columns over K, iterations per
              inflation, the K of each shrink per inflation batch, the
              sweep seconds, stage and wall seconds, peak card memory;
@@ -141,7 +142,22 @@ Phases, each printing one JSON line:
              The step's arguments go to build/chip_smoke/sparse_step.pt
              for `python -m haphic_tpu_torch.kernels.sparse_column
              --iterate`.
-7. polyploid_pipeline
+7. ell_build
+             the links that tieguanyin_2x.cluster_sets hands the sparse
+             engine (hicbench's genome and stage under ELL_SEED, then
+             build_adjacency_coo: n = 20,443, 7.23M links) at K = 128:
+             coo_to_ell on the card (the ell_build kernel) against the
+             host's numpy, idx and val bit-equal, the same overflow, no
+             column through global memory (coo_to_ell.wide_columns 0);
+             the whole card call (upload, kernel, reads: call_ms) and the
+             host's (host_ms); the wrapper on links already on the card
+             (its two reads of the card included) by CUDA events (ms)
+             against its bound (the links read
+             once and the ELL written once at 3.35 TB/s: bound_ms; their
+             upload at 64 GB/s apart: upload_bound_ms); the card call's
+             peak memory; the plain version on the CPU (plain_ms),
+             bit-equal too.
+8. polyploid_pipeline
              the pipeline phase's genome at half its contigs and pairs
              (8 x 500 contigs, 1,000,000 pairs: a cut, for time) made
              tetraploid
@@ -155,7 +171,7 @@ Phases, each printing one JSON line:
              chromosomes recovered. Prints the allelic and non-max
              pairs, allele groups, UL paths, stage and wall seconds,
              peak card memory.
-8. correct_pipeline
+9. correct_pipeline
              the pipeline phase's genome with 40 chimeric contigs
              (make_chimera_sim) and --correct_nrounds 2: at least 36
              chimeras broken (corrected_ctgs.txt), the MCL and the GA
@@ -164,7 +180,7 @@ Phases, each printing one JSON line:
              lies in. Prints the chimeras broken, correct_s (the
              correction pass, inside cluster_s.parse), stage and wall
              seconds, peak card memory.
-9. allhic    `cli.main(["allhic", group, clm, "--resume"])` on the card
+10. allhic    `cli.main(["allhic", group, clm, "--resume"])` on the card
              at the users' defaults (--npop 100 --ngen 5000 --seed 42) on
              the largest group of the pipeline phase (k = 1000 contigs,
              its group file and split CLM from 02.reassign), hot-started
@@ -178,7 +194,7 @@ Phases, each printing one JSON line:
              must score it within 1e-5 relative of that line. Prints the
              work, route, seconds, generations per second, launches and
              peak card memory.
-10. post     on the pipeline phase's output: plot's contact map
+11. post     on the pipeline phase's output: plot's contact map
              (`post.plot.contact_map`, the part of `plot` before
              drawing) of 04.build/scaffolds.agp and the 2M pairs at
              20 kb bins (8,040 bins, a 65M-cell int64 matrix), on the
@@ -193,7 +209,7 @@ Phases, each printing one JSON line:
              back (same contigs, order and orientation); and `refsort`
              with a PAF of every contig aligned whole to its simulated
              chromosome: each of the 8 scaffolds on its own chromosome.
-11. sim      `cli.main(["sim", "ga_study", "--ks", "50,200,500,1000",
+12. sim      `cli.main(["sim", "ga_study", "--ks", "50,200,500,1000",
              "--ngen", "5000", "--npop", "100", "--backend", "device"])`
              on the card (docs/GA_VALIDATION.md's sizes and settings):
              per k a truth rescoring and a cold and a hot GA run, every
@@ -223,7 +239,7 @@ Phases, each printing one JSON line:
              phase's tour must print its >GA5000 score, and `sim
              convert_agp_to_tour` on the pipeline's scaffolds.agp must
              list every W line's contig and orientation in order.
-12. mesh_pipeline
+13. mesh_pipeline
              the pipeline phase's genome, flags and cut through `python
              -m torch.distributed.run --standalone --nproc_per_node 2`
              with --use_mesh on: each rank is this script's worker
@@ -243,7 +259,7 @@ Phases, each printing one JSON line:
              8 chromosomes come back. Prints backend, world, wall, and per
              rank its stage seconds, seconds and bytes in collectives
              and peak card memory.
-13. mesh_sparse
+14. mesh_sparse
              the sparse pipeline's adjacency (n = 24,000, K = 128), its
              first inflation batch (4 of 20 inflations, a cut), through
              the column-sharded run_mcl_sparse on two torchrun ranks
@@ -253,7 +269,7 @@ Phases, each printing one JSON line:
              peak card memory and sparse_column and col_allclose
              launches per rank (counted from 0 just before its run; one
              col_allclose launch per rank per step).
-14. mesh_nccl
+15. mesh_nccl
              a one-rank NCCL group in this process, so that NCCL's
              collectives run on CUDA tensors even on one card: the
              sharded dense sweep (its first 5 inflations at n = 8000,
@@ -266,16 +282,16 @@ Phases, each printing one JSON line:
              per delta generation and per rescoring call it reports;
              launch counts set to 0 just before and read just after
              each) against the meshless calls, bit-equal.
-15. kernels  one line listing every kernel (the line before the last):
+16. kernels  one line listing every kernel (the line before the last):
              `launches` sums the counts of every phase that drives a
              path (pipeline, sparse_pipeline, polyploid_pipeline,
              correct_pipeline, allhic, sim, mesh_pipeline over its two
              ranks, mesh_sparse over its two ranks, mesh_nccl),
              `launches_by_phase` lists them; sparse_column's and
              col_allclose's ms, plain_ms, bound_ms and max_abs_err are
-             phase 6's, mcl_column's and mcl_interpret's phase 3's (with
-             the column pass's plan and tb_s, the labels' bytes and
-             attractors),
+             phase 6's, ell_build's phase 7's, mcl_column's and
+             mcl_interpret's phase 3's (with the column pass's plan and
+             tb_s, the labels' bytes and attractors),
              rescore_population's phase 4's main_path row in caches mode
              (its scores mode beside them as `scores`).
 
@@ -327,6 +343,8 @@ CORRECT_NROUNDS = 2
 MIN_BROKEN = 36          # chimeras that must be broken
 STEP_REPS = 3            # timed sparse sweep steps
 STAT_TOL = 1e-9          # col_allclose against its plain version, absolute
+ELL_SEED = 3250002601    # ell_build: the tea cell's links under this seed
+ELL_REPS = 20            # ell_build: timed launches
 CONVERGED = 1e-8         # the sweep's convergence threshold on the statistic
 TOP_OPS = 12             # ops and kernels listed for the sparse step
 SIM_FLAGS = ['--Nx', '100', '--RE_site_cutoff', '0',
@@ -391,11 +409,18 @@ KERNELS = [{
     'route': 'cuda',
     'source': 'haphic_tpu_torch/kernels/csrc/mcl_interpret.cu',
     'replaces': 'haphic_tpu/cluster/mcl.py:283',
+}, {
+    'name': 'ell_build',
+    'route': 'cuda',
+    'source': 'haphic_tpu_torch/kernels/csrc/ell_build.cu',
+    'replaces': 'haphic_tpu/cluster/sparse_mcl.py:411',
 }]
 # the GA's kernels: every phase that drives a GA launches all three
 GA_KERNELS = ('score_population', 'delta_generation', 'rescore_population')
 # the dense MCL sweep's kernels on the card: the column pass and the labels
 DENSE_KERNELS = ('mcl_column', 'mcl_interpret')
+# the sparse engine's: the input ELL, the column step, the statistic
+SPARSE_KERNELS = ('ell_build', 'sparse_column', 'col_allclose')
 
 
 def kernel_wrappers():
@@ -403,6 +428,7 @@ def kernel_wrappers():
     count as ``launches``."""
     from haphic_tpu_torch.kernels import col_allclose as kca
     from haphic_tpu_torch.kernels import delta as kdelta
+    from haphic_tpu_torch.kernels import ell_build as keb
     from haphic_tpu_torch.kernels import mcl_column as kmc
     from haphic_tpu_torch.kernels import mcl_interpret as kmi
     from haphic_tpu_torch.kernels import rescore as krs
@@ -414,7 +440,8 @@ def kernel_wrappers():
             'mcl_column': kmc.mcl_column,
             'col_allclose': kca.col_allclose,
             'rescore_population': krs.rescore,
-            'mcl_interpret': kmi.mcl_labels}
+            'mcl_interpret': kmi.mcl_labels,
+            'ell_build': keb.ell_build}
 
 
 def zero_launches(names):
@@ -765,8 +792,8 @@ def _drive_pipeline(torch, cli, sim, sim_dir, out_dir,
     check(mcl == 'cuda', 'the MCL sweep ran on {}, not the card'.format(mcl))
     check(m['ga_route'][-1] == 'cuda',
           'the GA ran on {}, not the card'.format(m['ga_route'][-1]))
-    for kname in GA_KERNELS + (('sparse_column', 'col_allclose')
-                               if engine == 'sparse' else DENSE_KERNELS):
+    for kname in GA_KERNELS + (SPARSE_KERNELS if engine == 'sparse'
+                               else DENSE_KERNELS):
         check(launches[kname] > 0, 'kernel {} was not launched on the main '
               'path'.format(kname))
     if engine == 'dense':
@@ -920,6 +947,85 @@ def phase_sparse_pipeline(torch, cli, sp, sparse_min_n):
           'clusters_per_inflation': m['clusters_per_inflation'][-1],
           **_run_line(torch, m, sim_s, wall, launches, part)})
     return first[0], launches
+
+
+def tea_links(torch, seed):
+    """The links that tieguanyin_2x.cluster_sets hands the sparse engine
+    under ``seed`` (hicbench's genome and stage, then the pipeline's
+    build_adjacency_coo, as run_clustering calls it): (i, j, w, n)."""
+    from haphic_tpu_torch.cluster.sweep import build_adjacency_coo
+    from hicbench import genome as hgen
+    from hicbench import harness, stages
+    cfg = harness.load('configs', 'tieguanyin_2x')
+    mix = harness.load('traffic', 'cluster_sets')
+    stage = stages.load(mix['stage']).Stage(
+        cfg, mix, hgen.make(cfg, seed), torch.device(DEVICE), seed)
+    i, j, w, _ = build_adjacency_coo(stage.flank, stage.filtered,
+                                     len(stage.frags))
+    return i, j, w, stage.m
+
+
+def phase_ell_build(torch, sp):
+    """ell_build on the links of tieguanyin_2x.cluster_sets (n = 20,443,
+    7.23M links, K = 128): coo_to_ell on the card against the host's
+    numpy, idx and val to the bit, overflow equal, no column through
+    global memory; the whole card call (upload, kernel, reads) and the
+    host's timed; the wrapper on links already on the card (its two reads
+    of the card included) timed by CUDA events over ELL_REPS calls,
+    against its bound (the links read
+    once and the ELL written once at 3.35 TB/s; their upload at the host
+    link's rate apart); its peak card memory; the plain version on the
+    host's CPU timed once. Returns the kernel's row."""
+    from haphic_tpu_torch.kernels import ell_build as keb
+    t0 = time.time()
+    i, j, w, n = tea_links(torch, ELL_SEED)
+    draw_s = time.time() - t0
+    K, E = sp.DEFAULT_K, len(i)
+    t0 = time.perf_counter()
+    want = sp.coo_to_ell(i, j, w, n, K)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    sp.coo_to_ell(i, j, w, n, K, device=DEVICE)          # the build
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    n0 = keb.ell_build.launches
+    t0 = time.perf_counter()
+    got = sp.coo_to_ell(i, j, w, n, K, device=DEVICE)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    check(keb.ell_build.launches == n0 + 1, 'coo_to_ell launched ell_build '
+          '{} times'.format(keb.ell_build.launches - n0))
+    wide = sp.coo_to_ell.wide_columns
+    equal = (np.array_equal(got[0].cpu().numpy(), want[0]) and
+             np.array_equal(got[1].cpu().numpy().view(np.int32),
+                            want[1].view(np.int32)))
+    check(equal and got[2] == want[2], 'ell_build differs from the host\'s '
+          'numpy on the tea cell\'s links (overflow {} vs {})'.format(
+              got[2], want[2]))
+    check(wide == 0, '{} columns took the global-memory path'.format(wide))
+    del got
+    links = [torch.as_tensor(x, device=DEVICE) for x in (i, j, w)]
+    ms = _time_ms(torch, lambda: keb.ell_build(*links, n, K), ELL_REPS)
+    cpu = [torch.as_tensor(x) for x in (i, j, w)]
+    t0 = time.perf_counter()
+    plain = keb.ell_build_plain(*cpu, n, K)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(plain[0].numpy(), want[0]) and
+          np.array_equal(plain[1].numpy().view(np.int32),
+                         want[1].view(np.int32)),
+          'the plain version differs from the host\'s numpy')
+    widths = np.bincount(np.concatenate([j, i[i != j]]), minlength=n) + 1
+    row = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': keb.bound_ms(E, n, K),
+           'bound_by': 'bytes', 'max_abs_err': 0.0,
+           'bytes': keb.least_bytes(E, n, K)}
+    emit({'phase': 'ell_build', 'seed': ELL_SEED, 'n': n, 'links': E,
+          'K': K, 'widest_column': int(widths.max()),
+          'overflow_cols': want[2], 'wide_columns': wide,
+          'bit_equal': True, 'draw_s': draw_s, 'host_ms': host_ms,
+          'call_ms': call_ms, 'upload_bound_ms': keb.upload_ms(E),
+          'peak_bytes': peak, **row})
+    return row
 
 
 def _block_coo(n, n_blocks, seed):
@@ -2763,6 +2869,7 @@ def main() -> int:
     sparse_call[0].pop('result')
     main_rows['sparse_column'], main_rows['col_allclose'] = \
         phase_sparse_step(torch, sp, first_step)
+    main_rows['ell_build'] = phase_ell_build(torch, sp)
     # on the host: its tensors would count in the next peaks
     step_args = tuple(x.cpu() if isinstance(x, torch.Tensor) else x
                       for x in first_step)
@@ -2793,7 +2900,7 @@ def main() -> int:
         counts = {p: n.get(k['name'], 0) for p, n in by_phase.items()}
         check(sum(counts.values()) > 0, 'kernel {} was launched on no '
               'path'.format(k['name']))
-        # no single PyTorch call computes any of the seven functions
+        # no single PyTorch call computes any of the eight functions
         kernels.append(dict(k, launches=sum(counts.values()),
                             launches_by_phase=counts,
                             max_abs_err=row['max_abs_err'], ms=row['ms'],

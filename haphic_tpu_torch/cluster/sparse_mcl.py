@@ -32,6 +32,11 @@ iteration, 2K in the convergence merge):
   converge numpy.allclose semantics over the union of the old and new
            columns' row ids
 
+The input ELL (``coo_to_ell``: the links' COO, mirrored, with self-loops,
+duplicates summed, columns normalized and capped at K) is built on the
+card by kernels.ell_build.ell_build, bit-equal to the host's numpy, which
+the CPU route keeps.
+
 Expand through prune are one call of kernels.sparse_column.sparse_column
 per column chunk, and the convergence statistic one call of
 kernels.col_allclose.col_allclose a step, over all the step's columns:
@@ -86,8 +91,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from haphic_tpu_torch import trace
 from haphic_tpu_torch.kernels.col_allclose import (
     col_allclose, col_allclose_plain, raise_if_unordered)
+from haphic_tpu_torch.kernels.ell_build import ell_build
 from haphic_tpu_torch.kernels.sparse_column import sparse_column
 from haphic_tpu_torch.parallel.mesh import all_gather_cols, all_reduce_max
 from haphic_tpu_torch.runtime import resolve_device
@@ -342,14 +349,43 @@ def _pre_expand(base_i: torch.Tensor, base_v: torch.Tensor,
 
 
 def coo_to_ell(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
-               K: int) -> Tuple[np.ndarray, np.ndarray, int]:
+               K: int, device=None):
     """Symmetric COO (upper or mixed triangle) -> column-normalized ELL
     (n+1, K). Columns with more than K entries keep the K largest
     (logged). Mirrors dict_to_matrix(add_self_loops=True) + the sweep's
     initial L1 normalization (scripts/HapHiC_cluster.py:310-373,2143).
 
     Returns (idx, val, overflow) where overflow is the number of input
-    columns wider than K (0 ⇒ the ELL layout is exact)."""
+    columns wider than K (0 ⇒ the ELL layout is exact). On a CUDA
+    ``device`` the links go to the card and the ell_build kernel builds
+    the ELL there: idx and val are CUDA tensors, bit-equal to the host's
+    arrays. Otherwise (the default) numpy on the host builds numpy
+    arrays. ``coo_to_ell.wide_columns``: the columns that the last call's
+    kernel took through global memory (0 on the host). The span
+    ``sparse.ell`` (``haphic_tpu_torch.trace``) covers the call."""
+    dev = torch.device('cpu' if device is None else device)
+    with trace.span('sparse.ell', device=dev, links=len(i), n=n, K=K):
+        if dev.type == 'cuda':
+            links = [torch.as_tensor(np.asarray(x, dtype=t), device=dev)
+                     for x, t in ((i, np.int64), (j, np.int64),
+                                  (w, np.float64))]
+            idx, val, overflow, coo_to_ell.wide_columns = ell_build(
+                *links, n, K)
+        else:
+            idx, val, overflow = _ell_on_host(i, j, w, n, K)
+            coo_to_ell.wide_columns = 0
+    if overflow:
+        logger.info('sparse MCL: %d/%d columns exceed K=%d entries; '
+                    'keeping the K largest per column', overflow, n, K)
+    return idx, val, overflow
+
+
+coo_to_ell.wide_columns = 0
+
+
+def _ell_on_host(i, j, w, n: int, K: int
+                 ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """coo_to_ell in numpy, as the JAX package's computes it."""
     i = np.asarray(i, dtype=np.int64)
     j = np.asarray(j, dtype=np.int64)
     w = np.asarray(w, dtype=np.float64)
@@ -374,9 +410,6 @@ def coo_to_ell(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
     counts = np.zeros(n + 1, dtype=np.int64)
     np.add.at(counts, cols, 1)
     overflow = int((counts > K).sum())
-    if overflow:
-        logger.info('sparse MCL: %d/%d columns exceed K=%d entries; '
-                    'keeping the K largest per column', overflow, n, K)
     col_start = np.zeros(n + 2, dtype=np.int64)
     np.cumsum(counts, out=col_start[1:])
 
@@ -487,7 +520,8 @@ def run_mcl_sparse(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
         K = max(1, n)
     infl = np.asarray(inflations, dtype=np.float32)
     B = len(infl)
-    idx0, val0, overflow_cols = coo_to_ell(i, j, w, n, K)
+    # on the card, idx0/val0 are CUDA tensors, taken below without a copy
+    idx0, val0, overflow_cols = coo_to_ell(i, j, w, n, K, device=dev)
 
     # Small independent inflation batches beat one lockstep batch:
     # every iteration costs O(batch · n · K²), and a batch stops as

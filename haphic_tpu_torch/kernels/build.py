@@ -25,7 +25,7 @@ REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), '..',
 BUILD_DIR = os.path.join(REPO_ROOT, 'build', 'haphic_tpu_torch')
 SOURCES = ('score_population', 'delta_generation', 'sparse_column',
            'mcl_column', 'col_allclose', 'rescore_population',
-           'mcl_interpret')
+           'mcl_interpret', 'ell_build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v']
 

@@ -23,6 +23,8 @@ from haphic_tpu_torch.kernels import delta as kdelta
 from haphic_tpu_torch.kernels import score as kscore
 from haphic_tpu_torch.order import optimize as topt
 
+from . import ell_cases
+
 
 def _score_case(seed, G, P, k, R):
     rng = np.random.default_rng(seed)
@@ -708,6 +710,74 @@ def test_sparse_column_cpu_tensors_take_the_plain_version():
                                     infl, 60, 8, 1e-4, True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     _check_iterate(*got, 60, 8)
+
+
+# --- the sparse engine's ELL build (kernels/ell_build.py) ---------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', ell_cases.KS)
+@pytest.mark.parametrize('case', ell_cases.CASES)
+def test_ell_build_kernel_bit_equal_to_numpy(card, case, K):
+    """coo_to_ell on the card (the ell_build kernel) against the host's
+    numpy on the same links: idx, val (to the bit), overflow and dtypes;
+    the star's hub the one column through global memory; a second call
+    (its buckets filled in another order) the same."""
+    from haphic_tpu_torch.cluster import sparse_mcl as tsp
+    from haphic_tpu_torch.kernels import ell_build as keb
+    i, j, w, n = ell_cases.links(case, K)
+    want = tsp.coo_to_ell(i, j, w, n, K)
+    n0 = keb.ell_build.launches
+    got = tsp.coo_to_ell(i, j, w, n, K, device=card)
+    again = tsp.coo_to_ell(i, j, w, n, K, device=card)
+    torch.cuda.synchronize()
+    assert keb.ell_build.launches == n0 + 2
+    assert tsp.coo_to_ell.wide_columns == (1 if case == 'star' else 0)
+    for idx, val, overflow in (got, again):
+        assert idx.device.type == 'cuda' and val.device.type == 'cuda'
+        assert idx.dtype == torch.int32 and val.dtype == torch.float32
+        assert np.array_equal(idx.cpu().numpy(), want[0])
+        assert np.array_equal(val.cpu().numpy().view(np.int32),
+                              want[1].view(np.int32))
+        assert overflow == want[2]
+
+
+@pytest.mark.cuda
+def test_run_mcl_sparse_launches_ell_build_once(card):
+    """One run_mcl_sparse call on the card builds its ELL by one
+    ell_build call; the CPU route calls none, and both sweep alike."""
+    from haphic_tpu_torch.cluster import sparse_mcl as tsp
+    from haphic_tpu_torch.kernels import ell_build as keb
+    i, j, w, n = ell_cases.links('capped', 16)
+    n0 = keb.ell_build.launches
+    runs = [tsp.run_mcl_sparse(i, j, w, n, [1.6, 2.4], K=16, max_iter=6,
+                               device=d) for d in ('cuda', 'cpu')]
+    assert keb.ell_build.launches == n0 + 1
+    assert np.array_equal(runs[0].n_iters, runs[1].n_iters)
+
+
+@pytest.mark.cuda
+def test_ell_build_kernel_edges_and_bad_input(card):
+    """No links (self-loops alone) and one column; ids outside [0, n) and
+    wrong dtypes or devices raise ValueError."""
+    from haphic_tpu_torch.cluster import sparse_mcl as tsp
+    from haphic_tpu_torch.kernels import ell_build as keb
+    none = np.zeros(0, np.int64)
+    for n, K in ((5, 3), (1, 1)):
+        want = tsp.coo_to_ell(none, none, none.astype(float), n, K)
+        got = tsp.coo_to_ell(none, none, none.astype(float), n, K,
+                             device=card)
+        assert np.array_equal(got[0].cpu().numpy(), want[0])
+        assert np.array_equal(got[1].cpu().numpy(), want[1])
+    i, j, w, n = (torch.as_tensor(x, device=card) if not isinstance(x, int)
+                  else x for x in ell_cases.links('exact', 8))
+    for bad_j in (torch.where(j == j.max(), n, j), -j):
+        with pytest.raises(ValueError):
+            keb.ell_build(i, bad_j, w, n, 8)
+    for args in ((i.int(), j, w), (i, j, w.float()), (i, j.cpu(), w),
+                 (i[:-1], j, w)):
+        with pytest.raises(ValueError):
+            keb.ell_build(*args, n, 8)
 
 
 # --- the sparse column kernel's shapes: dedupe table, spill, cap ---------
