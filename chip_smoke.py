@@ -16,10 +16,8 @@ Phases, each printing one JSON line:
              on the card; the kernel launch counts are set to 0 just
              before and read just after (the dense sweep through the
              mcl_column kernel and its final matrices through
-             mcl_interpret, one launch per batch the sweep logs, every
-             matrix read from its labels by
-             run_mcl_partitions.card_interprets; the GA through its
-             three kernels, one
+             mcl_interpret, one launch per batch the sweep logs; the GA
+             through its three kernels, one
              delta_generation launch per delta generation and one
              rescore_population launch per rescoring call it reports,
              `ga_delta_gens` and `ga_rescores`). The scaffolds must
@@ -39,9 +37,10 @@ Phases, each printing one JSON line:
              counted), the statistic within 1e-7 and the same
              convergence decision; both timed (the kernel's ms and
              plain_ms, its plan from mcl_column.plan(n) and the rate it
-             reached on the bytes it moves, tb_s). Then the whole batch through _mcl_batched with
-             the kernel and under plain_columns: equal iteration counts
-             and partitions by interpret_result. On the kernel's final
+             reached on the bytes it moves, tb_s). Then the whole batch
+             through _mcl_batched with the kernel and with its plain
+             version in its place: equal iteration counts and
+             partitions by interpret_result. On the kernel's final
              matrices, mcl_interpret against its plain version: labels
              exactly equal and their partitions equal to
              interpret_result's; both timed (ms, plain_ms), the bound
@@ -127,7 +126,7 @@ Phases, each printing one JSON line:
              step's columns: equal sets of entries above 1e-6, values
              within rtol 1e-5 / atol 1e-7; both timed over the step's
              chunks (the kernel's ms and plain_ms); and the step's
-             column shapes (sparse_column.column_stats: real sources,
+             column shapes (kernelkit.column_stats: real sources,
              real candidates, distinct ids, capped columns). Then
              col_allclose against its plain version on the step's own
              columns (old: the iterate's, new: sparse_column's output):
@@ -140,23 +139,22 @@ Phases, each printing one JSON line:
              order flag the host loop reads (wrapper_ms), and the plain
              version (plain_ms); its bound from the step's real entries.
              The step's arguments go to build/chip_smoke/sparse_step.pt
-             for `python -m haphic_tpu_torch.kernels.sparse_column
-             --iterate`.
+             for `python3 tools/sparse_column_phases.py --iterate`.
 7. ell_build
              the links that tieguanyin_2x.cluster_sets hands the sparse
              engine (hicbench's genome and stage under ELL_SEED, then
              build_adjacency_coo: n = 20,443, 7.23M links) at K = 128:
-             coo_to_ell on the card (the ell_build kernel) against the
-             host's numpy, idx and val bit-equal, the same overflow, no
-             column through global memory (coo_to_ell.wide_columns 0);
-             the whole card call (upload, kernel, reads: call_ms) and the
-             host's (host_ms); the wrapper on links already on the card
-             (its two reads of the card included) by CUDA events (ms)
-             against its bound (the links read
-             once and the ELL written once at 3.35 TB/s: bound_ms; their
-             upload at 64 GB/s apart: upload_bound_ms); the card call's
-             peak memory; the plain version on the CPU (plain_ms),
-             bit-equal too.
+             coo_to_ell on the card (the ell_build kernel) against
+             coo_to_ell on the CPU (its plain version, which the CPU
+             tests hold bit-equal to the JAX package's numpy), idx and
+             val bit-equal, the same overflow, no column through global
+             memory (coo_to_ell.wide_columns 0); the whole card call
+             (upload, kernel, reads: call_ms) and the CPU's (plain_ms);
+             the wrapper on links already on the card (its two reads of
+             the card included) by CUDA events (ms) against its bound
+             (the links read once and the ELL written once at 3.35
+             TB/s: bound_ms; their upload at 64 GB/s apart:
+             upload_bound_ms); the card call's peak memory.
 8. polyploid_pipeline
              the pipeline phase's genome at half its contigs and pairs
              (8 x 500 contigs, 1,000,000 pairs: a cut, for time) made
@@ -312,10 +310,14 @@ import sys
 import time
 import types
 import zlib
+from unittest import mock
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, 'tools'))
+
+import kernelkit as kit  # noqa: E402
 WORK = os.path.join(REPO, 'build', 'chip_smoke')
 DEVICE = 'cuda'
 
@@ -370,9 +372,6 @@ MESH_SPARSE_B = 4        # mesh_sparse: the sweep's first inflation batch
 MESH_DENSE_B = 5         # mesh_nccl: the dense sweep's first 5 inflations
 REL_TOL = 1e-5           # score_population, relative
 DELTA_TOL = 1e-6         # delta_generation, relative to the row's score
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor)
-HBM_BPS = 3.35e12
-FP32_FLOPS = 67e12
 
 KERNELS = [{
     'name': 'score_population',
@@ -466,18 +465,14 @@ def check_ga_launches(launches, delta_gens, rescores, what):
           .format(what, launches['rescore_population'], rescores))
 
 
-def check_label_launches(launches, m, interprets, what):
+def check_label_launches(launches, m, what):
     """One mcl_interpret launch per batch of the dense sweeps on the
-    card, as they log their batches, and every matrix of those batches
-    read from its labels (``interprets``, the rise of
-    run_mcl_partitions.card_interprets over the run)."""
+    card, as they log their batches: every batch's partitions read from
+    its labels."""
     batches = [b for call in m.get('batches', []) for b in call]
     check(launches['mcl_interpret'] == len(batches),
           '{}: mcl_interpret launched {} times for {} dense batches'
           .format(what, launches['mcl_interpret'], len(batches)))
-    check(interprets == sum(batches),
-          '{}: {} matrices read from the card\'s labels of {} swept'
-          .format(what, interprets, sum(batches)))
 
 
 T0 = time.time()
@@ -494,14 +489,6 @@ def emit(obj):
 def check(ok, what):
     if not ok:
         raise RuntimeError('chip_smoke: {}'.format(what))
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def sim_draws(nchrs, ctgs_per_chr, ctg_len, n_pairs, seed):
@@ -742,7 +729,7 @@ def phase_env(torch, kbuild):
     secs = time.time() - t0
     for name in paths:
         sys.stderr.write(kbuild.BUILD_LOG.get(name, ''))
-    emit({'phase': 'env', 'nvidia_smi': nvidia_smi(),
+    emit({'phase': 'env', 'nvidia_smi': kit.nvidia_smi(),
           'torch': torch.__version__, 'cuda': torch.version.cuda,
           'device': torch.cuda.get_device_name(0),
           'kernel_build_s': secs,
@@ -759,13 +746,11 @@ def _drive_pipeline(torch, cli, sim, sim_dir, out_dir,
     col_allclose, the dense one through mcl_column), the GA on the card
     with its three kernels, one delta_generation launch per delta
     generation and one rescore_population launch per rescoring call the
-    GA reports, and the scaffolds must recover the
-    simulated chromosomes. On the dense engine mcl_interpret must
-    launch once per batch the sweeps log and read every matrix of theirs
-    (check_label_launches). Returns (sim
-    seconds, wall seconds, metrics, launches, partition summary, output
+    GA reports, and the scaffolds must recover the simulated
+    chromosomes. On the dense engine mcl_interpret must launch once per
+    batch the sweeps log (check_label_launches). Returns (sim seconds,
+    wall seconds, metrics, launches, partition summary, output
     directory)."""
-    from haphic_tpu_torch.cluster import mcl as tmcl
     t0 = time.time()
     fa, pairs, flags = genome(os.path.join(WORK, sim_dir), **sim)
     sim_s = time.time() - t0
@@ -775,14 +760,12 @@ def _drive_pipeline(torch, cli, sim, sim_dir, out_dir,
     torch.cuda.reset_peak_memory_stats()
     names = [k['name'] for k in KERNELS]
     zero_launches(names)
-    interprets = tmcl.run_mcl_partitions.card_interprets
     t0 = time.time()
     rc = cli.main(['pipeline', fa, pairs, str(sim['nchrs']), '--outdir',
                    out, '--ngen', str(NGEN)] + SIM_FLAGS + flags)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_launches(names)
-    interprets = tmcl.run_mcl_partitions.card_interprets - interprets
     logging.getLogger('haphic_tpu_torch').removeHandler(log)
     check(rc == 0, 'pipeline exit code {}'.format(rc))
     m = log.metrics
@@ -797,7 +780,7 @@ def _drive_pipeline(torch, cli, sim, sim_dir, out_dir,
         check(launches[kname] > 0, 'kernel {} was not launched on the main '
               'path'.format(kname))
     if engine == 'dense':
-        check_label_launches(launches, m, interprets, 'pipeline')
+        check_label_launches(launches, m, 'pipeline')
     # the delta generations and rescorings the GA says it ran, one
     # launch each
     check_ga_launches(launches, sum(m['ga_delta_gens']),
@@ -967,15 +950,14 @@ def tea_links(torch, seed):
 
 def phase_ell_build(torch, sp):
     """ell_build on the links of tieguanyin_2x.cluster_sets (n = 20,443,
-    7.23M links, K = 128): coo_to_ell on the card against the host's
-    numpy, idx and val to the bit, overflow equal, no column through
-    global memory; the whole card call (upload, kernel, reads) and the
-    host's timed; the wrapper on links already on the card (its two reads
-    of the card included) timed by CUDA events over ELL_REPS calls,
-    against its bound (the links read
-    once and the ELL written once at 3.35 TB/s; their upload at the host
-    link's rate apart); its peak card memory; the plain version on the
-    host's CPU timed once. Returns the kernel's row."""
+    7.23M links, K = 128): coo_to_ell on the card against coo_to_ell on
+    the CPU (the plain version, timed once), idx and val to the bit,
+    overflow equal, no column through global memory; the whole card call
+    (upload, kernel, reads) timed; the wrapper on links already on the
+    card (its two reads of the card included) timed by CUDA events over
+    ELL_REPS calls, against its bound (the links read once and the ELL
+    written once at 3.35 TB/s; their upload at the host link's rate
+    apart); its peak card memory. Returns the kernel's row."""
     from haphic_tpu_torch.kernels import ell_build as keb
     t0 = time.time()
     i, j, w, n = tea_links(torch, ELL_SEED)
@@ -983,7 +965,7 @@ def phase_ell_build(torch, sp):
     K, E = sp.DEFAULT_K, len(i)
     t0 = time.perf_counter()
     want = sp.coo_to_ell(i, j, w, n, K)
-    host_ms = (time.perf_counter() - t0) * 1e3
+    plain_ms = (time.perf_counter() - t0) * 1e3
     sp.coo_to_ell(i, j, w, n, K, device=DEVICE)          # the build
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -997,33 +979,26 @@ def phase_ell_build(torch, sp):
     check(keb.ell_build.launches == n0 + 1, 'coo_to_ell launched ell_build '
           '{} times'.format(keb.ell_build.launches - n0))
     wide = sp.coo_to_ell.wide_columns
-    equal = (np.array_equal(got[0].cpu().numpy(), want[0]) and
-             np.array_equal(got[1].cpu().numpy().view(np.int32),
-                            want[1].view(np.int32)))
-    check(equal and got[2] == want[2], 'ell_build differs from the host\'s '
-          'numpy on the tea cell\'s links (overflow {} vs {})'.format(
+    equal = (torch.equal(got[0].cpu(), want[0]) and
+             torch.equal(got[1].cpu().view(torch.int32),
+                         want[1].view(torch.int32)))
+    check(equal and got[2] == want[2], 'ell_build differs from its plain '
+          'version on the tea cell\'s links (overflow {} vs {})'.format(
               got[2], want[2]))
     check(wide == 0, '{} columns took the global-memory path'.format(wide))
     del got
     links = [torch.as_tensor(x, device=DEVICE) for x in (i, j, w)]
-    ms = _time_ms(torch, lambda: keb.ell_build(*links, n, K), ELL_REPS)
-    cpu = [torch.as_tensor(x) for x in (i, j, w)]
-    t0 = time.perf_counter()
-    plain = keb.ell_build_plain(*cpu, n, K)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    check(np.array_equal(plain[0].numpy(), want[0]) and
-          np.array_equal(plain[1].numpy().view(np.int32),
-                         want[1].view(np.int32)),
-          'the plain version differs from the host\'s numpy')
+    ms = kit.time_ms(lambda: keb.ell_build(*links, n, K), ELL_REPS)
     widths = np.bincount(np.concatenate([j, i[i != j]]), minlength=n) + 1
-    row = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': keb.bound_ms(E, n, K),
+    row = {'ms': ms, 'plain_ms': plain_ms,
+           'bound_ms': kit.ell_build_bound_ms(E, n, K),
            'bound_by': 'bytes', 'max_abs_err': 0.0,
-           'bytes': keb.least_bytes(E, n, K)}
+           'bytes': kit.ell_build_least_bytes(E, n, K)}
     emit({'phase': 'ell_build', 'seed': ELL_SEED, 'n': n, 'links': E,
           'K': K, 'widest_column': int(widths.max()),
           'overflow_cols': want[2], 'wide_columns': wide,
-          'bit_equal': True, 'draw_s': draw_s, 'host_ms': host_ms,
-          'call_ms': call_ms, 'upload_bound_ms': keb.upload_ms(E),
+          'bit_equal': True, 'draw_s': draw_s, 'call_ms': call_ms,
+          'upload_bound_ms': kit.ell_build_upload_ms(E),
           'peak_bytes': peak, **row})
     return row
 
@@ -1106,7 +1081,7 @@ def phase_sparse_step(torch, sp, first_step):
 
     si, sv, f, active, n, K, chunk, pruning, expansion = first_step
     B = si.shape[0]
-    # for `python -m haphic_tpu_torch.kernels.sparse_column --iterate`
+    # for `python3 tools/sparse_column_phases.py --iterate`
     torch.save({'idx': si, 'val': sv, 'infl': f,
                 'active': torch.as_tensor(active), 'n': int(n), 'K': int(K),
                 'chunk': int(chunk), 'pruning': float(pruning),
@@ -1122,7 +1097,7 @@ def phase_sparse_step(torch, sp, first_step):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ms = _time_ms(torch, step, STEP_REPS)
+    ms = kit.time_ms(step, STEP_REPS)
     peak = torch.cuda.max_memory_allocated()
     n0 = kca.col_allclose.launches
     ni, nv, stat, max_nnz = step()
@@ -1132,8 +1107,10 @@ def phase_sparse_step(torch, sp, first_step):
           and bool((ni[:, n] == n).all()) and int(flag) == 0,
           'sparse step output: not finite, too wide, sentinel set or out '
           'of ELL order')
-    with kcol.plain_columns(sp), kca.plain_stat(sp):
-        plain_step_ms = _time_ms(torch, step, STEP_REPS)
+    with mock.patch.object(sp, 'sparse_column', kcol.sparse_column_plain), \
+            mock.patch.object(sp, 'col_allclose',
+                              kit.col_allclose_plain_stat):
+        plain_step_ms = kit.time_ms(step, STEP_REPS)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1149,12 +1126,12 @@ def phase_sparse_step(torch, sp, first_step):
     # the kernel against its plain version on the step's own columns
     sel = torch.as_tensor(np.flatnonzero(active), device=si.device)
     A_i, A_v, fa = si[sel], sv[sel], f[sel]
-    cols = [lambda fn=fn: kcol.step_columns(fn, A_i, A_v, fa, n, K, chunk,
-                                            pruning, expansion)
+    cols = [lambda fn=fn: kit.step_columns(fn, A_i, A_v, fa, n, K, chunk,
+                                           pruning, expansion)
             for fn in (kcol.sparse_column, kcol.sparse_column_plain)]
     kout, pout = cols[0](), cols[1]()
     torch.cuda.synchronize()
-    cmp = kcol.compare(*kout, *pout, n)
+    cmp = kit.sparse_column_compare(*kout, *pout, n)
     check(cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0,
           "sparse_column disagrees with its plain version on the "
           "pipeline's step: {}".format(cmp))
@@ -1162,7 +1139,7 @@ def phase_sparse_step(torch, sp, first_step):
     # the statistic on the step's own column pairs in one call, as the
     # sweep calls it: the wrapper (its checks, its kernel, the order
     # flag), the kernel's launch alone and the plain version
-    stats = [lambda fn=fn, kw=kw: kca.step_stats(fn, A_i, A_v, *kout, n,
+    stats = [lambda fn=fn, kw=kw: kit.step_stats(fn, A_i, A_v, *kout, n,
                                                  **kw)
              for fn, kw in ((kca.col_allclose, {'bad': flag}),
                             (kca._launch, {'bad': flag}),
@@ -1170,7 +1147,7 @@ def phase_sparse_step(torch, sp, first_step):
     kst, pst = stats[0](), stats[2]()
     check(int(flag) == 0, "col_allclose found the step's columns out of "
           'ELL order')
-    scmp = kca.compare(kst, pst)
+    scmp = kit.col_allclose_compare(kst, pst)
     decide = [(x.amax(dim=1) <= CONVERGED).tolist() for x in (kst, pst)]
     check(scmp['inf_differ'] == 0 and scmp['max_abs_err'] <= STAT_TOL
           and decide[0] == decide[1], "col_allclose disagrees with its "
@@ -1179,20 +1156,21 @@ def phase_sparse_step(torch, sp, first_step):
     scmp.update(equal_columns=int((kst == pst).sum()),
                 columns=kst.numel(), stat=kst.amax(dim=1).tolist(),
                 converged=decide[0])
-    stat_ms = _time_ms(torch, stats[1], STEP_REPS)
+    stat_ms = kit.time_ms(stats[1], STEP_REPS)
     scmp.update(_profiled(stats[1], STEP_REPS, 'col_allclose_kernel',
                           lambda: kca.col_allclose.launches))
-    scmp['wrapper_ms'] = _time_ms(torch, stats[0], STEP_REPS)
-    stat_plain_ms = _time_ms(torch, stats[2], STEP_REPS)
-    sbound, sbound_by = kca.bound_ms(A_i, kout[0], n)
+    scmp['wrapper_ms'] = kit.time_ms(stats[0], STEP_REPS)
+    stat_plain_ms = kit.time_ms(stats[2], STEP_REPS)
+    sbound, sbound_by = kit.col_allclose_bound_ms(A_i, kout[0], n)
     del kout, kst, pst
     srow = {'max_abs_err': scmp['max_abs_err'], 'ms': stat_ms,
             'plain_ms': stat_plain_ms, 'bound_ms': sbound,
             'bound_by': sbound_by}
-    shapes = kcol.column_stats(A_i, A_v, n, K, chunk)
-    col_ms = _time_ms(torch, cols[0], STEP_REPS)
-    col_plain_ms = _time_ms(torch, cols[1], STEP_REPS)
-    bound, bound_by = kcol.bound_ms(A_i.shape[0], A_i.shape[1], K)
+    shapes = kit.column_stats(A_i, A_v, n, K, chunk)
+    col_ms = kit.time_ms(cols[0], STEP_REPS)
+    col_plain_ms = kit.time_ms(cols[1], STEP_REPS)
+    bound, bound_by = kit.sparse_column_bound_ms(A_i.shape[0], A_i.shape[1],
+                                                 K)
     row = {'max_abs_err': cmp['max_abs_err'], 'ms': col_ms,
            'plain_ms': col_plain_ms, 'bound_ms': bound, 'bound_by': bound_by}
     emit({'phase': 'sparse_step', 'B': B, 'n_plus_1': n + 1, 'K': K,
@@ -1241,7 +1219,7 @@ def _iteration_profile(torch, iteration):
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms = _time_ms(torch, iteration, STEP_REPS)
+    ms = kit.time_ms(iteration, STEP_REPS)
     peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1261,7 +1239,7 @@ def _labels_row(torch, tmcl, kmi, final, parts):
     batch: its labels equal to its plain version's, exactly, and the
     partitions built from them equal to ``parts`` (interpret_result's on
     the same matrices); both timed with CUDA events, the bound from the
-    bytes it must move (kernels/mcl_interpret.least_bytes)."""
+    bytes it must move (kernelkit.mcl_labels_least_bytes)."""
     got = kmi.mcl_labels(final)
     want = kmi.mcl_labels_plain(final)
     err = int((got - want).abs().max())
@@ -1273,11 +1251,10 @@ def _labels_row(torch, tmcl, kmi, final, parts):
     del got, want
     torch.cuda.empty_cache()
     return {'max_abs_err': err,
-            'ms': _time_ms(torch, lambda: kmi.mcl_labels(final), STEP_REPS),
-            'plain_ms': _time_ms(torch, lambda: kmi.mcl_labels_plain(final),
-                                 1),
-            'bound_ms': kmi.bound_ms(final), 'bound_by': 'bytes',
-            'bytes': kmi.least_bytes(final),
+            'ms': kit.time_ms(lambda: kmi.mcl_labels(final), STEP_REPS),
+            'plain_ms': kit.time_ms(lambda: kmi.mcl_labels_plain(final), 1),
+            'bound_ms': kit.mcl_labels_bound_ms(final), 'bound_by': 'bytes',
+            'bytes': kit.mcl_labels_least_bytes(final),
             'attractors': (torch.diagonal(final, dim1=-2, dim2=-1) != 0)
             .sum(dim=1).tolist()}
 
@@ -1293,8 +1270,8 @@ def phase_dense_step(torch, tmcl, kmc, kmi, dense_call):
     nonzero sets and argmax rows (columns with an entry within
     1e-5·pruning of pruning or a near tie excused, counted), the
     statistic within 1e-7 with the same decision; both timed. Then the
-    whole batch through _mcl_batched with the kernel and under
-    plain_columns: equal iteration counts and partitions (by
+    whole batch through _mcl_batched with the kernel and with the plain
+    version in its place: equal iteration counts and partitions (by
     interpret_result). On the kernel's final matrices, mcl_interpret
     (_labels_row). Returns the rows of mcl_column and mcl_interpret."""
     pre, infl, expansion, max_iter, pruning = _dense_batch(torch, tmcl,
@@ -1313,8 +1290,8 @@ def phase_dense_step(torch, tmcl, kmc, kmi, dense_call):
     e = tmcl._matpower(m, expansion)
     got, stat = kmc.mcl_column(e, infl, pruning, old=m)
     want, want_stat = kmc.mcl_column_plain(e, infl, pruning, old=m)
-    cmp = kmc.compare(got, want, kmc._inflate(e, infl.view(-1, 1, 1)),
-                      pruning)
+    cmp = kit.mcl_column_compare(got, want,
+                                 kmc._inflate(e, infl.view(-1, 1, 1)), pruning)
     del got, want
     stat_err = float((stat - want_stat).abs().max())
     check(cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0
@@ -1324,17 +1301,17 @@ def phase_dense_step(torch, tmcl, kmc, kmi, dense_call):
           "pipeline's iteration: {}, statistic {} vs {}".format(
               cmp, stat.tolist(), want_stat.tolist()))
     col_ms, col_plain_ms = (
-        _time_ms(torch, lambda fn=fn: fn(e, infl, pruning, old=m), STEP_REPS)
+        kit.time_ms(lambda fn=fn: fn(e, infl, pruning, old=m), STEP_REPS)
         for fn in (kmc.mcl_column, kmc.mcl_column_plain))
-    bound, bound_by = kmc.bound_ms(B, n, True)
+    bound, bound_by = kit.mcl_column_bound_ms(B, n, True)
     plan = kmc.plan(n)
     del e, m
     torch.cuda.empty_cache()
     # the whole batch both ways
     batch = {}
     for name in ('kernel', 'plain'):
-        with (kmc.plain_columns(tmcl) if name == 'plain'
-              else contextlib.nullcontext()):
+        with (mock.patch.object(tmcl, 'mcl_column', kmc.mcl_column_plain)
+              if name == 'plain' else contextlib.nullcontext()):
             torch.cuda.synchronize()
             t0 = time.time()
             mm, iters, _ = tmcl._mcl_batched(pre, infl, expansion, max_iter,
@@ -1358,7 +1335,7 @@ def phase_dense_step(torch, tmcl, kmc, kmi, dense_call):
     row = {'max_abs_err': cmp['max_abs_err'], 'ms': col_ms,
            'plain_ms': col_plain_ms, 'bound_ms': bound, 'bound_by': bound_by,
            'plan': plan._asdict(),
-           'tb_s': kmc.pass_bytes(B, n, True) / col_ms / 1e9}
+           'tb_s': kit.mcl_column_pass_bytes(B, n, True) / col_ms / 1e9}
     emit(dict(line, mcl_column=dict(row, **cmp, stat=stat.tolist(),
                                     stat_max_abs_err=stat_err),
               mcl_interpret=labels, batch=batch,
@@ -1926,19 +1903,6 @@ def _score_inputs(torch, G, P, k, R, seed, sort=True):
             for x in (order, ori, lengths, pa, pb, d, w)]
 
 
-def _time_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _profiled(fn, calls, name, launches):
     """{'device_ms': the mean device ms of ``fn``'s kernel by
     torch.profiler (None where it recorded none), 'profiled_kernels':
@@ -1946,15 +1910,13 @@ def _profiled(fn, calls, name, launches):
     the wrapper's launch counter (``launches()``) rose by one a call and
     that the profiler recorded no kernel but ``name``, at most one a
     call. The counter proves the launches: late in this process the
-    profiler records fewer kernels than were launched
-    (haphic_tpu_torch/kernels/profiling.py)."""
-    from haphic_tpu_torch.kernels import profiling as kprof
+    profiler records fewer kernels than were launched (kernelkit.py)."""
     n0 = launches()
-    events = kprof.kernel_events(fn, calls)
+    events = kit.kernel_events(fn, calls)
     check(launches() == n0 + calls + 1, '{}: {} calls (and a warm-up) '
           'counted {} launches'.format(name, calls, launches() - n0))
-    kprof.check_kernels(events, calls, name)
-    return {'device_ms': kprof.device_ms(events) if events else None,
+    kit.check_kernels(events, calls, name)
+    return {'device_ms': kit.device_ms(events) if events else None,
             'profiled_kernels': len(events)}
 
 
@@ -1984,14 +1946,15 @@ def phase_kernel(torch, kscore, main_args, launches):
         rel_err = float(((got - want).abs() / want.abs()).max())
         check(rel_err <= REL_TOL, 'score kernel disagrees at {} shape: '
               'max relative error {}'.format(label, rel_err))
-        ms = _time_ms(torch, lambda: kscore.score_population(*args), 20)
-        plain_ms = _time_ms(
-            torch, lambda: kscore.score_population_plain(*args), 3)
+        ms = kit.time_ms(lambda: kscore.score_population(*args), 20)
+        plain_ms = kit.time_ms(
+            lambda: kscore.score_population_plain(*args), 3)
         # each input read once (order, ori, lengths; pa, pb, d[4], w per
         # record), the scores written once
         nbytes = G * P * k * 8 + G * k * 8 + G * R * 28 + G * P * 4
         ops = 25 * G * P * R
-        t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / FP32_FLOPS * 1e3
+        t_bytes = nbytes / kit.HBM_BPS * 1e3
+        t_ops = ops / kit.FP32_FLOPS * 1e3
         row = {'shape': label, 'G': G, 'P': P, 'k': k, 'R': R,
                'max_abs_err': abs_err, 'max_rel_err': rel_err, 'ms': ms,
                'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops),
@@ -2073,13 +2036,12 @@ def phase_rescore(torch, krs, main_args, launches):
         row = {'shape': label,
                **_check_rescore(torch, krs, args, label + ' shape')}
         for mode, caches in (('scores', False), ('caches', True)):
-            ms = _time_ms(torch, lambda: krs.rescore(*args, caches=caches),
-                          20)
+            ms = kit.time_ms(lambda: krs.rescore(*args, caches=caches), 20)
             prof = _profiled(lambda: krs.rescore(*args, caches=caches), 10,
                              'rescore_kernel', lambda: krs.rescore.launches)
-            plain_ms = _time_ms(
-                torch, lambda: krs.rescore_plain(*args, caches=caches), 3)
-            bound, by = krs.bound_ms(G, P, k, R, caches)
+            plain_ms = kit.time_ms(
+                lambda: krs.rescore_plain(*args, caches=caches), 3)
+            bound, by = kit.rescore_bound_ms(G, P, k, R, caches)
             row[mode] = {'ms': ms, **prof, 'plain_ms': plain_ms,
                          'bound_ms': bound, 'bound_by': by}
         # the line's main figures: caches mode (the bytes the delta
@@ -2203,12 +2165,12 @@ def _delta_bound_ms(torch, kdelta, state, move, acc):
     touched_bytes = 28 * n_touched + fixed
     scan_bytes = (8 * G * P * R + 20 * n_touched + 28 * G * R
                   + 28 * n_written + 71 * G * P)
-    t_ops = 40 * n_changed / FP32_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = 40 * n_changed / kit.FP32_FLOPS * 1e3
+    t_bytes = nbytes / kit.HBM_BPS * 1e3
     return {'bound_ms': max(t_bytes, t_ops),
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-            'bound_touched_ms': touched_bytes / HBM_BPS * 1e3,
-            'bound_scan_ms': scan_bytes / HBM_BPS * 1e3,
+            'bound_touched_ms': touched_bytes / kit.HBM_BPS * 1e3,
+            'bound_scan_ms': scan_bytes / kit.HBM_BPS * 1e3,
             'touched_pairs': n_touched, 'changed_pairs': n_changed,
             'written_pairs': n_written}
 
@@ -2382,15 +2344,15 @@ def phase_delta(torch, kdelta, topt, trace_ga, big, launches):
 
         def timed_seq(fn, reps):
             st, it = _clone(state), iter(seq)
-            return _time_ms(torch, lambda: fn(st, next(it)), reps)
+            return kit.time_ms(lambda: fn(st, next(it)), reps)
         ms = timed_seq(lambda st, dr: _step_draws(
             kdelta, topt, rec, st, dr, _ga_moves(topt)), 20)
         plain_ms = timed_seq(lambda st, dr: _step(
             plain, topt, rec, st, topt._moves_from_draws(
                 *dr, k, *_ga_moves(topt))), 3)
         timed = _clone(state)
-        move_ms = _time_ms(torch, lambda: _step(kern, topt, rec, timed, move,
-                                                mask), 20)
+        move_ms = kit.time_ms(lambda: _step(kern, topt, rec, timed, move,
+                                            mask), 20)
         del timed
         first = _delta_bound_ms(torch, kdelta, state, move, mask)
         row = {'shape': label, 'G': G, 'P': P, 'k': k, 'R': R, **errs,
@@ -2418,8 +2380,8 @@ def _first_call(module, name, keep):
     module.name made inside the block to ``keep`` (the port calls these
     by their module's name); restored on leaving. The stand-in shares
     the function's attributes, so that the counters the function keeps
-    on itself (run_mcl_partitions.syncs, .card_interprets: it reaches
-    them by its module's name) count on through it."""
+    on itself (run_mcl_partitions.syncs: it reaches them by its
+    module's name) count on through it."""
     fn = getattr(module, name)
 
     def recording(*args, **kw):
@@ -2488,7 +2450,6 @@ def mesh_worker(kind, spec_path) -> int:
         from haphic_tpu_torch import cli
         log = MetricsLog()
         logging.getLogger('haphic_tpu_torch').addHandler(log)
-        from haphic_tpu_torch.cluster import mcl as tmcl
         names = GA_KERNELS + DENSE_KERNELS
         zero_launches(names)
         t0 = time.time()
@@ -2496,7 +2457,6 @@ def mesh_worker(kind, spec_path) -> int:
         torch.cuda.synchronize()
         rec.update(rc=rc, wall_s=time.time() - t0, metrics=log.metrics,
                    launches=read_launches(names),
-                   card_interprets=tmcl.run_mcl_partitions.card_interprets,
                    device=str(torch.cuda.current_device()),
                    max_memory_allocated=torch.cuda.max_memory_allocated())
     else:
@@ -2603,8 +2563,7 @@ def phase_mesh_pipeline(torch, out):
             launches[kname] += n
         check_ga_launches(rec['launches'], sum(m['ga_delta_gens']),
                           sum(m['ga_rescores']), 'rank {}'.format(r))
-        check_label_launches(rec['launches'], m, rec['card_interprets'],
-                             'rank {}'.format(r))
+        check_label_launches(rec['launches'], m, 'rank {}'.format(r))
         ranks.append({'rank': r, 'device': mesh['device'],
                       'backend': mesh['backend'],
                       'mcl_shard': m['mcl_shard'][-1],
@@ -2834,8 +2793,9 @@ def main() -> int:
     from haphic_tpu_torch.kernels import mcl_interpret as kmi
     from haphic_tpu_torch.kernels import rescore as krs
     from haphic_tpu_torch.kernels import score as kscore
-    from haphic_tpu_torch.kernels import trace_ga
     from haphic_tpu_torch.order import optimize as topt
+
+    import trace_ga
 
     phase_env(torch, kbuild)
     dense_call, ga_call, sparse_call = [], [], []
@@ -2910,7 +2870,7 @@ def main() -> int:
                             **{x: row[x] for x in ('plan', 'tb_s', 'scores',
                                                    'bytes', 'attractors')
                                if x in row}))
-    print(nvidia_smi(), flush=True)
+    print(kit.nvidia_smi(), flush=True)
     emit({'kernels': kernels})
     emit({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -27,16 +27,14 @@ JAX package's power-of-two bucketing (_bucket_pad) and COO padding have
 no counterpart here. A converged inflation freezes: it leaves the batch,
 so later iterations compute only the active ones.
 
-Reading the final matrices, ``run_mcl_partitions`` takes one of two
-routes, chosen by the device type. On the card, kernels/mcl_interpret.py
-(a hand-written CUDA kernel, in place of the JAX package's packed
-pattern, ``_pack_nz``) turns each batch's final matrices into (B, n)
-cluster labels, only those cross to the host, and
-``partition_from_labels`` builds each partition from its row with one
-stable sort: the same lists as ``interpret_result``. On the CPU the nonzero pattern
-goes to the host as a plain bool array and ``interpret_result`` reads
-it, as the numpy route below DEVICE_MIN_N does; ``run_mcl`` returns the
-whole matrices.
+Reading the final matrices, ``run_mcl_partitions`` turns each batch's
+final matrices into (B, n) cluster labels with kernels/mcl_interpret.py
+(in place of the JAX package's packed pattern, ``_pack_nz``: the
+hand-written CUDA kernel on the card, its plain torch version on the
+CPU); only the labels cross to the host, and ``partition_from_labels``
+builds each partition from its row with one stable sort: the same lists
+as ``interpret_result``, which the numpy route below DEVICE_MIN_N keeps.
+``run_mcl`` returns the whole matrices.
 
 Tracing (``haphic_tpu_torch.trace``, off by default): on the torch route
 ``run_mcl_partitions`` is the span ``mcl.sweep`` (host and device); in
@@ -44,15 +42,13 @@ it the device spans ``mcl.densify`` (the matrix to the card),
 ``mcl.pre_expand``, and per batch ``mcl.batch``: on the host the batch's
 whole turn (its iterations, its labels and its interpretation), on the
 device its iterations alone. In the batch, ``mcl.pattern`` (host and
-device: the labels, on the card, or the nonzero pattern, on the CPU, and
-n_iters and converged to the host) and ``mcl.interpret`` (host: the
-partitions from the labels or the pattern). ``mcl.expand`` (device) is
-every ``_matpower``, ``mcl.column`` (device) every ``mcl_column``. Two
-counters are always on. ``run_mcl_partitions.syncs`` counts the points
-where the host waits for the card's stream: each copy between host and
-card (a Python scalar written into a card tensor included) and each
-boolean-mask index of a tensor. ``run_mcl_partitions.card_interprets``
-counts the matrices whose partitions came from the card's labels.
+device: the labels, n_iters and converged to the host) and
+``mcl.interpret`` (host: the partitions from the labels). ``mcl.expand``
+(device) is every ``_matpower``, ``mcl.column`` (device) every
+``mcl_column``. One counter is always on: ``run_mcl_partitions.syncs``
+counts the points where the host waits for the card's stream: each copy
+between host and card (a Python scalar written into a card tensor
+included) and each boolean-mask index of a tensor.
 """
 
 from __future__ import annotations
@@ -289,8 +285,7 @@ def run_mcl_partitions(adjacency: Optional[np.ndarray],
                        coo=None, device=None):
     """Inflation sweep returning per-inflation cluster partitions
     (lists as interpret_result) plus (n_iters, converged). Only each
-    final matrix's labels go to the host from the card, its nonzero
-    pattern from the CPU (module docstring).
+    final matrix's labels go to the host (module docstring).
 
     ``coo``: optional (ci, cj, cw, m) upper-triangle links — the matrix
     is then densified on the device and ``adjacency`` may be None."""
@@ -328,22 +323,17 @@ def run_mcl_partitions(adjacency: Optional[np.ndarray],
         iters = np.empty((B,), dtype=np.int32)
         conv = np.empty((B,), dtype=bool)
         batches = []
-        card = dev.type == 'cuda'
         for s, e, mm, ii, cc in _sweep(a, inflations, expansion, max_iter,
                                        pruning):
             with trace.span('mcl.pattern', device=dev):
-                got = (mcl_labels(mm) if card else mm != 0).cpu().numpy()
+                labels = mcl_labels(mm).cpu().numpy()
                 del mm
                 iters[s:e] = ii.cpu().numpy()
                 conv[s:e] = cc.cpu().numpy()
                 run_mcl_partitions.syncs += 3
             batches.append(e - s)
             with trace.span('mcl.interpret'):
-                if card:
-                    parts.extend(partition_from_labels(x) for x in got)
-                    run_mcl_partitions.card_interprets += e - s
-                else:
-                    parts.extend(interpret_result(x) for x in got)
+                parts.extend(partition_from_labels(x) for x in labels)
         logger.info('MCL sweep on %s (n=%d, %d inflations in batches %s)',
                     dev, m, B, batches,
                     extra={'metrics': {'mcl_route': dev.type,
@@ -353,10 +343,8 @@ def run_mcl_partitions(adjacency: Optional[np.ndarray],
     return parts, iters, conv
 
 
-# host waits for the card's stream on the torch route, and matrices read
-# from the card's labels (module docstring)
+# host waits for the card's stream on the torch route (module docstring)
 run_mcl_partitions.syncs = 0
-run_mcl_partitions.card_interprets = 0
 
 
 def partition_from_labels(labels: np.ndarray) -> Optional[list]:

@@ -33,9 +33,10 @@ iteration, 2K in the convergence merge):
            columns' row ids
 
 The input ELL (``coo_to_ell``: the links' COO, mirrored, with self-loops,
-duplicates summed, columns normalized and capped at K) is built on the
-card by kernels.ell_build.ell_build, bit-equal to the host's numpy, which
-the CPU route keeps.
+duplicates summed, columns normalized and capped at K) is one call of
+kernels.ell_build.ell_build: the hand-written CUDA kernel on the card,
+its plain torch version on the CPU, both bit-equal to the JAX package's
+host numpy.
 
 Expand through prune are one call of kernels.sparse_column.sparse_column
 per column chunk, and the convergence statistic one call of
@@ -356,24 +357,21 @@ def coo_to_ell(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
     initial L1 normalization (scripts/HapHiC_cluster.py:310-373,2143).
 
     Returns (idx, val, overflow) where overflow is the number of input
-    columns wider than K (0 ⇒ the ELL layout is exact). On a CUDA
-    ``device`` the links go to the card and the ell_build kernel builds
-    the ELL there: idx and val are CUDA tensors, bit-equal to the host's
-    arrays. Otherwise (the default) numpy on the host builds numpy
-    arrays. ``coo_to_ell.wide_columns``: the columns that the last call's
-    kernel took through global memory (0 on the host). The span
-    ``sparse.ell`` (``haphic_tpu_torch.trace``) covers the call."""
+    columns wider than K (0 ⇒ the ELL layout is exact). The links go to
+    ``device`` (the CPU by default) and ell_build builds the ELL there:
+    idx and val are tensors on ``device``, bit-equal to the JAX package's
+    numpy arrays. ``coo_to_ell.wide_columns``: the last call's columns of
+    more than ell_build.SMEM_MAX entries (the kernel takes those through
+    global memory). The span ``sparse.ell`` (``haphic_tpu_torch.trace``)
+    covers the call."""
     dev = torch.device('cpu' if device is None else device)
     with trace.span('sparse.ell', device=dev, links=len(i), n=n, K=K):
-        if dev.type == 'cuda':
-            links = [torch.as_tensor(np.asarray(x, dtype=t), device=dev)
-                     for x, t in ((i, np.int64), (j, np.int64),
-                                  (w, np.float64))]
-            idx, val, overflow, coo_to_ell.wide_columns = ell_build(
-                *links, n, K)
-        else:
-            idx, val, overflow = _ell_on_host(i, j, w, n, K)
-            coo_to_ell.wide_columns = 0
+        links = [torch.as_tensor(np.ascontiguousarray(x, dtype=t),
+                                 device=dev)
+                 for x, t in ((i, np.int64), (j, np.int64),
+                              (w, np.float64))]
+        idx, val, overflow, coo_to_ell.wide_columns = ell_build(
+            *links, n, K)
     if overflow:
         logger.info('sparse MCL: %d/%d columns exceed K=%d entries; '
                     'keeping the K largest per column', overflow, n, K)
@@ -381,64 +379,6 @@ def coo_to_ell(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
 
 
 coo_to_ell.wide_columns = 0
-
-
-def _ell_on_host(i, j, w, n: int, K: int
-                 ) -> Tuple[np.ndarray, np.ndarray, int]:
-    """coo_to_ell in numpy, as the JAX package's computes it."""
-    i = np.asarray(i, dtype=np.int64)
-    j = np.asarray(j, dtype=np.int64)
-    w = np.asarray(w, dtype=np.float64)
-    off = (i != j)
-    rows = np.concatenate([i, j[off], np.arange(n)])
-    cols = np.concatenate([j, i[off], np.arange(n)])
-    vals = np.concatenate([w, w[off], np.ones(n)])
-    # collapse duplicates
-    key = cols * (n + 1) + rows
-    order = np.argsort(key, kind='stable')
-    key, rows, vals = key[order], rows[order], vals[order]
-    uk, start = np.unique(key, return_index=True)
-    seg = np.add.reduceat(vals, start) if len(vals) else vals[:0]
-    rows = rows[start]
-    cols = (uk // (n + 1)).astype(np.int64)
-
-    # column L1 normalization
-    colsum = np.zeros(n, dtype=np.float64)
-    np.add.at(colsum, cols, seg)
-    seg = seg / np.where(colsum[cols] > 0, colsum[cols], 1.0)
-
-    counts = np.zeros(n + 1, dtype=np.int64)
-    np.add.at(counts, cols, 1)
-    overflow = int((counts > K).sum())
-    col_start = np.zeros(n + 2, dtype=np.int64)
-    np.cumsum(counts, out=col_start[1:])
-
-    # per-column top-K (vectorized): rank entries by value within column
-    order2 = np.lexsort((-seg, cols))
-    c2, r2, v2 = cols[order2], rows[order2], seg[order2]
-    rank = np.arange(len(c2)) - col_start[c2]
-    keep = rank < K
-    c2, r2, v2 = c2[keep], r2[keep], v2[keep]
-    if overflow:
-        ksum = np.zeros(n, dtype=np.float64)
-        np.add.at(ksum, c2, v2)
-        ov = counts[c2] > K
-        v2 = np.where(ov, v2 / np.where(ksum[c2] > 0, ksum[c2], 1.0), v2)
-
-    # place in ascending row order per column
-    order3 = np.lexsort((r2, c2))
-    c3, r3, v3 = c2[order3], r2[order3], v2[order3]
-    kept_counts = np.zeros(n + 1, dtype=np.int64)
-    np.add.at(kept_counts, c3, 1)
-    kept_start = np.zeros(n + 2, dtype=np.int64)
-    np.cumsum(kept_counts, out=kept_start[1:])
-    slot = np.arange(len(c3)) - kept_start[c3]
-
-    idx = np.full((n + 1, K), n, dtype=np.int32)
-    val = np.zeros((n + 1, K), dtype=np.float32)
-    idx[c3, slot] = r3
-    val[c3, slot] = v3
-    return idx, val, overflow
 
 
 @dataclass
@@ -488,9 +428,14 @@ class SparseMCLResult:
 
 
 def _auto_chunk(B: int, K: int, n: int, budget_bytes: int = 2 << 30) -> int:
-    # candidate idx+val per column; the port's sorts add int64 indices,
-    # so a candidate costs it 2-3x this (PERF.md): chunking does not
-    # change results, and the budget changes only on a card measurement
+    # the JAX package's budget: a column's K² candidates, idx+val, per
+    # inflation. On the CPU it bounds the plain version's candidate lists
+    # and their sorts. On the card the kernel keeps the candidates in
+    # shared memory and in a workspace of one hash slice a resident CTA
+    # (csrc/sparse_column.cu, sparse_column_workspace), whatever the
+    # chunk; there the chunk sets the launches and order checks a step.
+    # Chunking does not change results, and the budget changes only on a
+    # card measurement
     per_col = B * K * K * 8
     c = max(1, budget_bytes // max(per_col, 1))
     # never pad columns beyond the next power of two over the real count
@@ -520,7 +465,8 @@ def run_mcl_sparse(i: np.ndarray, j: np.ndarray, w: np.ndarray, n: int,
         K = max(1, n)
     infl = np.asarray(inflations, dtype=np.float32)
     B = len(infl)
-    # on the card, idx0/val0 are CUDA tensors, taken below without a copy
+    # idx0/val0 are tensors on dev, taken below by torch.as_tensor
+    # without a copy
     idx0, val0, overflow_cols = coo_to_ell(i, j, w, n, K, device=dev)
 
     # Small independent inflation batches beat one lockstep batch:

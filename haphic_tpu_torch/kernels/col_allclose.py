@@ -32,18 +32,17 @@ calls it once, on all of the step's columns: one launch a step.
 
 What bounds it: the bytes of the real entries of both columns, the
 first sentinel of each column that has one and the f32 written, at most
-(Ko + Kn)·8 + 4 bytes a column (``bound_ms`` counts them on the step's
-own ids). The kernel gives each column pair a group of 8, 16 or 32
-lanes, stages the pair in shared memory and merges the two columns
+(Ko + Kn)·8 + 4 bytes a column (tools/kernelkit.py counts them on the
+step's own ids). The kernel gives each column pair a group of 8, 16 or
+32 lanes, stages the pair in shared memory and merges the two columns
 there (see the .cu).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -53,9 +52,6 @@ from haphic_tpu_torch.kernels.sparse_column import (
 
 RTOL = 1e-5               # numpy.allclose's, as the kernel has it
 CPU_CHUNK = 2048          # columns a plain-version call on CPU tensors
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP64 (non-tensor)
-HBM_BPS = 3.35e12
-FP64_FLOPS = 34e12
 
 
 # ---------------------------------------------------------------------------
@@ -190,8 +186,12 @@ def col_allclose(old_i, old_v, new_i, new_v, n: int,
         _check_order('new_i', new_i, n)
         # in column chunks, to bound the sort's memory: the statistic is
         # per column
-        return step_stats(col_allclose_plain, old_i, old_v, new_i, new_v, n,
-                          CPU_CHUNK)
+        C = old_i.shape[1]
+        if C <= CPU_CHUNK:
+            return col_allclose_plain(old_i, old_v, new_i, new_v, n)
+        return torch.cat([col_allclose_plain(
+            *(t[:, s:s + CPU_CHUNK] for t in (old_i, old_v, new_i, new_v)),
+            n) for s in range(0, C, CPU_CHUNK)], dim=1)
     flag = bad if bad is not None else torch.zeros(
         1, dtype=torch.int32, device=old_i.device)
     out = _launch(old_i, old_v, new_i, new_v, n, flag)
@@ -201,73 +201,3 @@ def col_allclose(old_i, old_v, new_i, new_v, n: int,
 
 
 col_allclose.launches = 0
-
-
-def _plain_unchecked(old_i, old_v, new_i, new_v, n: int, bad=None):
-    """The plain version with the wrapper's arguments, on any device."""
-    return col_allclose_plain(old_i, old_v, new_i, new_v, n)
-
-
-@contextlib.contextmanager
-def plain_stat(module):
-    """Inside the block, ``module`` (cluster/sparse_mcl.py) calls the
-    plain version in place of the kernel's wrapper: for comparing and
-    timing the two on the card."""
-    module.col_allclose = _plain_unchecked
-    try:
-        yield
-    finally:
-        module.col_allclose = col_allclose
-
-
-# ---------------------------------------------------------------------------
-# comparing two statistics, a step's statistic, and the bound
-# ---------------------------------------------------------------------------
-
-
-def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """Two (B, C) statistics of the same columns: the columns that are
-    −inf on one side only (``inf_differ``), and over the others the
-    largest absolute difference (a NaN on both sides agrees, on one side
-    only is infinitely far)."""
-    ninf = (got == -torch.inf) != (want == -torch.inf)
-    both = (got == -torch.inf) & (want == -torch.inf)
-    diff = (got.double() - want.double()).abs().masked_fill(
-        both | (got.isnan() & want.isnan()), 0.0)
-    diff = diff.masked_fill(got.isnan() != want.isnan(), torch.inf)
-    diff = diff.masked_fill(ninf, 0.0)
-    return {'max_abs_err': float(diff.max()) if diff.numel() else 0.0,
-            'inf_differ': int(ninf.sum())}
-
-
-def step_stats(fn, old_i, old_v, new_i, new_v, n: int,
-               chunk: Optional[int] = None, **kw) -> torch.Tensor:
-    """``fn`` (``col_allclose``, its kernel's ``_launch`` alone, or
-    ``col_allclose_plain``) over every column pair, with the keyword
-    arguments ``kw``: in one call, as a sweep step
-    (sparse_mcl._sweep_cols) calls it, or in chunks of ``chunk`` columns;
-    returns the (B, N) statistic."""
-    if chunk is None or chunk >= old_i.shape[1]:
-        return fn(old_i, old_v, new_i, new_v, n, **kw)
-    return torch.cat([
-        fn(old_i[:, s:s + chunk], old_v[:, s:s + chunk],
-           new_i[:, s:s + chunk], new_v[:, s:s + chunk], n, **kw)
-        for s in range(0, old_i.shape[1], chunk)], dim=1)
-
-
-def bound_ms(old_i: torch.Tensor, new_i: torch.Tensor, n: int
-             ) -> Tuple[float, str]:
-    """The least time on an H100 of the statistic of these column pairs
-    (ids (B, C, Ko) and (B, C, Kn) in ELL order): the larger of its bytes
-    (each real entry of either column, id and value, 8 bytes; the first
-    sentinel id of each column that has one, 4 bytes; one f32 written a
-    pair) at 3.35 TB/s and its operations (a subtraction, an absolute
-    value, a multiply and a subtraction in f64 on each real entry) at 34
-    TFLOP/s FP64."""
-    real = int((old_i < n).sum()) + int((new_i < n).sum())
-    ends = int((old_i[..., -1] >= n).sum()) + int((new_i[..., -1] >= n).sum())
-    t_bytes = (8 * real + 4 * ends + 4 * old_i.shape[0] * old_i.shape[1]) \
-        / HBM_BPS * 1e3
-    t_ops = 4 * real / FP64_FLOPS * 1e3
-    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else \
-        'operations'

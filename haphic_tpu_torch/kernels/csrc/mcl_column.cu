@@ -366,16 +366,6 @@ static cudaError_t set_attributes(int C, int bytes) {
 }
 
 template <int W>
-static int active_clusters(int C, int bytes, int* count) {
-  cudaError_t err = set_attributes<W>(C, bytes);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = config(C, bytes, C, 0, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(count, mcl_column_kernel<W>,
-                                             &cfg);
-}
-
-template <int W>
 static int launch_w(const Args& a, int bytes, int64_t ctas,
                     cudaStream_t stream) {
   cudaError_t err = set_attributes<W>(a.C, bytes);
@@ -407,19 +397,6 @@ static bool valid_plan(int n, int W, int C, int rows, int bytes) {
                              dev) != cudaSuccess)
     return false;
   return bytes <= optin;
-}
-
-// Clusters of plan (W, C, bytes) the card holds at once (*count), for
-// reports; returns the CUDA error code.
-extern "C" int mcl_column_active_clusters(int W, int C, int bytes,
-                                          int* count) {
-  *count = 0;
-  switch (W) {
-    case 8: return active_clusters<8>(C, bytes, count);
-    case 16: return active_clusters<16>(C, bytes, count);
-    case 32: return active_clusters<32>(C, bytes, count);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the column pass of ``B`` (n, n) matrices on ``stream`` with the

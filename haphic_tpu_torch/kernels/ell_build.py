@@ -2,8 +2,8 @@
 kernel's wrapper and its plain torch version.
 
 Counterpart of ``coo_to_ell`` in haphic_tpu/cluster/sparse_mcl.py (:411),
-host numpy in the JAX package too, which the port's
-``cluster.sparse_mcl.coo_to_ell`` keeps for the CPU. Shapes:
+host numpy in the JAX package; the port's ``cluster.sparse_mcl.coo_to_ell``
+is one call of ``ell_build`` on either device. Shapes:
 
     i, j   int64 (E,)   the links' rows and columns, ids in [0, n)
     w      f64 (E,)     their weights
@@ -27,9 +27,9 @@ On the card the wrapper reads six numbers from the card between its two
 calls (the entries' total, the wide columns' scratch) and the overflow
 count after them.
 
-What bounds it: bytes. The links read once and the ELL written once,
-``least_bytes``, at 3.35 TB/s (``bound_ms``); their upload from the host
-comes before, at the host link's rate (``upload_ms``), apart.
+What bounds it: bytes. The links read once and the ELL written once at
+3.35 TB/s; their upload from the host comes before, at the host link's
+rate, apart (both in tools/kernelkit.py).
 """
 
 from __future__ import annotations
@@ -45,8 +45,6 @@ from haphic_tpu_torch.kernels import build as kbuild
 SMEM_MAX = 4096            # widest column in shared memory (the .cu's)
 PW_BLOCK = 128             # numpy's pairwise block
 INFO = 6                   # numbers ell_build_count writes for the host
-HBM_BPS = 3.35e12          # H100 SXM HBM bytes/s (data sheet)
-HOST_BPS = 64e9            # PCIe 5.0 x16, one way (H100 SXM data sheet)
 
 
 def _check(i, j, w, n: int, K: int):
@@ -268,23 +266,3 @@ def ell_build(i: torch.Tensor, j: torch.Tensor, w: torch.Tensor, n: int,
 
 
 ell_build.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# the bound
-# ---------------------------------------------------------------------------
-
-
-def least_bytes(E: int, n: int, K: int) -> int:
-    """The links read once (24 bytes a link) and the ELL written once (8
-    bytes a slot)."""
-    return 24 * E + 8 * (n + 1) * K
-
-
-def bound_ms(E: int, n: int, K: int) -> float:
-    return least_bytes(E, n, K) / HBM_BPS * 1e3
-
-
-def upload_ms(E: int) -> float:
-    """The links' 24 bytes each over the host's link, one way."""
-    return 24 * E / HOST_BPS * 1e3

@@ -21,11 +21,12 @@ gets a row of -1. ``cluster.mcl.partition_from_labels`` turns a row into
 ``mcl_labels`` launches the CUDA kernel (csrc/mcl_interpret.cu) on CUDA
 tensors and runs ``mcl_labels_plain``, the same criterion in torch ops
 over (B, n, n) temporaries, on CPU tensors; nothing else picks the plain
-version, and on the CPU the sweep keeps ``interpret_result``.
+version. The dense sweep (cluster/mcl.py ``run_mcl_partitions``) reads
+every batch's partitions through it on either device.
 
-What bounds it: bytes. The check must read each attractor's row once, so
-``bound_ms`` counts A · n · 4 bytes a matrix for its A attractors, plus
-the diagonal read and the labels written, at 3.35 TB/s.
+What bounds it: bytes. The check must read each attractor's row once:
+A · n · 4 bytes a matrix for its A attractors, plus the diagonal read
+and the labels written, at 3.35 TB/s (tools/kernelkit.py).
 
 chip_smoke.py times the kernel and its plain version on the final
 matrices of the dense pipeline's first batch and holds one to the other.
@@ -39,8 +40,6 @@ import functools
 import torch
 
 from haphic_tpu_torch.kernels import build as kbuild
-
-HBM_BPS = 3.35e12                  # H100 SXM HBM bytes/s (data sheet)
 
 
 # ---------------------------------------------------------------------------
@@ -116,21 +115,3 @@ def mcl_labels(m: torch.Tensor) -> torch.Tensor:
 
 
 mcl_labels.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# the bound
-# ---------------------------------------------------------------------------
-
-
-def least_bytes(m: torch.Tensor) -> int:
-    """The bytes the labels of ``m`` need: each attractor's row read once
-    (the check cannot do with less), the diagonal read and the labels
-    written."""
-    B, n = m.shape[0], m.shape[2]
-    A = int((torch.diagonal(m, dim1=-2, dim2=-1) != 0).sum())
-    return 4 * (A * n + 2 * B * n)
-
-
-def bound_ms(m: torch.Tensor) -> float:
-    return least_bytes(m) / HBM_BPS * 1e3

@@ -33,9 +33,9 @@ and the rows' f64 partials) is kept per device (``_WORK``): two calls
 must not run at once on two streams of one device. The GA makes its
 calls on one stream, and a mesh has one process a rank.
 
-What bounds it (``bound_ms``): in scores mode the operations, about
-OPS_PER_PAIR FP32 operations per (tour, record) pair; in caches mode
-the bytes, 28 written per pair.
+What bounds it (tools/kernelkit.py): in scores mode the operations,
+about 19 FP32 operations per (tour, record) pair; in caches mode the
+bytes, 28 written per pair.
 """
 
 from __future__ import annotations
@@ -47,15 +47,6 @@ import torch
 
 from haphic_tpu_torch.kernels import build as kbuild
 from haphic_tpu_torch.kernels.delta import contrib_from_cache
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 (non-tensor)
-HBM_BPS = 3.35e12
-FP32_FLOPS = 67e12
-# per (tour, record) pair: unpack two table entries (4), compare the
-# slots (1), the gap (3), its conversion (1), the combination (3) and
-# its distance's selection (3), the add, the clamp, the division and
-# the sum (4)
-OPS_PER_PAIR = 19
 
 
 def inverse(order: torch.Tensor) -> torch.Tensor:
@@ -240,18 +231,3 @@ def rescore(order, ori, lengths, pa, pb, la, lb, d, w, caches: bool):
 
 
 rescore.launches = 0
-
-
-def bound_ms(G: int, P: int, k: int, R: int, caches: bool):
-    """(ms, 'bytes' or 'operations'): the least time on an H100 of one
-    rescoring. Bytes: order and ori (8 B a slot) and lengths (8 B a
-    contig) read, each record's pa, pb, la, lb, d[4], w (36 B) read, the
-    scores written; in caches mode also L_slot and startsx (8 B a slot)
-    and the six caches and the contribution (28 B a pair) written.
-    Operations: OPS_PER_PAIR FP32 operations a (tour, record) pair."""
-    nbytes = 8 * G * P * k + 8 * G * k + 36 * G * R + 4 * G * P
-    if caches:
-        nbytes += 4 * G * P * (2 * k + 1) + 28 * G * P * R
-    t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = OPS_PER_PAIR * G * P * R / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'

@@ -6,7 +6,7 @@ import numpy as np
 
 from haphic_tpu_torch.kernels.ell_build import SMEM_MAX
 
-CASES = ('exact', 'capped', 'duplicates', 'zero_and_empty', 'star')
+CASES = ('exact', 'capped', 'duplicates', 'zero_and_empty', 'star', 'large')
 KS = (8, 16, 128, 256)
 
 
@@ -26,7 +26,15 @@ def links(case: str, K: int, seed: int = 0):
                     whose kept sum is below 0 too), and columns with no
                     link (a self-loop alone);
     star            a hub linked to every other column: its column is
-                    wider than the kernel's shared memory holds.
+                    wider than the kernel's shared memory holds;
+    large           about 300,000 links over 40,000 columns: a random
+                    background of weights over 16 decades, 40 hub columns
+                    of 1,500 links each (past every K; half of them of
+                    weights 1 or 2, so that the top K breaks ties), and
+                    runs of 129 to 600 links between one pair, in both
+                    orientations, of weights over 16 decades: numpy's
+                    pairwise sums and tie rules at long runs and wide
+                    columns, every column within shared memory.
     """
     rng = np.random.default_rng([seed, K, CASES.index(case)])
     if case == 'exact':
@@ -79,6 +87,27 @@ def links(case: str, K: int, seed: int = 0):
         i = np.zeros(n - 1, np.int64)
         j = np.arange(1, n)
         w = rng.integers(1, 4, n - 1).astype(np.float64)
+    elif case == 'large':
+        n, E, hubs, per = 40_000, 240_000, 40, 1_500
+        i, j = rng.integers(0, n, E), rng.integers(0, n, E)
+        w = rng.random(E) * 10.0 ** rng.uniform(-8, 8, E)
+        hub = rng.choice(n, hubs, replace=False)
+        hi = np.repeat(hub, per)
+        hj = rng.integers(0, n, hubs * per)
+        hw = np.where(np.repeat(np.arange(hubs) % 2, per) == 0,
+                      rng.integers(1, 3, hubs * per).astype(np.float64),
+                      rng.random(hubs * per) * 10.0 ** rng.uniform(
+                          -8, 8, hubs * per))
+        parts_i, parts_j, parts_w = [i, hi], [j, hj], [w, hw]
+        for run in (129, 130, 200, 257, 300, 600):
+            a, b = rng.choice(n, 2, replace=False)
+            flip = rng.random(run) < 0.5
+            parts_i.append(np.where(flip, b, a))
+            parts_j.append(np.where(flip, a, b))
+            parts_w.append(rng.random(run) * 10.0 ** rng.uniform(-8, 8, run))
+        order = rng.permutation(sum(p.size for p in parts_i))
+        i, j, w = (np.concatenate(p)[order]
+                   for p in (parts_i, parts_j, parts_w))
     else:
         raise ValueError(case)
     return (np.asarray(i, np.int64), np.asarray(j, np.int64),

@@ -24,6 +24,7 @@ from haphic_tpu.cluster import sparse_mcl as jsp
 from haphic_tpu_torch.cluster import sparse_mcl as tsp
 from haphic_tpu_torch.kernels import col_allclose as kca
 
+from .kit import kernelkit as kit
 from .test_torch_kernels import STAT_KINDS, STAT_WIDTHS, _stat_case
 from .test_torch_sparse_mcl import INFLATIONS, RTOL, ATOL, _ell
 
@@ -148,21 +149,21 @@ def test_broken_columns_have_room_to_break():
     assert (oi[0, 3] == N_ROWS).any() and (ni[0, 3] == N_ROWS).any()
 
 
-def test_sweep_cols_takes_its_statistic_from_the_wrapper():
+def test_sweep_cols_takes_its_statistic_from_the_wrapper(monkeypatch):
     """_col_allclose_stat stays the plain version under its JAX name, and
     _sweep_cols's per-inflation statistic is the max of col_allclose over
-    each chunk's old and new columns, bit for bit, inside plain_stat
-    too."""
+    each chunk's old and new columns, bit for bit, with the kit's plain
+    stand-in in the wrapper's place too."""
     assert tsp._col_allclose_stat is kca.col_allclose_plain
     n, K, chunk = 96, 32, 40
     idx0, val0 = (torch.as_tensor(x) for x in _ell(n, K, 3))
     infl = torch.as_tensor(np.asarray(INFLATIONS[:3], np.float32))
     si, sv = tsp._first_iteration(idx0, val0, infl, n, K, 1e-4)
     ni, nv, stat = tsp._sweep_cols(si, sv, infl, n, K, chunk, 1e-4, 2)
-    want = kca.step_stats(kca.col_allclose, si, sv, ni, nv, n, chunk)
+    want = kit.step_stats(kca.col_allclose, si, sv, ni, nv, n, chunk)
     assert torch.equal(stat, want.amax(dim=1))
-    with kca.plain_stat(tsp):
-        assert tsp.col_allclose is kca._plain_unchecked
+    with monkeypatch.context() as m:
+        m.setattr(tsp, 'col_allclose', kit.col_allclose_plain_stat)
         again = tsp._sweep_cols(si, sv, infl, n, K, chunk, 1e-4, 2)
     assert tsp.col_allclose is kca.col_allclose
     assert all(torch.equal(a, b) for a, b in zip((ni, nv, stat), again))
@@ -192,7 +193,7 @@ def test_sweep_cols_launches_the_statistic_once_whatever_the_chunk(
     monkeypatch.setattr(tsp, 'col_allclose', counting)
     ni, nv, stat = tsp._sweep_cols(si, sv, infl, n, K, chunk, 1e-4, 2)
     assert calls == [n + 1]
-    chunked = kca.step_stats(kca.col_allclose, si, sv, ni, nv, n, chunk)
+    chunked = kit.step_stats(kca.col_allclose, si, sv, ni, nv, n, chunk)
     assert torch.equal(stat, chunked.amax(dim=1))
     calls.clear()
     bi, bv, bstat = tsp._sweep_cols(si, sv, infl, n, K, chunk, 1e-4, 2,
@@ -228,9 +229,10 @@ def test_cpu_wrapper_takes_the_plain_version_in_column_chunks():
 def test_compare_counts_inf_columns_and_the_largest_difference():
     got = torch.tensor([[0.5, -torch.inf, -torch.inf, 1.0, float('nan')]])
     want = torch.tensor([[0.25, -torch.inf, 2.0, 1.0, float('nan')]])
-    assert kca.compare(got, want) == {'max_abs_err': 0.25, 'inf_differ': 1}
+    assert kit.col_allclose_compare(got, want) == {'max_abs_err': 0.25,
+                                                   'inf_differ': 1}
     got[0, 3] = float('nan')
-    assert kca.compare(got, want)['max_abs_err'] == float('inf')
+    assert kit.col_allclose_compare(got, want)['max_abs_err'] == float('inf')
 
 
 @pytest.mark.parametrize('layout', ['full', 'partial'])
@@ -249,7 +251,7 @@ def test_bound_counts_the_real_entries(layout):
         ni[0, 1, 5:] = n                   # 5 real
         real = B * C * (Ko + Kn) - 3 - Ko - 1
         nbytes = 8 * real + 4 * 3 + 4 * B * C
-    ms, by = kca.bound_ms(oi, ni, n)
+    ms, by = kit.col_allclose_bound_ms(oi, ni, n)
     assert by == 'bytes'
     assert abs(ms - nbytes / 3.35e12 * 1e3) < 1e-15
 
@@ -258,7 +260,7 @@ def test_bound_at_full_smoke_columns():
     """At the smoke's step with every column full (B = 4, N = 24,001,
     K = 128), the largest the bound can be: 0.0588 ms."""
     ids = torch.arange(128, dtype=torch.int32).expand(4, 24001, 128)
-    ms, by = kca.bound_ms(ids, ids, 24000)
+    ms, by = kit.col_allclose_bound_ms(ids, ids, 24000)
     assert by == 'bytes' and 0.0588 <= ms < 0.0589
 
 

@@ -1,8 +1,9 @@
 """The sparse engine's ELL build (haphic_tpu_torch.kernels.ell_build) on
 the CPU: the wrapper's plain version, the kernel's stages in torch ops,
 bit-equal to the JAX package's ``coo_to_ell`` (host numpy) on the seeded
-cases of tests/ell_cases.py, and the run sums pinned to numpy's order.
-The kernel itself is held to the host's numpy on the card in
+cases of tests/ell_cases.py, and the run sums pinned to numpy's order;
+``cluster.sparse_mcl.coo_to_ell`` on the CPU is that plain version. The
+kernel itself is held to the plain version on the card in
 tests/test_torch_kernels.py."""
 
 import numpy as np
@@ -63,14 +64,23 @@ def test_run_sums_follow_numpy_reduceat(length):
 
 
 def test_coo_to_ell_takes_the_host_route_on_the_cpu():
-    """coo_to_ell on the CPU returns the host's numpy arrays, and a
-    run_mcl_sparse call on the CPU launches no kernel."""
-    i, j, w, n = ell_cases.links('duplicates', 8)
-    got = tsp.coo_to_ell(i, j, w, n, 8, device='cpu')
-    want = jsp.coo_to_ell(i, j, w, n, 8)
-    assert isinstance(got[0], np.ndarray) and tsp.coo_to_ell.wide_columns == 0
-    assert all(np.array_equal(a, b) for a, b in zip(got[:2], want[:2]))
+    """coo_to_ell on the CPU returns CPU tensors bit-equal to the JAX
+    package's numpy arrays on every case (ell_build's plain version, no
+    launch; its wide columns counted as the kernel would take them), and
+    a run_mcl_sparse call on the CPU launches no kernel."""
     n0 = keb.ell_build.launches
+    for case in ell_cases.CASES:
+        i, j, w, n = ell_cases.links(case, 8)
+        got = tsp.coo_to_ell(i, j, w, n, 8, device='cpu')
+        want = jsp.coo_to_ell(i, j, w, n, 8)
+        assert all(isinstance(x, torch.Tensor) and x.device.type == 'cpu'
+                   for x in got[:2])
+        assert np.array_equal(got[0].numpy(), want[0])
+        assert np.array_equal(got[1].numpy().view(np.int32),
+                              want[1].view(np.int32))
+        assert got[2] == want[2]
+        assert tsp.coo_to_ell.wide_columns == (1 if case == 'star' else 0)
+    i, j, w, n = ell_cases.links('duplicates', 8)
     tsp.run_mcl_sparse(i, j, w, n, [2.0], K=8, max_iter=4, device='cpu')
     assert keb.ell_build.launches == n0
 

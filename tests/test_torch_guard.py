@@ -20,10 +20,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_sources():
+    """The port's modules, chip_smoke.py and the tools beside them
+    (tools/: the kernels' measurement kit, the trace and A/B tools)."""
     out = [os.path.join(REPO, 'chip_smoke.py')]
-    for root, _, files in os.walk(os.path.join(REPO, 'haphic_tpu_torch')):
-        out += [os.path.join(root, f) for f in sorted(files)
-                if f.endswith('.py')]
+    for top in ('haphic_tpu_torch', 'tools'):
+        for root, _, files in os.walk(os.path.join(REPO, top)):
+            out += [os.path.join(root, f) for f in sorted(files)
+                    if f.endswith('.py')]
     return sorted(out)
 
 
@@ -37,6 +40,7 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax_and_no_jax_package():
     sources = _port_sources()
     assert len(sources) > 20
+    assert os.path.join(REPO, 'tools', 'kernelkit.py') in sources
     bad = []
     for path in sources:
         with open(path) as f:

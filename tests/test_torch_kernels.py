@@ -23,6 +23,7 @@ from haphic_tpu_torch.kernels import delta as kdelta
 from haphic_tpu_torch.kernels import score as kscore
 from haphic_tpu_torch.order import optimize as topt
 
+from .kit import kernelkit as kit
 from . import ell_cases
 
 
@@ -574,7 +575,7 @@ def test_sparse_column_kernel_matches_plain(card, B, n, K, expansion,
     assert kcol.sparse_column.launches == n0 + (expansion - 1)
     _check_iterate(*got, n, K)
     assert bool((got[0][:, n] == n).all())
-    cmp = kcol.compare(*got, *want, n)
+    cmp = kit.sparse_column_compare(*got, *want, n)
     assert cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0, cmp
 
 
@@ -602,7 +603,7 @@ def test_sparse_column_kernel_tie_rule(card, expand):
     # the cap cut every real column
     assert bool((got[0][:, :n] < n).all())
     assert torch.equal(got[0], want[0])
-    cmp = kcol.compare(*got, *want, n)
+    cmp = kit.sparse_column_compare(*got, *want, n)
     assert cmp['outside_tol'] == 0 and cmp['kept_differ'] == 0, cmp
 
 
@@ -719,10 +720,12 @@ def test_sparse_column_cpu_tensors_take_the_plain_version():
 @pytest.mark.parametrize('K', ell_cases.KS)
 @pytest.mark.parametrize('case', ell_cases.CASES)
 def test_ell_build_kernel_bit_equal_to_numpy(card, case, K):
-    """coo_to_ell on the card (the ell_build kernel) against the host's
-    numpy on the same links: idx, val (to the bit), overflow and dtypes;
-    the star's hub the one column through global memory; a second call
-    (its buckets filled in another order) the same."""
+    """coo_to_ell on the card (the ell_build kernel) against coo_to_ell on
+    the CPU (its plain version, held bit-equal to the JAX package's numpy
+    in tests/test_torch_ell_build.py) on the same links: idx, val (to the
+    bit), overflow and dtypes; the star's hub the one column through
+    global memory; a second call (its buckets filled in another order)
+    the same."""
     from haphic_tpu_torch.cluster import sparse_mcl as tsp
     from haphic_tpu_torch.kernels import ell_build as keb
     i, j, w, n = ell_cases.links(case, K)
@@ -736,9 +739,9 @@ def test_ell_build_kernel_bit_equal_to_numpy(card, case, K):
     for idx, val, overflow in (got, again):
         assert idx.device.type == 'cuda' and val.device.type == 'cuda'
         assert idx.dtype == torch.int32 and val.dtype == torch.float32
-        assert np.array_equal(idx.cpu().numpy(), want[0])
-        assert np.array_equal(val.cpu().numpy().view(np.int32),
-                              want[1].view(np.int32))
+        assert torch.equal(idx.cpu(), want[0])
+        assert torch.equal(val.cpu().view(torch.int32),
+                           want[1].view(torch.int32))
         assert overflow == want[2]
 
 
@@ -767,8 +770,8 @@ def test_ell_build_kernel_edges_and_bad_input(card):
         want = tsp.coo_to_ell(none, none, none.astype(float), n, K)
         got = tsp.coo_to_ell(none, none, none.astype(float), n, K,
                              device=card)
-        assert np.array_equal(got[0].cpu().numpy(), want[0])
-        assert np.array_equal(got[1].cpu().numpy(), want[1])
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
     i, j, w, n = (torch.as_tensor(x, device=card) if not isinstance(x, int)
                   else x for x in ell_cases.links('exact', 8))
     for bad_j in (torch.where(j == j.max(), n, j), -j):
@@ -806,7 +809,7 @@ def _kernel_vs_plain(card, A_i, A_v, ci, cv, infl, n, K, pruning, expand):
         assert torch.equal(got[t], again[t])
         assert torch.equal(got[t], torch.cat([lo[t], hi[t]], dim=1))
     _check_iterate(*got, n, K)
-    cmp = kcol.compare(*got, *want, n)
+    cmp = kit.sparse_column_compare(*got, *want, n)
     assert cmp['max_abs_err'] <= 1e-6 and cmp['outside_tol'] == 0 and \
         cmp['kept_differ'] == 0, cmp
     return got, want
@@ -907,7 +910,7 @@ def test_sparse_column_kernel_shrunk_K(card, K):
     run's (rows of chromosomes of 1000 fragments)."""
     from haphic_tpu_torch.kernels import sparse_column as kcol
     B, n = 4, 3000
-    idx, val = kcol.seeded_iterate(K, B, n, K)
+    idx, val = kit.sparse_column_iterate(K, B, n, K)
     A_i, A_v = torch.as_tensor(idx), torch.as_tensor(val)
     _kernel_vs_plain(card, A_i, A_v, A_i, A_v,
                      torch.linspace(1.2, 2.8, B), n, K, 1e-4, True)
@@ -988,7 +991,7 @@ def _dense_pair(card, e, old, infl, pruning, stride0=False):
     torch.cuda.synchronize()
     assert kmc.mcl_column.launches == n0 + 1
     q = kmc._inflate(te, ti.view(-1, 1, 1))
-    return got, want, kmc.compare(got[0], want[0], q, pruning)
+    return got, want, kit.mcl_column_compare(got[0], want[0], q, pruning)
 
 
 @pytest.mark.cuda
@@ -1060,7 +1063,7 @@ def test_mcl_column_kernel_batch_independent_and_repeatable(card):
 
 
 @pytest.mark.cuda
-def test_mcl_column_launched_every_dense_iteration(card):
+def test_mcl_column_launched_every_dense_iteration(card, monkeypatch):
     """_mcl_batched on the card launches the kernel once an iteration,
     and gives the iteration counts and partitions of its run under the
     plain version."""
@@ -1080,7 +1083,8 @@ def test_mcl_column_launched_every_dense_iteration(card):
     n0 = kmc.mcl_column.launches
     m, iters, conv = tmcl._mcl_batched(pre, infl, 2, 200, 1e-4)
     assert kmc.mcl_column.launches - n0 == int(iters.max())
-    with kmc.plain_columns(tmcl):
+    with monkeypatch.context() as mp:
+        mp.setattr(tmcl, 'mcl_column', kmc.mcl_column_plain)
         pm, piters, pconv = tmcl._mcl_batched(pre, infl, 2, 200, 1e-4)
     assert torch.equal(iters, piters) and torch.equal(conv, pconv)
     got = [tmcl.interpret_result((m[b] != 0).cpu().numpy()) for b in range(3)]
@@ -1132,10 +1136,11 @@ def _device_case(card, seed, B, n, with_old=True):
 
 
 def _compare_by_columns(e, infl, pruning, old, got, stat):
-    """kmc.compare and the statistic's error of a kernel result (got,
-    stat) against the plain version computed a block of columns at a
-    time (the pass is column by column; the statistic a max), so that a
-    matrix of 70,000 rows needs no more than a few of its size."""
+    """kit.mcl_column_compare and the statistic's error of a kernel
+    result (got, stat) against the plain version computed a block of
+    columns at a time (the pass is column by column; the statistic a
+    max), so that a matrix of 70,000 rows needs no more than a few of its
+    size."""
     from haphic_tpu_torch.kernels import mcl_column as kmc
     B, n = e.shape[0], e.shape[2]
     cb = max(1, (1 << 27) // (B * n))
@@ -1145,7 +1150,8 @@ def _compare_by_columns(e, infl, pruning, old, got, stat):
         sl = slice(c0, c0 + cb)
         q = kmc._inflate(e[:, :, sl], infl.view(-1, 1, 1))
         want = kmc._prune(q, pruning)
-        for k, v in kmc.compare(got[:, :, sl], want, q, pruning).items():
+        cmp = kit.mcl_column_compare(got[:, :, sl], want, q, pruning)
+        for k, v in cmp.items():
             agg[k] = max(agg.get(k, 0), v) if k == 'max_abs_err' \
                 else agg.get(k, 0) + v
         if old is not None:
@@ -1255,7 +1261,8 @@ def test_mcl_column_kernel_plan_past_the_rows(card, n, W, C):
     got, stat = kmc._launch(te, ti, 1e-4, to, kmc._plan(W, C, n))
     want, want_stat = kmc.mcl_column_plain(te, ti, 1e-4, old=to)
     torch.cuda.synchronize()
-    cmp = kmc.compare(got, want, kmc._inflate(te, ti.view(-1, 1, 1)), 1e-4)
+    cmp = kit.mcl_column_compare(got, want,
+                                 kmc._inflate(te, ti.view(-1, 1, 1)), 1e-4)
     _assert_agrees(cmp, _stat_err(stat, want_stat), 3, n)
 
 
@@ -1387,7 +1394,7 @@ def _stat_pair(card, args, n):
     torch.cuda.synchronize()
     assert kca.col_allclose.launches == n0 + 1
     assert got.dtype == torch.float32 and got.shape == args[0].shape[:2]
-    cmp = kca.compare(got, want)
+    cmp = kit.col_allclose_compare(got, want)
     assert cmp['inf_differ'] == 0 and cmp['max_abs_err'] <= 1e-9, cmp
     return got, want
 
@@ -1443,16 +1450,16 @@ def test_col_allclose_kernel_at_the_smoke_shape(card):
     from haphic_tpu_torch.kernels import col_allclose as kca
     from haphic_tpu_torch.kernels import sparse_column as kcol
     B, n, K = 4, 24000, 128
-    idx, val = kcol.seeded_iterate(3, B, n, K)
+    idx, val = kit.sparse_column_iterate(3, B, n, K)
     A_i, A_v = torch.as_tensor(idx, device=card), torch.as_tensor(
         val, device=card)
     infl = torch.linspace(1.2, 2.0, B, device=card)
-    new = kcol.step_columns(kcol.sparse_column, A_i, A_v, infl, n, K, 2048,
-                            1e-4)
+    new = kit.step_columns(kcol.sparse_column, A_i, A_v, infl, n, K, 2048,
+                           1e-4)
     got, want = _stat_pair(card, (A_i, A_v) + new, n)
     assert bool((got[:, n] == -torch.inf).all())
     assert bool(torch.isfinite(got[:, :n]).all())
-    chunked = kca.step_stats(kca.col_allclose, A_i, A_v, *new, n, 2048)
+    chunked = kit.step_stats(kca.col_allclose, A_i, A_v, *new, n, 2048)
     assert torch.equal(chunked, got)
     decide = [(x.amax(dim=1) <= 1e-8).tolist() for x in (got, want)]
     assert decide[0] == decide[1]
@@ -1746,15 +1753,14 @@ def test_profiling_check_kernels(names, ok):
     """check_kernels on recorded events of 3 calls: fewer than one a call
     passes (the launch counters prove the launches), more, or a kernel
     of another name, raises."""
-    from haphic_tpu_torch.kernels import profiling
     events = [(n, 10.0 * i, 10.0 * i + 4.0) for i, n in enumerate(names)]
     if ok:
-        profiling.check_kernels(events, 3, 'k<')
+        kit.check_kernels(events, 3, 'k<')
         if events:
-            assert profiling.device_ms(events) == pytest.approx(0.004)
+            assert kit.device_ms(events) == pytest.approx(0.004)
     else:
         with pytest.raises(RuntimeError):
-            profiling.check_kernels(events, 3, 'k<')
+            kit.check_kernels(events, 3, 'k<')
 
 
 @pytest.mark.cuda
@@ -1764,14 +1770,13 @@ def test_rescore_kernel_is_one_device_kernel_a_call(card, caches):
     card (torch profiler) in either mode, at the smoke batch's shape:
     the profiler records one kernel a call, the rescoring kernel, and
     the wrapper counts one launch a call."""
-    from haphic_tpu_torch.kernels import profiling
     from haphic_tpu_torch.kernels import rescore as krs
     args = _rescore_case(11, 7, 100, 1024, 196608, 1000)
     n0 = krs.rescore.launches
     for _ in range(3):
         krs.rescore(*args, caches=caches)
     assert krs.rescore.launches == n0 + 3
-    ms = profiling.one_kernel_a_call(
+    ms = kit.one_kernel_a_call(
         lambda: krs.rescore(*args, caches=caches), 3, 'rescore_kernel')
     assert ms > 0
 

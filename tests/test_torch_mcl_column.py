@@ -23,6 +23,8 @@ from haphic_tpu.cluster import mcl as jmcl
 from haphic_tpu_torch.cluster import mcl as tmcl
 from haphic_tpu_torch.kernels import mcl_column as kmc
 
+from .kit import kernelkit as kit
+
 torch.set_num_threads(1)
 
 PRUNING = 1e-4
@@ -332,14 +334,14 @@ def test_stat_parts_one_a_cta():
 
 
 def test_compare_counts_a_one_sided_nan():
-    """kmc.compare: a NaN on both sides agrees (a column sum whose
-    reciprocal overflows gives NaN in both versions), a NaN on one side
-    only is outside the tolerance."""
+    """kit.mcl_column_compare: a NaN on both sides agrees (a column sum
+    whose reciprocal overflows gives NaN in both versions), a NaN on one
+    side only is outside the tolerance."""
     want = torch.tensor([[[0.5, float('nan')], [0.5, 0.0]]])
     q = want.clone()
-    same = kmc.compare(want.clone(), want, q, PRUNING)
+    same = kit.mcl_column_compare(want.clone(), want, q, PRUNING)
     assert same['outside_tol'] == 0 and same['max_abs_err'] == 0.0
     got = want.clone()
     got[0, 0, 0] = float('nan')
-    one = kmc.compare(got, want, q, PRUNING)
+    one = kit.mcl_column_compare(got, want, q, PRUNING)
     assert one['outside_tol'] == 1 and one['max_abs_err'] == float('inf')

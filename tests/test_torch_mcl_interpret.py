@@ -232,24 +232,37 @@ def test_wrapper_rejects_a_strided_batch():
 @pytest.mark.parametrize('device_min_n', [None, 0],
                          ids=['host-numpy', 'torch-cpu'])
 def test_cpu_routes_keep_interpret_result(monkeypatch, device_min_n):
-    """Off the card the sweep reads the pattern with interpret_result
-    (the numpy route and the torch route on the CPU alike) and counts no
-    card interpretation."""
-    calls = []
-    real = mcl.interpret_result
+    """Below DEVICE_MIN_N the numpy route reads each matrix with
+    interpret_result; the torch route on the CPU reads each batch's
+    labels from mcl_labels (its plain version: no launch) and never calls
+    interpret_result. Both give interpret_result's partitions."""
+    calls, labelled = [], []
+    real, real_labels = mcl.interpret_result, mcl.mcl_labels
 
     def counted(x, *a, **k):
         calls.append(x.shape)
         return real(x, *a, **k)
 
+    def labels(m):
+        labelled.append(m.shape[0])
+        return real_labels(m)
+
     monkeypatch.setattr(mcl, 'interpret_result', counted)
-    before = mcl.run_mcl_partitions.card_interprets
+    monkeypatch.setattr(mcl, 'mcl_labels', labels)
+    n0 = kmi.mcl_labels.launches
     coo = _links(36, 12, 4)
     parts, _, _ = mcl.run_mcl_partitions(None, INFLATIONS, coo=coo,
                                          max_iter=60, device='cpu',
                                          device_min_n=device_min_n)
-    assert len(calls) == len(INFLATIONS) == len(parts)
-    assert mcl.run_mcl_partitions.card_interprets == before
+    assert len(parts) == len(INFLATIONS)
+    if device_min_n is None:
+        assert len(calls) == len(INFLATIONS) and not labelled
+    else:
+        assert not calls and sum(labelled) == len(INFLATIONS)
+    assert kmi.mcl_labels.launches == n0
+    res = mcl.run_mcl(mcl._coo_to_dense_np(*coo), INFLATIONS, max_iter=60,
+                      device_min_n=device_min_n, device='cpu')
+    assert parts == [real(m) for m in res.matrices]
 
 
 # ---- on the card ----
@@ -347,8 +360,7 @@ def test_kernel_allocates_no_pattern_and_waits_for_nothing(card):
 def test_sweep_card_route_equals_interpret_result(card, monkeypatch):
     """run_mcl_partitions on the card: partitions equal interpret_result
     of run_mcl's matrices, one labels launch a batch, interpret_result
-    never called, card_interprets up by B, the host syncs unchanged (3 a
-    batch)."""
+    never called, the host syncs unchanged (3 a batch)."""
     monkeypatch.setattr(mcl, '_batch_size', lambda B, n: 2)
     coo = _links(1200, 150, 9)
     infl = [1.2, 1.6, 2.0, 2.6, 3.2]
@@ -357,15 +369,13 @@ def test_sweep_card_route_equals_interpret_result(card, monkeypatch):
     real = mcl.interpret_result
     monkeypatch.setattr(mcl, 'interpret_result', None)
     kmi.mcl_labels.launches = 0
-    before = mcl.run_mcl_partitions.card_interprets
     parts, iters, conv = mcl.run_mcl_partitions(None, infl, coo=coo,
                                                 device=card)
     monkeypatch.setattr(mcl, 'interpret_result', real)
     assert parts == want
     assert np.array_equal(iters, res.n_iters)
     assert np.array_equal(conv, res.converged)
-    assert mcl.run_mcl_partitions.card_interprets - before == len(infl)
-    assert kmi.mcl_labels.launches == 3
+    assert kmi.mcl_labels.launches == 3          # batches of 2, 2, 1
     assert any(p is not None for p in parts)
 
 

@@ -25,6 +25,7 @@ from haphic_tpu_torch import convert
 from haphic_tpu_torch.kernels import rescore as krs
 from haphic_tpu_torch.order import optimize as topt
 
+from .kit import kernelkit as kit
 from .test_optimize import _sim_chromosome_problem
 from .test_torch_optimize import (_cache_setup, _eq, _jax_dgen, _jax_draws,
                                   _row_sums, _t)
@@ -244,12 +245,12 @@ def test_evolve_delta_cycles_match_jax(monkeypatch):
 def test_rescore_bound(caches):
     """The bound at the dense pipeline's largest batch: the bytes
     written bound caches mode, the operations scores mode."""
-    ms, by = krs.bound_ms(7, 100, 1024, 196608, caches)
+    ms, by = kit.rescore_bound_ms(7, 100, 1024, 196608, caches)
     pairs = 7 * 100 * 196608
     if caches:
         assert by == 'bytes'
-        assert ms == pytest.approx(28 * pairs / krs.HBM_BPS * 1e3, rel=0.05)
+        assert ms == pytest.approx(28 * pairs / kit.HBM_BPS * 1e3, rel=0.05)
     else:
         assert by == 'operations'
-        assert ms == pytest.approx(krs.OPS_PER_PAIR * pairs
-                                   / krs.FP32_FLOPS * 1e3)
+        assert ms == pytest.approx(kit.RESCORE_OPS_PER_PAIR * pairs
+                                   / kit.FP32_FLOPS * 1e3)

@@ -5,11 +5,12 @@
         [--reps 10]
 
 For each shape BxN (B matrices of n fragments), in the order ABBA, each
-checkout runs in a process of its own that imports only that checkout:
-it builds its `mcl_column` kernel, makes one later MCL iteration of a
-seeded block matrix (the iterate after two iterations and its
-expansion, both made with the plain version, so that both checkouts
-time the same input), checks its kernel against the plain version and
+checkout runs in a process of its own that imports only that checkout
+and this directory's kernelkit.py: it builds its `mcl_column` kernel,
+makes one later MCL iteration of a seeded block matrix (the iterate
+after two iterations and its expansion, both made with the plain
+version, so that both checkouts time the same input), checks its
+kernel against the plain version and
 times the kernel with the statistic (old given) and without it, with
 CUDA events. Each turn prints one JSON line; the last line holds every
 turn's ms by shape and checkout beside the bound. Exits non-zero when a
@@ -23,12 +24,15 @@ import subprocess
 import sys
 
 ORDER = 'ABBA'
+TOOLS = os.path.dirname(os.path.abspath(__file__))
 
 TURN = r'''
-import json, subprocess, sys
+import json, sys
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[5])
+import kernelkit as kit
 from haphic_tpu_torch.cluster import mcl as tmcl
 from haphic_tpu_torch.kernels import build as kbuild
 from haphic_tpu_torch.kernels import mcl_column as kmc
@@ -37,48 +41,20 @@ pruning, dev = 1e-4, torch.device('cuda')
 kbuild.build(['mcl_column'])
 infl = torch.as_tensor(np.linspace(1.1, 1.6, B, dtype=np.float32),
                        device=dev)
-# kmc.seeded_iterate's matrix, iterated with the plain version
-block = 1000
-rng = np.random.default_rng(0)
-j = np.repeat(np.arange(n), 51)
-start = j // block * block
-size = np.minimum(block, n - start)
-i = start + rng.integers(0, 1 << 30, j.size) % size
-i[50::51] = rng.integers(0, n, n)
-w = rng.exponential(20.0, j.size).astype(np.float32)
-keep = i < j
-a = tmcl.densify_coo(i[keep], j[keep], w[keep], n, dev)
-pre = tmcl._matpower(tmcl._colnorm(a), 2)
-del a
-m = kmc.mcl_column_plain(pre[None].expand(B, n, n), infl, pruning)[0]
-del pre
-m = kmc.mcl_column_plain(tmcl._matpower(m, 2), infl, pruning)[0]
+m = kit.mcl_column_iterate(0, B, n, infl, pruning, 2, dev)
 e = tmcl._matpower(m, 2)
 got, stat = kmc.mcl_column(e, infl, pruning, old=m)
 want, want_stat = kmc.mcl_column_plain(e, infl, pruning, old=m)
-cmp = kmc.compare(got, want, kmc._inflate(e, infl.view(-1, 1, 1)), pruning)
+cmp = kit.mcl_column_compare(got, want, kmc._inflate(e, infl.view(-1, 1, 1)),
+                             pruning)
 del got, want
-def time_ms(fn):
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-ms = time_ms(lambda: kmc.mcl_column(e, infl, pruning, old=m))
-ms_no_old = time_ms(lambda: kmc.mcl_column(e, infl, pruning))
-smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                      '--format=csv,noheader'], capture_output=True,
-                     text=True).stdout.strip()
+ms = kit.time_ms(lambda: kmc.mcl_column(e, infl, pruning, old=m), reps)
+ms_no_old = kit.time_ms(lambda: kmc.mcl_column(e, infl, pruning), reps)
 print(json.dumps(dict(B=B, n=n, ms=ms, ms_no_old=ms_no_old,
-                      bound_ms=kmc.bound_ms(B, n, True)[0],
-                      bound_ms_no_old=kmc.bound_ms(B, n, False)[0],
+                      bound_ms=kit.mcl_column_bound_ms(B, n, True)[0],
+                      bound_ms_no_old=kit.mcl_column_bound_ms(B, n, False)[0],
                       stat_max_abs_err=float((stat - want_stat).abs().max()),
-                      nvidia_smi=smi, **cmp)))
+                      nvidia_smi=kit.nvidia_smi(), **cmp)))
 '''
 
 
@@ -96,7 +72,7 @@ def main(argv=None) -> int:
         for turn, tree in enumerate(ORDER):
             proc = subprocess.run(
                 [sys.executable, '-c', TURN, dirs[tree], B, n,
-                 str(args.reps)], capture_output=True, text=True,
+                 str(args.reps), TOOLS], capture_output=True, text=True,
                 cwd=dirs[tree])
             if proc.returncode != 0:
                 sys.stderr.write(proc.stdout + proc.stderr)

@@ -39,14 +39,14 @@ each. Exits non-zero when a turn fails.
 """
 
 import argparse
-import functools
-import importlib.util
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+
+import kernelkit as kit
 
 TOOLS = os.path.dirname(os.path.abspath(__file__))
 SHAPE = dict(G=7, P=100, k=1024, R=196608, pad=1000, seed=5)
@@ -82,19 +82,6 @@ def inputs(torch, G, P, k, R, pad, seed, device='cuda'):
         torch.as_tensor(d, device=device), torch.as_tensor(w, device=device)]
 
 
-@functools.lru_cache(maxsize=None)
-def profiling():
-    """The port's profiling helper (haphic_tpu_torch/kernels/profiling.py)
-    of this tools directory's tree, loaded from its file: a checkout under
-    test may predate it."""
-    path = os.path.join(os.path.dirname(TOOLS), 'haphic_tpu_torch',
-                        'kernels', 'profiling.py')
-    spec = importlib.util.spec_from_file_location('_ab_profiling', path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def measure(torch, fn, reps):
     """fn's ms a call by CUDA events, its device kernels by the profiler
     and its host us a call; fn is called with no argument."""
@@ -115,7 +102,7 @@ def measure(torch, fn, reps):
     host_us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
     calls = 5
-    ev = profiling().kernel_events(fn, calls)
+    ev = kit.kernel_events(fn, calls)
     per = len(ev) // calls
     first, prev = [], None
     for name, start, end in ev[-per:] if per else []:
@@ -175,14 +162,13 @@ import ab_rescore as ab
 from haphic_tpu_torch.kernels import rescore as krs
 dev = torch.device('cuda', torch.cuda.current_device())
 sms = torch.cuda.get_device_properties(dev).multi_processor_count
-prof = ab.profiling()
 reps = cfg['reps']
 
 
 def timed(args, caches):
     fn = lambda: krs.rescore(*args, caches=caches)
     ms = ab.measure(torch, fn, reps)['ms']
-    ev = prof.kernel_events(fn, 10)
+    ev = ab.kit.kernel_events(fn, 10)
     return {'ms': ms, 'device_ms': sum(e - s for _, s, e in ev) / 1e3
             / max(1, len(ev)), 'kernels': len(ev),
             'sha': ab.digest(torch, fn())}

@@ -9,7 +9,8 @@ Runs chip_smoke.py's `sparse_pipeline` phase once (the 480 Mb /
 6,000,000-pair simulated genome, n = 24,000, the pipeline on the card)
 to take the arguments the pipeline gave run_mcl_sparse, then runs that
 sweep again in the given order: A with col_allclose's kernel, as the
-pipeline runs it, B with its plain version (col_allclose.plain_stat).
+pipeline runs it, B with its plain version (kernelkit.py's
+col_allclose_plain_stat in the engine's place).
 Every sweep step is timed between two syncs with the card. Each sweep
 prints one JSON line: the statistic, its turn, sweep_s, the steps' ms
 (sum, p50, p99, max, and the count and sum by K), the kernel's launches,
@@ -21,11 +22,11 @@ process that imports one checkout's package only and runs that sweep
 with the checkout's statistic kernel (A and B as the order says), so
 that the parent's and the change's steps by K and the statistic's
 launches stand side by side; each turn also times the statistic of the
-sweep's first step as that checkout's sweep takes it (the parent's once
-a column chunk, the change's once a step: tools/ab_rescore.py's
-measure, ms by CUDA events, device us and kernels by torch.profiler,
-and a hash of its result). Exits non-zero when CUDA is unavailable,
-when a turn fails, or when two sweeps differ in iterations or shrinks.
+sweep's first step as the sweep takes it, once over all of the step's
+columns (tools/ab_rescore.py's measure: ms by CUDA events, device us and
+kernels by torch.profiler, and a hash of its result). Exits non-zero
+when CUDA is unavailable, when a turn fails, or when two sweeps differ
+in iterations or shrinks.
 """
 
 import argparse
@@ -35,8 +36,11 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
+
+import kernelkit as kit
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,7 +61,9 @@ def sweep(torch, sp, kca, call, plain: bool) -> dict:
     sp._sweep_step = timed
     kca.col_allclose.launches = 0
     try:
-        with kca.plain_stat(sp) if plain else contextlib.nullcontext():
+        with mock.patch.object(sp, 'col_allclose',
+                               kit.col_allclose_plain_stat) if plain \
+                else contextlib.nullcontext():
             res = sp.run_mcl_sparse(*call['args'], **call['kw'])
     finally:
         sp._sweep_step = step
@@ -98,13 +104,14 @@ with open(os.path.join(sys.argv[2], 'call.pkl'), 'wb') as f:
 '''
 
 TURN = r'''
-import inspect, json, os, pickle, sys
+import json, os, pickle, sys
 import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
 sys.path.insert(1, sys.argv[3])
 import ab_rescore
 import ab_sparse_sweep as ab
+import kernelkit as kit
 from haphic_tpu_torch.cluster import sparse_mcl as sp
 from haphic_tpu_torch.kernels import build as kbuild
 from haphic_tpu_torch.kernels import col_allclose as kca
@@ -126,30 +133,24 @@ try:
     out = ab.sweep(torch, sp, kca, call, False)
 finally:
     sp._sweep_step = step
-# the statistic of the sweep's first step, as this checkout's sweep
-# takes it: over its column chunks, or once over all of the columns
+# the statistic of the sweep's first step, once over all of the columns,
+# as the sweep takes it
 si, sv, f, active, n, K, chunk, pruning, expansion = first[0]
 sel = torch.as_tensor(np.flatnonzero(active), device=si.device)
 A_i, A_v, fa = si[sel], sv[sel], f[sel]
-new = kcol.step_columns(kcol.sparse_column, A_i, A_v, fa, n, K, chunk,
-                        pruning, expansion)
+new = kit.step_columns(kcol.sparse_column, A_i, A_v, fa, n, K, chunk,
+                       pruning, expansion)
 flag = torch.zeros(1, dtype=torch.int32, device=si.device)
-per_chunk = inspect.signature(kca.step_stats).parameters[
-    'chunk'].default is inspect.Parameter.empty
-kw = dict(bad=flag)
 
 
 def stat():
-    if per_chunk:
-        return kca.step_stats(kca.col_allclose, A_i, A_v, *new, n, chunk,
-                              **kw)
-    return kca.step_stats(kca.col_allclose, A_i, A_v, *new, n, **kw)
+    return kca.col_allclose(A_i, A_v, *new, n, bad=flag)
 
 
 out['statistic_a_step'] = dict(
     ab_rescore.measure(torch, stat, 20), K=int(K), columns=int(A_i.shape[1]),
-    B=int(A_i.shape[0]), per_chunk=per_chunk,
-    sha=ab_rescore.digest(torch, stat()), flag=int(flag))
+    B=int(A_i.shape[0]), sha=ab_rescore.digest(torch, stat()),
+    flag=int(flag))
 print(json.dumps(out), flush=True)
 '''
 

@@ -16,9 +16,9 @@ order in one process:
   host_and_device  the window tracing CPU and CUDA.
 
 Prints one JSON line per condition: the rescoring kernels each window
-recorded and the names of any other kernel. Then runs
-haphic_tpu_torch/kernels/profiling.py's one_kernel_a_call as the card
-test does and prints what it returns or raises.
+recorded and the names of any other kernel. Then runs kernelkit.py's
+one_kernel_a_call as the card test does and prints what it returns or
+raises.
 """
 
 import argparse
@@ -32,11 +32,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from haphic_tpu_torch.kernels import profiling  # noqa: E402
 from haphic_tpu_torch.kernels import rescore as krs  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import ab_rescore  # noqa: E402
+import kernelkit as kit  # noqa: E402
 
 NAME = 'rescore_kernel'
 
@@ -80,7 +80,7 @@ def main(argv=None) -> int:
                                      if NAME not in n}),
             'device': torch.cuda.get_device_name(0)}), flush=True)
     try:
-        ms = profiling.one_kernel_a_call(fn, args.calls, NAME)
+        ms = kit.one_kernel_a_call(fn, args.calls, NAME)
         print(json.dumps({'one_kernel_a_call_ms': ms}), flush=True)
     except RuntimeError as e:
         print(json.dumps({'one_kernel_a_call_error': str(e)}), flush=True)

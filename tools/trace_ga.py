@@ -1,6 +1,7 @@
+#!/usr/bin/env python3
 """Trace the device GA's kernels on the card.
 
-    python -m haphic_tpu_torch.kernels.trace_ga [--G 7] [--P 100]
+    python3 tools/trace_ga.py [--G 7] [--P 100]
         [--k 1024] [--R 196608] [--gens 10] [--out DIR]
         [--pipeline OUTDIR --fasta ASM.FA]
 
@@ -55,23 +56,21 @@ import argparse
 import glob
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import kernelkit as kit  # noqa: E402
+
 # generations the pipeline's batch evolves before it is traced
 WARM_GENS = 100
 # generations of the traced window: the GA's default log_every
 WINDOW_GENS = 500
-
-def _nvidia_smi() -> str:
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def make_batch(G: int, P: int, k: int, R: int, seed: int, device):
@@ -422,19 +421,6 @@ def trace_window(rec, order, ori, seed: int, ngen: int,
             'marked': marked, 'runs_equal': same}
 
 
-def _event_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def kernel_breakdown(rec, state, gen, reps: int) -> dict:
     """CUDA-event ms of one delta_generation launch on one set of draws
     drawn as _dgen draws them, applied again and again to one copy of
@@ -465,7 +451,7 @@ def kernel_breakdown(rec, state, gen, reps: int) -> dict:
                                        opt._DELTA_MIN_GAIN,
                                        opt._DELTA_SPAN_GAIN, accept=accept)
     own = from_draws(tuple(x.clone() for x in state), move)[1]
-    draws_ms = _event_ms(lambda: from_draws(st), reps)
+    draws_ms = kit.time_ms(lambda: from_draws(st), reps)
     st = tuple(x.clone() for x in state)
     still = (torch.zeros_like(move[0]),) + tuple(move[1:])
     out = {'path': 'delta_generation_breakdown',
@@ -476,12 +462,12 @@ def kernel_breakdown(rec, state, gen, reps: int) -> dict:
            'pairs': G * P * state[4].shape[2],
            'accepted_rows': int(own.sum()),
            'draws_generation_ms': draws_ms,
-           'reject_all_ms': _event_ms(
+           'reject_all_ms': kit.time_ms(
                lambda: run(move, torch.zeros_like(own)), reps),
-           'generation_ms': _event_ms(lambda: run(move, own), reps),
-           'accept_all_ms': _event_ms(
+           'generation_ms': kit.time_ms(lambda: run(move, own), reps),
+           'accept_all_ms': kit.time_ms(
                lambda: run(move, torch.ones_like(own)), reps),
-           'no_move_ms': _event_ms(
+           'no_move_ms': kit.time_ms(
                lambda: run(still, torch.zeros_like(own)), reps)}
     del st
     return out
@@ -491,15 +477,7 @@ def trace_score(rec, order, ori, calls: int) -> dict:
     """CUDA-event ms per score_population call and device ms per call
     of each kernel it launches."""
     from torch.profiler import ProfilerActivity, profile
-    rec.score(order, ori)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
-        rec.score(order, ori)
-    end.record()
-    torch.cuda.synchronize()
+    ms = kit.time_ms(lambda: rec.score(order, ori), calls)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             rec.score(order, ori)
@@ -511,7 +489,7 @@ def trace_score(rec, order, ori, calls: int) -> dict:
         if dev_us > 0:
             kernels[ev.key[:60]] = dev_us / 1e3 / calls
     return {'path': 'score_population',
-            'ms_per_call': start.elapsed_time(end) / calls,
+            'ms_per_call': ms,
             'device_ms_per_call': kernels}
 
 
@@ -535,7 +513,7 @@ def main(argv=None) -> int:
     if args.pipeline and not args.fasta:
         ap.error('--pipeline needs --fasta')
     from haphic_tpu_torch.kernels import delta as kdelta
-    card = _nvidia_smi()
+    card = kit.nvidia_smi()
     shape = {'G': args.G, 'P': args.P, 'k': args.k, 'R': args.R}
     batches = [('random', lambda: make_batch(
         args.G, args.P, args.k, args.R, args.seed, 'cuda') + (shape,))]
